@@ -1,0 +1,997 @@
+// Fused NAFBlock backward for Hopper (sm_90a): kernels K3 (nafblk_p1) and K4
+// (nafblk_p2), bound to Python through a plain C interface (ctypes).
+//
+// Layout as in nafblock_fwd.cu: activations contiguous NCHW viewed as
+// [N, C, H*W]; weights fp32, matrices already rounded to the compute type
+// (bf16 when activations are bf16), row-major [Cout, Cin]; vectors [C].
+// Every weight gradient is fp32.
+//
+// K3 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
+//       _kernel_p1 (pallas_call in _call_p1).
+//   Recomputes the block's second half from (x, g, att) -- v = g * att,
+//   pth = W3 v + b3, z = x + beta * pth, LN2, q = W4 h2 + b4,
+//   wv = q1 * q2, s = W5 wv + b5 -- and back-propagates dout through it:
+//   dz (stored in dout's type), the per-(n, c) SCA grad da = sum_p dv * g,
+//   and the fp32 grads of W3, b3, norm2, W4, b4, W5, b5, beta, gamma.
+//   Bound: reads x, g, dout and writes dz (4 * C * HW activation elements
+//   per image); ~24 * C^2 FLOPs per pixel at F = C (8 C^2 recompute, 8 C^2
+//   input-side products, 8 C^2 weight-gradient outer products). Memory-
+//   bound in bf16 on the tensor cores up to C ~ 64; this version runs fp32
+//   FMAs (no tensor cores) and is bound by operations.
+//   Design: k3_kernel owns P pixels and all channels, like K2; v, z/xhat2,
+//   pth, ds/dp, q/dq and wv stay in shared memory ((4C + 3F) * P * 4
+//   bytes: P = 32 up to C = F = 256, P = 16 at C = F = 512, 224 KB). The
+//   vector grads are reduced over the block's pixels with lane shuffles and
+//   written as per-block partials. A weight grad is a sum over every pixel
+//   of an outer product of two per-pixel vectors; the TPU grid carries its
+//   accumulator in VMEM from one step to the next, which has no parallel
+//   counterpart here (4 C^2 fp32 values per block at C = 512 is 4 MB). So
+//   k3_kernel writes the two operands of each product -- (ds, wv), (dq,
+//   h2), (dp, v), already rounded to the compute type, as the TPU kernel's
+//   _dot rounds them -- to a workspace, and wgrad_kernel (a tiled 64 x 64
+//   product split over pixel chunks) writes fp32 partials that sum_rows
+//   adds in a fixed order. No float atomics: two runs give the same bits.
+//
+// K4 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
+//       _kernel_p2 (pallas_call in _call_p2).
+//   Recomputes LN1 -> conv1 -> depthwise 3x3 from x, rebuilds the gate grad
+//   dg = (W3^T (beta * dz)) * att + dgc, then du, the depthwise adjoint dt,
+//   the tap grads dkdw [2C, 9] and dbk, conv1's backward (dW1, db1, dh),
+//   LN1's backward (dw1n, db1n) and dx = LN1^T(dh) + dz (in dz's type).
+//   The gate grad uses u = dw3x3(t) + bk, the block's true derivative (the
+//   TPU kernel omits bk there; see ROADMAP.md, queue 3).
+//   Bound: reads x and dz and writes dx (3 * C * HW elements per image);
+//   ~14 * C^2 FLOPs per pixel (conv1 recompute 4 C^2, W3^T 2 C^2, W1^T
+//   4 C^2, dW1 4 C^2) plus ~108 C for the depthwise parts. fp32 FMAs here.
+//   Design: the halo. dt at a pixel needs du one pixel out, du needs u, so
+//   t, and hence x, two pixels out, and dz one pixel out. k4a_kernel tiles
+//   the image in 2-D like K1: a 16 x 16 halo tile (one thread per pixel)
+//   around 12 x 12 output pixels, 16 gate channels per block. Each thread
+//   recomputes LN1 and the conv1 rows j, C + j of its pixel and the gate
+//   grad dg[j] from the C channels of dz; t sits in shared memory with 0
+//   outside the image (zero SAME padding of the conv1 output, not b1), and
+//   so does du, with dg = 0 outside the image. The tile's own pixels (each
+//   image pixel belongs to exactly one tile) give dt, the tap grads, dbk
+//   and db1; dt goes to the workspace in the compute type (the operand
+//   both of dW1 and of W1^T dt). k4b_kernel then owns P pixels and all
+//   channels, as K2: LN1 again, dh = W1^T dt, LN1's backward, dx. dW1 is a
+//   wgrad_kernel product of (dt, h).
+//
+// Numerics follow the TPU kernels: LN statistics and elementwise math in
+// fp32; every matrix-product operand rounded to the compute type with fp32
+// accumulation; dz in dout's type and dx in dz's type.
+//
+// Kernels run on the caller's stream and allocate nothing: the caller
+// passes a workspace of nafblk_p{1,2}_workspace() bytes. Every entry point
+// returns cudaGetLastError() of its launches (0 = success).
+
+#include "nafblock_common.cuh"
+
+namespace {
+
+using namespace nafblk;
+
+// Dynamic shared memory a block may use beside a 2 KB static buffer.
+constexpr long long kSmemLimit = 232448 - 2048;
+
+// ---------------------------------------------------------------------------
+// Workspace carving (the same walk sizes and splits the workspace)
+// ---------------------------------------------------------------------------
+
+struct Carver {
+  char* base;
+  size_t off = 0;
+  template <typename U> U* take(size_t count) {
+    off = (off + 255) & ~size_t(255);
+    U* p = base ? reinterpret_cast<U*>(base + off) : nullptr;
+    off += count * sizeof(U);
+    return p;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Weight-gradient products: out[i, j] = sum over n, p of A[n, i, p] B[n, j, p]
+// ---------------------------------------------------------------------------
+
+constexpr int kWT = 64;         // output tile, rows and columns
+constexpr int kWK = 32;         // pixels per shared-memory stage
+constexpr int kWBlocks = 1024;  // blocks to aim for in one product
+
+struct Split {
+  int S;        // pixel chunks per image
+  long long L;  // pixels per chunk (a multiple of kWK)
+};
+
+Split wgrad_split(int M, int Nc, int N, long long HW) {
+  const long long tiles =
+      (long long)((M + kWT - 1) / kWT) * ((Nc + kWT - 1) / kWT);
+  long long S = (kWBlocks + tiles * N - 1) / (tiles * N);
+  const long long max_s = (HW + kWK - 1) / kWK;
+  if (S > max_s) S = max_s;
+  if (S < 1) S = 1;
+  long long L = (HW + S - 1) / S;
+  L = (L + kWK - 1) / kWK * kWK;
+  return {(int)((HW + L - 1) / L), L};
+}
+
+size_t wgrad_partial_floats(int M, int Nc, int N, long long HW) {
+  return (size_t)N * wgrad_split(M, Nc, N, HW).S * M * Nc;
+}
+
+// grid (row tiles * column tiles, S, N): part[n * S + s, i, j] over the
+// pixels [s L, min((s + 1) L, HW)) of image n. 16 x 16 threads each own
+// 4 x 4 outputs (rows ty + 16 a, columns tx + 16 b).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wgrad_kernel(
+    const T* __restrict__ A, const T* __restrict__ B, float* __restrict__ part,
+    int M, int Nc, long long HW, long long L) {
+  __shared__ float As[kWK][kWT + 1];
+  __shared__ float Bs[kWK][kWT + 1];
+  const int tiles_c = (Nc + kWT - 1) / kWT;
+  const int i0 = (blockIdx.x / tiles_c) * kWT;
+  const int j0 = (blockIdx.x % tiles_c) * kWT;
+  const int s = blockIdx.y;
+  const int n = blockIdx.z;
+  const long long p0 = (long long)s * L;
+  const long long p1 = p0 + L < HW ? p0 + L : HW;
+  const T* An = A + (long long)n * M * HW;
+  const T* Bn = B + (long long)n * Nc * HW;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+
+  for (long long k0 = p0; k0 < p1; k0 += kWK) {
+    for (int e = tid; e < kWT * kWK; e += kThreads) {
+      const int r = e / kWK, k = e % kWK;
+      const long long p = k0 + k;
+      const bool okp = p < p1;
+      As[k][r] = (okp && i0 + r < M)
+                     ? to_f<T>(An[(long long)(i0 + r) * HW + p]) : 0.f;
+      Bs[k][r] = (okp && j0 + r < Nc)
+                     ? to_f<T>(Bn[(long long)(j0 + r) * HW + p]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < kWK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[q] = As[k][ty + 16 * q];
+        b[q] = Bs[k][tx + 16 * q];
+      }
+#pragma unroll
+      for (int qa = 0; qa < 4; ++qa)
+#pragma unroll
+        for (int qb = 0; qb < 4; ++qb)
+          acc[qa][qb] = fmaf(a[qa], b[qb], acc[qa][qb]);
+    }
+    __syncthreads();
+  }
+  float* out = part + ((long long)n * gridDim.y + s) * M * Nc;
+#pragma unroll
+  for (int qa = 0; qa < 4; ++qa) {
+    const int i = i0 + ty + 16 * qa;
+    if (i >= M) continue;
+#pragma unroll
+    for (int qb = 0; qb < 4; ++qb) {
+      const int j = j0 + tx + 16 * qb;
+      if (j < Nc) out[(long long)i * Nc + j] = acc[qa][qb];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t wgrad(const T* A, const T* B, int M, int Nc, int N, long long HW,
+                  float* part, float* out, cudaStream_t s) {
+  const Split sp = wgrad_split(M, Nc, N, HW);
+  const unsigned tiles =
+      (unsigned)(((M + kWT - 1) / kWT) * ((Nc + kWT - 1) / kWT));
+  wgrad_kernel<T><<<dim3(tiles, (unsigned)sp.S, (unsigned)N), kThreads, 0,
+                    s>>>(A, B, part, M, Nc, HW, sp.L);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum_rows(part, out, 1, N * sp.S, (long long)M * Nc, s);
+}
+
+// ---------------------------------------------------------------------------
+// K3: second half backward.  grid (ceil(HW / P), N), block kThreads.
+// Per-block vector partials, V = 6C + 2F floats:
+//   [dgamma C | db5 C | db4 2F | dw2n C | db2n C | dbeta C | db3 C]
+// and the SCA grad partials da [N, blocks, C].
+// ---------------------------------------------------------------------------
+
+int p1_pixels(int C, int F) {
+  for (int P = 32; P >= 8; P /= 2)
+    if ((long long)(4 * C + 3 * F) * P * 4 <= kSmemLimit) return P;
+  return 0;
+}
+
+template <typename T, int KO, int P>
+__global__ void __launch_bounds__(kThreads) k3_kernel(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const T* __restrict__ dout, const float* __restrict__ att,
+    const float* __restrict__ W3, const float* __restrict__ b3,
+    const float* __restrict__ w2n, const float* __restrict__ b2n,
+    const float* __restrict__ W4, const float* __restrict__ b4,
+    const float* __restrict__ W5, const float* __restrict__ b5,
+    const float* __restrict__ beta, const float* __restrict__ gamma,
+    T* __restrict__ dz_out, T* __restrict__ v_o, T* __restrict__ h2_o,
+    T* __restrict__ wv_o, T* __restrict__ ds_o, T* __restrict__ dq_o,
+    T* __restrict__ dp_o, float* __restrict__ vpart,
+    float* __restrict__ dapart, int C, int F, long long HW, float eps) {
+  constexpr int G = kThreads / P;
+  extern __shared__ float smem[];
+  float* a_s = smem;             // [C]  v, then h2, then dh2
+  float* z_s = a_s + C * P;      // [C]  z, then xhat2
+  float* p_s = z_s + C * P;      // [C]  pth (conv3 output)
+  float* d_s = p_s + C * P;      // [C]  ds, then dp (rounded)
+  float* q_s = d_s + C * P;      // [2F] q, then dq (rounded)
+  float* w_s = q_s + 2 * F * P;  // [F]  wv (rounded)
+  __shared__ float red_s[2 * G * P];
+
+  const int lane = threadIdx.x % P;
+  const int grp = threadIdx.x / P;
+  const int n = blockIdx.y;
+  const int blk = blockIdx.x;
+  const long long p = (long long)blk * P + lane;
+  const bool valid = p < HW;
+  const long long base = (long long)n * C * HW + p;
+  const long long baseF = (long long)n * F * HW + p;
+  const long long baseQ = (long long)n * 2 * F * HW + p;
+  const float* attn = att + (long long)n * C;
+  float* vp = vpart + ((long long)n * gridDim.x + blk) * (6 * C + 2 * F);
+  float* dap = dapart + ((long long)n * gridDim.x + blk) * C;
+  // loop counts shared by every group, so each lane meets every shuffle
+  const int it_c = (C + G * KO - 1) / (G * KO);
+  const int it_f = (F + G * KO - 1) / (G * KO);
+
+  // v = g * att (conv3 and dW3 operand), z = x
+  for (int c = grp; c < C; c += G) {
+    const float xv = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
+    const float gv = valid ? to_f<T>(g[base + (long long)c * HW]) : 0.f;
+    const float v = to_cdt<T>(gv * attn[c]);
+    a_s[c * P + lane] = v;
+    z_s[c * P + lane] = xv;
+    if (valid) v_o[base + (long long)c * HW] = from_f<T>(v);
+  }
+  __syncthreads();
+
+  // conv3: pth = W3 v + b3, z = x + beta * pth
+  for (int o0 = grp * KO; o0 < C; o0 += G * KO) {
+    float acc[KO];
+#pragma unroll
+    for (int r = 0; r < KO; ++r) acc[r] = 0.f;
+    rows_dot<KO, P>(W3, C, o0, C, a_s, lane, acc);
+#pragma unroll
+    for (int r = 0; r < KO; ++r) {
+      const int o = o0 + r;
+      if (o < C) {
+        const float pth = acc[r] + b3[o];
+        p_s[o * P + lane] = pth;
+        z_s[o * P + lane] += beta[o] * pth;
+      }
+    }
+  }
+  __syncthreads();
+
+  // LN2: xhat2 (kept), h2 (conv4 and dW4 operand)
+  float mu, rstd;
+  ln_stats<P>(z_s, C, red_s, grp, lane, eps, mu, rstd);
+  for (int c = grp; c < C; c += G) {
+    const float xh = (z_s[c * P + lane] - mu) * rstd;
+    const float h2 = to_cdt<T>(fmaf(xh, w2n[c], b2n[c]));
+    z_s[c * P + lane] = xh;
+    a_s[c * P + lane] = h2;
+    if (valid) h2_o[base + (long long)c * HW] = from_f<T>(h2);
+  }
+  __syncthreads();
+
+  // conv4 + gate: q1, q2, wv = q1 * q2
+  for (int j0 = grp * KO; j0 < F; j0 += G * KO) {
+    float qa[KO], qb[KO];
+#pragma unroll
+    for (int r = 0; r < KO; ++r) qa[r] = qb[r] = 0.f;
+    rows_dot<KO, P>(W4, C, j0, F, a_s, lane, qa);
+    rows_dot<KO, P>(W4 + (long long)F * C, C, j0, F, a_s, lane, qb);
+#pragma unroll
+    for (int r = 0; r < KO; ++r) {
+      const int j = j0 + r;
+      if (j < F) {
+        const float q1 = qa[r] + b4[j];
+        const float q2 = qb[r] + b4[F + j];
+        const float wv = to_cdt<T>(q1 * q2);
+        q_s[j * P + lane] = q1;
+        q_s[(F + j) * P + lane] = q2;
+        w_s[j * P + lane] = wv;
+        if (valid) wv_o[baseF + (long long)j * HW] = from_f<T>(wv);
+      }
+    }
+  }
+  __syncthreads();
+
+  // conv5 -> s; dgamma = sum dout * s; ds = gamma * dout; db5 = sum ds
+  for (int it = 0; it < it_c; ++it) {
+    const int o0 = (it * G + grp) * KO;
+    float acc[KO];
+#pragma unroll
+    for (int r = 0; r < KO; ++r) acc[r] = 0.f;
+    rows_dot<KO, P>(W5, F, o0, C, w_s, lane, acc);
+#pragma unroll
+    for (int r = 0; r < KO; ++r) {
+      const int o = o0 + r;
+      const bool ok = o < C;
+      const float dov =
+          (ok && valid) ? to_f<T>(dout[base + (long long)o * HW]) : 0.f;
+      const float sv = ok ? acc[r] + b5[o] : 0.f;
+      const float ds = ok ? gamma[o] * dov : 0.f;
+      const float sum_g = group_sum<P>(dov * sv);
+      const float sum_b = group_sum<P>(ds);
+      if (ok) {
+        const float dsr = to_cdt<T>(ds);
+        d_s[o * P + lane] = dsr;
+        if (valid) ds_o[base + (long long)o * HW] = from_f<T>(dsr);
+        if (lane == 0) {
+          vp[o] = sum_g;
+          vp[C + o] = sum_b;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // dwv = W5^T ds; dq = (dwv * q2, dwv * q1); db4 = sum dq
+  for (int it = 0; it < it_f; ++it) {
+    const int f0 = (it * G + grp) * KO;
+    float acc[KO];
+#pragma unroll
+    for (int r = 0; r < KO; ++r) acc[r] = 0.f;
+    cols_dot<KO, P>(W5, F, C, f0, F, d_s, lane, acc);
+#pragma unroll
+    for (int r = 0; r < KO; ++r) {
+      const int f = f0 + r;
+      const bool ok = f < F;
+      const float q1 = ok ? q_s[f * P + lane] : 0.f;
+      const float q2 = ok ? q_s[(F + f) * P + lane] : 0.f;
+      const float dq1 = acc[r] * q2;
+      const float dq2 = acc[r] * q1;
+      const float s1 = group_sum<P>(dq1);
+      const float s2 = group_sum<P>(dq2);
+      if (ok) {
+        const float r1 = to_cdt<T>(dq1), r2 = to_cdt<T>(dq2);
+        q_s[f * P + lane] = r1;
+        q_s[(F + f) * P + lane] = r2;
+        if (valid) {
+          dq_o[baseQ + (long long)f * HW] = from_f<T>(r1);
+          dq_o[baseQ + (long long)(F + f) * HW] = from_f<T>(r2);
+        }
+        if (lane == 0) {
+          vp[2 * C + f] = s1;
+          vp[2 * C + F + f] = s2;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // dh2 = W4^T dq; dw2n = sum dh2 * xhat2; db2n = sum dh2; LN2 backward sums
+  float sg = 0.f, sgx = 0.f;
+  for (int it = 0; it < it_c; ++it) {
+    const int c0 = (it * G + grp) * KO;
+    float acc[KO];
+#pragma unroll
+    for (int r = 0; r < KO; ++r) acc[r] = 0.f;
+    cols_dot<KO, P>(W4, C, 2 * F, c0, C, q_s, lane, acc);
+#pragma unroll
+    for (int r = 0; r < KO; ++r) {
+      const int c = c0 + r;
+      const bool ok = c < C;
+      const float dh = acc[r];
+      const float xh = ok ? z_s[c * P + lane] : 0.f;
+      const float s_w = group_sum<P>(dh * xh);
+      const float s_b = group_sum<P>(dh);
+      if (ok) {
+        a_s[c * P + lane] = dh;
+        const float gxh = dh * w2n[c];
+        sg += gxh;
+        sgx += gxh * xh;
+        if (lane == 0) {
+          vp[2 * C + 2 * F + c] = s_w;
+          vp[3 * C + 2 * F + c] = s_b;
+        }
+      }
+    }
+  }
+  groups_sum2<P>(sg, sgx, red_s, grp, lane);
+  const float mean_g = sg / C, mean_gx = sgx / C;
+
+  // dz = dout + LN2^T(dh2); dbeta = sum dz * pth; dp = beta * dz; db3
+  const int it_g = (C + G - 1) / G;
+  for (int it = 0; it < it_g; ++it) {
+    const int c = it * G + grp;
+    const bool ok = c < C;
+    float dzv = 0.f, pth = 0.f, dp = 0.f;
+    if (ok && valid) {
+      const float dov = to_f<T>(dout[base + (long long)c * HW]);
+      const float gxh = a_s[c * P + lane] * w2n[c];
+      dzv = dov + (gxh - mean_g - z_s[c * P + lane] * mean_gx) * rstd;
+      pth = p_s[c * P + lane];
+      dp = beta[c] * dzv;
+    }
+    const float s_beta = group_sum<P>(dzv * pth);
+    const float s_b3 = group_sum<P>(dp);
+    if (ok) {
+      const float dpr = to_cdt<T>(dp);
+      d_s[c * P + lane] = dpr;
+      if (valid) {
+        dz_out[base + (long long)c * HW] = from_f<T>(dzv);
+        dp_o[base + (long long)c * HW] = from_f<T>(dpr);
+      }
+      if (lane == 0) {
+        vp[4 * C + 2 * F + c] = s_beta;
+        vp[5 * C + 2 * F + c] = s_b3;
+      }
+    }
+  }
+  __syncthreads();
+
+  // dv = W3^T dp; da[n, c] = sum_p dv * g
+  for (int it = 0; it < it_c; ++it) {
+    const int c0 = (it * G + grp) * KO;
+    float acc[KO];
+#pragma unroll
+    for (int r = 0; r < KO; ++r) acc[r] = 0.f;
+    cols_dot<KO, P>(W3, C, C, c0, C, d_s, lane, acc);
+#pragma unroll
+    for (int r = 0; r < KO; ++r) {
+      const int c = c0 + r;
+      const bool ok = c < C;
+      const float gv =
+          (ok && valid) ? to_f<T>(g[base + (long long)c * HW]) : 0.f;
+      const float s_a = group_sum<P>(acc[r] * gv);
+      if (ok && lane == 0) dap[c] = s_a;
+    }
+  }
+}
+
+struct P1Work {
+  void *v, *h2, *wv, *ds, *dq, *dp;  // per-pixel operands [N, ch, HW], T
+  float *vpart, *dapart, *wpart;
+};
+
+P1Work carve_p1(Carver& cv, int N, int C, int F, long long HW, int P,
+                size_t esize) {
+  P1Work w;
+  const size_t px = (size_t)N * HW;
+  w.v = cv.take<char>(px * C * esize);
+  w.h2 = cv.take<char>(px * C * esize);
+  w.wv = cv.take<char>(px * F * esize);
+  w.ds = cv.take<char>(px * C * esize);
+  w.dq = cv.take<char>(px * 2 * F * esize);
+  w.dp = cv.take<char>(px * C * esize);
+  const size_t blocks = (size_t)N * ((HW + P - 1) / P);
+  w.vpart = cv.take<float>(blocks * (6 * C + 2 * F));
+  w.dapart = cv.take<float>(blocks * C);
+  size_t wp = wgrad_partial_floats(C, F, N, HW);
+  const size_t w4 = wgrad_partial_floats(2 * F, C, N, HW);
+  const size_t w3 = wgrad_partial_floats(C, C, N, HW);
+  if (w4 > wp) wp = w4;
+  if (w3 > wp) wp = w3;
+  w.wpart = cv.take<float>(wp);
+  return w;
+}
+
+struct P1Args {
+  const void *x, *g, *dout, *att, *W3, *b3, *w2n, *b2n, *W4, *b4, *W5, *b5,
+      *beta, *gamma;
+  void *dz, *da, *grads, *ws;
+  int N, C, F;
+  long long HW;
+  float eps;
+};
+
+template <typename T, int KO, int P>
+cudaError_t launch_k3(const P1Args& a, const P1Work& w, cudaStream_t s) {
+  const size_t smem = (size_t)(4 * a.C + 3 * a.F) * P * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      k3_kernel<T, KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((a.HW + P - 1) / P);
+  k3_kernel<T, KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.att),
+      static_cast<const float*>(a.W3), static_cast<const float*>(a.b3),
+      static_cast<const float*>(a.w2n), static_cast<const float*>(a.b2n),
+      static_cast<const float*>(a.W4), static_cast<const float*>(a.b4),
+      static_cast<const float*>(a.W5), static_cast<const float*>(a.b5),
+      static_cast<const float*>(a.beta), static_cast<const float*>(a.gamma),
+      static_cast<T*>(a.dz), static_cast<T*>(w.v), static_cast<T*>(w.h2),
+      static_cast<T*>(w.wv), static_cast<T*>(w.ds), static_cast<T*>(w.dq),
+      static_cast<T*>(w.dp), w.vpart, w.dapart, a.C, a.F, a.HW, a.eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_p1(const P1Args& a, cudaStream_t s) {
+  const int P = p1_pixels(a.C, a.F);
+  if (P == 0) return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const P1Work w = carve_p1(cv, a.N, a.C, a.F, a.HW, P, sizeof(T));
+  cudaError_t err;
+  if (P == 32)
+    err = a.C <= 64 ? launch_k3<T, 8, 32>(a, w, s)
+                    : launch_k3<T, 16, 32>(a, w, s);
+  else if (P == 16)
+    err = launch_k3<T, 16, 16>(a, w, s);
+  else
+    err = launch_k3<T, 16, 8>(a, w, s);
+  if (err != cudaSuccess) return err;
+
+  const int C = a.C, F = a.F, N = a.N;
+  const int blocks = (int)((a.HW + P - 1) / P);
+  float* grads = static_cast<float*>(a.grads);
+  float* dW3 = grads;
+  float* dW4 = dW3 + (size_t)C * C;
+  float* dW5 = dW4 + (size_t)2 * F * C;
+  float* vec = dW5 + (size_t)C * F;
+  if ((err = launch_sum_rows(w.vpart, vec, 1, N * blocks, 6 * C + 2 * F, s)))
+    return err;
+  if ((err = launch_sum_rows(w.dapart, static_cast<float*>(a.da), N, blocks,
+                             C, s)))
+    return err;
+  if ((err = wgrad<T>(static_cast<const T*>(w.ds),
+                      static_cast<const T*>(w.wv), C, F, N, a.HW, w.wpart,
+                      dW5, s)))
+    return err;
+  if ((err = wgrad<T>(static_cast<const T*>(w.dq),
+                      static_cast<const T*>(w.h2), 2 * F, C, N, a.HW,
+                      w.wpart, dW4, s)))
+    return err;
+  return wgrad<T>(static_cast<const T*>(w.dp), static_cast<const T*>(w.v), C,
+                  C, N, a.HW, w.wpart, dW3, s);
+}
+
+// ---------------------------------------------------------------------------
+// K4a: LN1 -> conv1 -> dw3x3 recompute, gate grad, depthwise adjoint.
+// grid (tiles, ceil(C / kBGate), N), block kThreads (16 x 16 halo tile).
+// Per-tile partials of 11 * 2C floats: index k * 2C + j for tap k < 9
+// (dkdw[j, k]), k = 9 (dbk[j]) and k = 10 (db1[j]).
+// ---------------------------------------------------------------------------
+
+constexpr int kBH = 16;          // halo tile side (threads)
+constexpr int kBT = kBH - 4;     // output pixels per tile side
+constexpr int kBGate = 16;       // gate channels per block
+constexpr int kBWarps = kThreads / 32;
+constexpr int kBRed = 11;        // reduced values per channel
+
+constexpr size_t k4a_smem_bytes() {
+  return (size_t)(2 * (2 * kBGate * kThreads) + kBWarps * kBRed * 2 * kBGate) *
+         sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) k4a_kernel(
+    const T* __restrict__ x, const T* __restrict__ dz,
+    const float* __restrict__ dgc, const float* __restrict__ att,
+    const float* __restrict__ w1n, const float* __restrict__ b1n,
+    const float* __restrict__ W1, const float* __restrict__ b1,
+    const float* __restrict__ kdw, const float* __restrict__ bk,
+    const float* __restrict__ W3, const float* __restrict__ beta,
+    T* __restrict__ dt_o, float* __restrict__ part, int C, int H, int W,
+    int tiles_x, float eps) {
+  constexpr int KO = kBGate;
+  extern __shared__ float smem[];
+  float* t_s = smem;                        // [2KO][256] t, 0 outside image
+  float* du_s = t_s + 2 * KO * kThreads;    // [2KO][256] du, 0 off the ring
+  float* red_s = du_s + 2 * KO * kThreads;  // [warps][kBRed][2KO]
+
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int j0 = blockIdx.y * KO;
+  const int n = blockIdx.z;
+  const int hr = tid / kBH, hc = tid % kBH;
+  const int gr = (tile / tiles_x) * kBT - 2 + hr;
+  const int gc = (tile % tiles_x) * kBT - 2 + hc;
+  const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
+  const long long HW = (long long)H * W;
+  const long long pix = inside ? (long long)gr * W + gc : 0;
+  const T* xn = x + (long long)n * C * HW + pix;
+  const T* dzn = dz + (long long)n * C * HW + pix;
+
+  float acc[2 * KO], dv[KO];
+#pragma unroll
+  for (int r = 0; r < 2 * KO; ++r) acc[r] = 0.f;
+#pragma unroll
+  for (int r = 0; r < KO; ++r) dv[r] = 0.f;
+
+  if (inside) {
+    // LN1 statistics (shifted one pass, as K1)
+    const float k0 = to_f<T>(xn[0]);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float d = to_f<T>(xn[(long long)c * HW]) - k0;
+      s1 += d;
+      s2 = fmaf(d, d, s2);
+    }
+    const float md = s1 / C;
+    const float var = fmaxf(s2 / C - md * md, 0.f);
+    const float mu = k0 + md;
+    const float rstd = rsqrtf(var + eps);
+    // conv1 rows j0 + r and C + j0 + r
+    for (int c = 0; c < C; c += 4) {
+      float h[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float xv = to_f<T>(xn[(long long)(c + q) * HW]);
+        h[q] = to_cdt<T>(fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]));
+      }
+#pragma unroll
+      for (int r = 0; r < KO; ++r) {
+        const int j = j0 + r;
+        if (j < C) {
+          const float4 wa = ldg4(W1 + (long long)j * C + c);
+          const float4 wb = ldg4(W1 + (long long)(C + j) * C + c);
+          acc[r] = dot4(wa, h[0], h[1], h[2], h[3], acc[r]);
+          acc[KO + r] = dot4(wb, h[0], h[1], h[2], h[3], acc[KO + r]);
+        }
+      }
+    }
+    // local gate grad dv[j] = sum_c W3[c, j] * round(beta[c] * dz[c])
+    for (int c = 0; c < C; ++c) {
+      const float pr = to_cdt<T>(beta[c] * to_f<T>(dzn[(long long)c * HW]));
+      const float* row = W3 + (long long)c * C + j0;
+#pragma unroll
+      for (int r = 0; r < KO; r += 4) {
+        if (j0 + r < C) {
+          const float4 w = ldg4(row + r);
+          dv[r + 0] = fmaf(w.x, pr, dv[r + 0]);
+          dv[r + 1] = fmaf(w.y, pr, dv[r + 1]);
+          dv[r + 2] = fmaf(w.z, pr, dv[r + 2]);
+          dv[r + 3] = fmaf(w.w, pr, dv[r + 3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < KO; ++r) {
+    const int j = j0 + r;
+    const bool ok = inside && j < C;
+    t_s[r * kThreads + tid] = ok ? acc[r] + b1[j] : 0.f;
+    t_s[(KO + r) * kThreads + tid] = ok ? acc[KO + r] + b1[C + j] : 0.f;
+  }
+  __syncthreads();
+
+  // u = dw3x3(t) + bk and du = (dg * u2, dg * u1) on the 1-ring
+  const bool ring = inside && hr >= 1 && hr <= kBH - 2 && hc >= 1 &&
+                    hc <= kBH - 2;
+  const long long nc = (long long)n * C;
+#pragma unroll 1
+  for (int r = 0; r < KO; ++r) {
+    const int j = j0 + r;
+    float dua = 0.f, dub = 0.f;
+    if (ring && j < C) {
+      const float* ka = kdw + (long long)j * 9;
+      const float* kb = kdw + (long long)(C + j) * 9;
+      float ua = 0.f, ub = 0.f;
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          const int q = (hr + kh - 1) * kBH + (hc + kw - 1);
+          ua = fmaf(ka[kh * 3 + kw], t_s[r * kThreads + q], ua);
+          ub = fmaf(kb[kh * 3 + kw], t_s[(KO + r) * kThreads + q], ub);
+        }
+      }
+      const float dg = dv[r] * att[nc + j] + dgc[nc + j];
+      dua = dg * (ub + bk[C + j]);
+      dub = dg * (ua + bk[j]);
+    }
+    du_s[r * kThreads + tid] = dua;
+    du_s[(KO + r) * kThreads + tid] = dub;
+  }
+  __syncthreads();
+
+  // the tile's own pixels: dt (adjoint taps), tap grads, dbk, db1
+  const bool own = inside && hr >= 2 && hr < 2 + kBT && hc >= 2 &&
+                   hc < 2 + kBT;
+  const int warp = tid / 32, lane = tid % 32;
+  T* dtn = dt_o + (long long)n * 2 * C * HW + pix;
+#pragma unroll 1
+  for (int r2 = 0; r2 < 2 * KO; ++r2) {
+    const int jl = j0 + (r2 % KO);
+    const int jg = r2 < KO ? jl : C + jl;
+    const bool ok = own && jl < C;
+    const float* kk = kdw + (long long)(jl < C ? jg : 0) * 9;
+    const float du = ok ? du_s[r2 * kThreads + tid] : 0.f;
+    float dt = 0.f;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int tap = kh * 3 + kw;
+        const float tv =
+            ok ? t_s[r2 * kThreads + (hr + kh - 1) * kBH + (hc + kw - 1)]
+               : 0.f;
+        const float s = warp_sum(du * tv);
+        if (lane == 0) red_s[(warp * kBRed + tap) * 2 * KO + r2] = s;
+        if (ok)
+          dt = fmaf(kk[tap],
+                    du_s[r2 * kThreads + (hr - kh + 1) * kBH + (hc - kw + 1)],
+                    dt);
+      }
+    }
+    const float s_bk = warp_sum(du);
+    const float s_b1 = warp_sum(dt);
+    if (lane == 0) {
+      red_s[(warp * kBRed + 9) * 2 * KO + r2] = s_bk;
+      red_s[(warp * kBRed + 10) * 2 * KO + r2] = s_b1;
+    }
+    if (ok) dtn[(long long)jg * HW] = from_f<T>(dt);
+  }
+  __syncthreads();
+  float* pt = part + ((long long)n * gridDim.x + tile) * kBRed * 2 * C;
+  for (int e = tid; e < kBRed * 2 * KO; e += kThreads) {
+    const int k = e / (2 * KO), r2 = e % (2 * KO);
+    const int jl = j0 + (r2 % KO);
+    if (jl >= C) continue;
+    const int jg = r2 < KO ? jl : C + jl;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBWarps; ++w) s += red_s[(w * kBRed + k) * 2 * KO + r2];
+    pt[(long long)k * 2 * C + jg] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4b: LN1 backward and dx.  grid (ceil(HW / P), N), block kThreads.
+// Per-block partials [dw1n C | db1n C].
+// ---------------------------------------------------------------------------
+
+int p2_pixels(int C) {
+  for (int P = 32; P >= 8; P /= 2)
+    if ((long long)4 * C * P * 4 <= kSmemLimit) return P;
+  return 0;
+}
+
+template <typename T, int KO, int P>
+__global__ void __launch_bounds__(kThreads) k4b_kernel(
+    const T* __restrict__ x, const T* __restrict__ dz,
+    const T* __restrict__ dt, const float* __restrict__ w1n,
+    const float* __restrict__ b1n, const float* __restrict__ W1,
+    T* __restrict__ dx_out, T* __restrict__ h_o, float* __restrict__ vpart,
+    int C, long long HW, float eps) {
+  constexpr int G = kThreads / P;
+  extern __shared__ float smem[];
+  float* t_s = smem;            // [2C] dt (compute type)
+  float* x_s = t_s + 2 * C * P; // [C]  x, then xhat
+  float* h_s = x_s + C * P;     // [C]  dh
+  __shared__ float red_s[2 * G * P];
+
+  const int lane = threadIdx.x % P;
+  const int grp = threadIdx.x / P;
+  const int n = blockIdx.y;
+  const int blk = blockIdx.x;
+  const long long p = (long long)blk * P + lane;
+  const bool valid = p < HW;
+  const long long base = (long long)n * C * HW + p;
+  const long long base2 = (long long)n * 2 * C * HW + p;
+  float* vp = vpart + ((long long)n * gridDim.x + blk) * 2 * C;
+  const int it_c = (C + G * KO - 1) / (G * KO);
+
+  for (int c = grp; c < C; c += G)
+    x_s[c * P + lane] = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
+  for (int j = grp; j < 2 * C; j += G)
+    t_s[j * P + lane] = valid ? to_f<T>(dt[base2 + (long long)j * HW]) : 0.f;
+  __syncthreads();
+
+  float mu, rstd;
+  ln_stats<P>(x_s, C, red_s, grp, lane, eps, mu, rstd);
+  for (int c = grp; c < C; c += G) {
+    const float xh = (x_s[c * P + lane] - mu) * rstd;
+    x_s[c * P + lane] = xh;
+    if (valid)
+      h_o[base + (long long)c * HW] = from_f<T>(fmaf(xh, w1n[c], b1n[c]));
+  }
+  __syncthreads();
+
+  // dh = W1^T dt; dw1n = sum dh * xhat; db1n = sum dh; LN1 backward sums
+  float sg = 0.f, sgx = 0.f;
+  for (int it = 0; it < it_c; ++it) {
+    const int c0 = (it * G + grp) * KO;
+    float acc[KO];
+#pragma unroll
+    for (int r = 0; r < KO; ++r) acc[r] = 0.f;
+    cols_dot<KO, P>(W1, C, 2 * C, c0, C, t_s, lane, acc);
+#pragma unroll
+    for (int r = 0; r < KO; ++r) {
+      const int c = c0 + r;
+      const bool ok = c < C;
+      const float dh = acc[r];
+      const float xh = ok ? x_s[c * P + lane] : 0.f;
+      const float s_w = group_sum<P>(dh * xh);
+      const float s_b = group_sum<P>(dh);
+      if (ok) {
+        h_s[c * P + lane] = dh;
+        const float gxh = dh * w1n[c];
+        sg += gxh;
+        sgx += gxh * xh;
+        if (lane == 0) {
+          vp[c] = s_w;
+          vp[C + c] = s_b;
+        }
+      }
+    }
+  }
+  groups_sum2<P>(sg, sgx, red_s, grp, lane);
+  const float mean_g = sg / C, mean_gx = sgx / C;
+  if (valid) {
+    for (int c = grp; c < C; c += G) {
+      const float gxh = h_s[c * P + lane] * w1n[c];
+      const float dx = (gxh - mean_g - x_s[c * P + lane] * mean_gx) * rstd +
+                       to_f<T>(dz[base + (long long)c * HW]);
+      dx_out[base + (long long)c * HW] = from_f<T>(dx);
+    }
+  }
+}
+
+struct P2Work {
+  void *dt, *h;  // [N, 2C, HW] and [N, C, HW], T
+  float *part_a, *part_b, *wpart;
+};
+
+int p2_tiles(int H, int W) {
+  return ((H + kBT - 1) / kBT) * ((W + kBT - 1) / kBT);
+}
+
+P2Work carve_p2(Carver& cv, int N, int C, int H, int W, int P, size_t esize) {
+  P2Work w;
+  const long long HW = (long long)H * W;
+  const size_t px = (size_t)N * HW;
+  w.dt = cv.take<char>(px * 2 * C * esize);
+  w.h = cv.take<char>(px * C * esize);
+  w.part_a = cv.take<float>((size_t)N * p2_tiles(H, W) * kBRed * 2 * C);
+  w.part_b = cv.take<float>((size_t)N * ((HW + P - 1) / P) * 2 * C);
+  w.wpart = cv.take<float>(wgrad_partial_floats(2 * C, C, N, HW));
+  return w;
+}
+
+struct P2Args {
+  const void *x, *dz, *dgc, *att, *w1n, *b1n, *W1, *b1, *kdw, *bk, *W3,
+      *beta;
+  void *dx, *grads, *ws;
+  int N, C, H, W;
+  float eps;
+};
+
+template <typename T, int KO, int P>
+cudaError_t launch_k4b(const P2Args& a, const P2Work& w, cudaStream_t s) {
+  const size_t smem = (size_t)4 * a.C * P * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      k4b_kernel<T, KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long HW = (long long)a.H * a.W;
+  const unsigned blocks = (unsigned)((HW + P - 1) / P);
+  k4b_kernel<T, KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dz),
+      static_cast<const T*>(w.dt), static_cast<const float*>(a.w1n),
+      static_cast<const float*>(a.b1n), static_cast<const float*>(a.W1),
+      static_cast<T*>(a.dx), static_cast<T*>(w.h), w.part_b, a.C, HW, a.eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_p2(const P2Args& a, cudaStream_t s) {
+  const int P = p2_pixels(a.C);
+  if (P == 0) return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const P2Work w = carve_p2(cv, a.N, a.C, a.H, a.W, P, sizeof(T));
+  const int C = a.C, N = a.N;
+  const long long HW = (long long)a.H * a.W;
+  float* grads = static_cast<float*>(a.grads);
+  float* dW1 = grads;
+  float* vec_a = dW1 + (size_t)2 * C * C;   // [11][2C]
+  float* vec_b = vec_a + (size_t)kBRed * 2 * C;  // [dw1n C | db1n C]
+
+  const size_t smem_a = k4a_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      k4a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_a);
+  if (err != cudaSuccess) return err;
+  const int tiles_x = (a.W + kBT - 1) / kBT;
+  const int tiles = p2_tiles(a.H, a.W);
+  const dim3 grid_a((unsigned)tiles, (unsigned)((C + kBGate - 1) / kBGate),
+                    (unsigned)N);
+  k4a_kernel<T><<<grid_a, kThreads, smem_a, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dz),
+      static_cast<const float*>(a.dgc), static_cast<const float*>(a.att),
+      static_cast<const float*>(a.w1n), static_cast<const float*>(a.b1n),
+      static_cast<const float*>(a.W1), static_cast<const float*>(a.b1),
+      static_cast<const float*>(a.kdw), static_cast<const float*>(a.bk),
+      static_cast<const float*>(a.W3), static_cast<const float*>(a.beta),
+      static_cast<T*>(w.dt), w.part_a, C, a.H, a.W, tiles_x, a.eps);
+  if ((err = cudaGetLastError())) return err;
+  if ((err = launch_sum_rows(w.part_a, vec_a, 1, N * tiles,
+                             (long long)kBRed * 2 * C, s)))
+    return err;
+
+  if (P == 32)
+    err = C <= 64 ? launch_k4b<T, 8, 32>(a, w, s)
+                  : launch_k4b<T, 16, 32>(a, w, s);
+  else if (P == 16)
+    err = launch_k4b<T, 16, 16>(a, w, s);
+  else
+    err = launch_k4b<T, 16, 8>(a, w, s);
+  if (err != cudaSuccess) return err;
+  const int blocks_b = (int)((HW + P - 1) / P);
+  if ((err = launch_sum_rows(w.part_b, vec_b, 1, N * blocks_b, 2 * C, s)))
+    return err;
+  return wgrad<T>(static_cast<const T*>(w.dt), static_cast<const T*>(w.h),
+                  2 * C, C, N, HW, w.wpart, dW1, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K3 pixels per block (0: the shape does not fit in shared memory).
+int nafblk_p1_pixels(int C, int F) { return p1_pixels(C, F); }
+
+// Workspace bytes nafblk_p1 needs.
+long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16) {
+  const int P = p1_pixels(C, F);
+  if (P == 0) return -1;
+  Carver cv{nullptr};
+  carve_p1(cv, N, C, F, HW, P, is_bf16 ? 2 : 4);
+  return (long long)cv.off;
+}
+
+// K3. x, g, dout, dz: [N, C, HW] (fp32, or bf16 when is_bf16); att, da:
+// [N, C] fp32; grads: fp32 [dW3 C*C | dW4 2F*C | dW5 C*F | dgamma C |
+// db5 C | db4 2F | dw2n C | db2n C | dbeta C | db3 C]; ws: workspace.
+// Requires C % 4 == 0, F % 4 == 0, nafblk_p1_pixels(C, F) > 0.
+int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
+              const void* W3, const void* b3, const void* w2n, const void* b2n,
+              const void* W4, const void* b4, const void* W5, const void* b5,
+              const void* beta, const void* gamma, void* dz, void* da,
+              void* grads, void* ws, int N, int C, int F, long long HW,
+              float eps, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const P1Args a{x, g, dout, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta,
+                 gamma, dz, da, grads, ws, N, C, F, HW, eps};
+  if (is_bf16) return (int)run_p1<__nv_bfloat16>(a, s);
+  return (int)run_p1<float>(a, s);
+}
+
+// K4 pixels per block of its second kernel (0: does not fit).
+int nafblk_p2_pixels(int C) { return p2_pixels(C); }
+
+// Workspace bytes nafblk_p2 needs.
+long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16) {
+  const int P = p2_pixels(C);
+  if (P == 0) return -1;
+  Carver cv{nullptr};
+  carve_p2(cv, N, C, H, W, P, is_bf16 ? 2 : 4);
+  return (long long)cv.off;
+}
+
+// K4. x, dz, dx: [N, C, H*W] (fp32, or bf16 when is_bf16); dgc, att:
+// [N, C] fp32; grads: fp32 [dW1 2C*C | 11 x 2C: dkdw^T (9 rows), dbk, db1 |
+// dw1n C | db1n C]; ws: workspace. Requires C % 4 == 0.
+int nafblk_p2(const void* x, const void* dz, const void* dgc, const void* att,
+              const void* w1n, const void* b1n, const void* W1, const void* b1,
+              const void* kdw, const void* bk, const void* W3,
+              const void* beta, void* dx, void* grads, void* ws, int N, int C,
+              int H, int W, float eps, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const P2Args a{x, dz, dgc, att, w1n, b1n, W1, b1, kdw, bk, W3, beta,
+                 dx, grads, ws, N, C, H, W, eps};
+  if (is_bf16) return (int)run_p2<__nv_bfloat16>(a, s);
+  return (int)run_p2<float>(a, s);
+}
+
+}  // extern "C"

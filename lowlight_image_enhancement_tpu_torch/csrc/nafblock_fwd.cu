@@ -23,7 +23,7 @@
 //   Halo pixels outside the image hold t = 0 (not conv1(0) = b1), as the
 //   TPU kernel's row-validity mask does. The SCA sums are written as
 //   per-tile partials [N, tiles, C] and reduced in a fixed order by a
-//   second tiny kernel: deterministic, no atomics.
+//   second tiny kernel (sum_rows): deterministic, no atomics.
 //
 // K2 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_b (pallas_call in _call_b).
@@ -32,12 +32,14 @@
 //   Bound: moves ~3*C*HW activation elements and does ~8*C^2*HW FLOPs (at
 //   F = C); memory-bound at C <= 256 on the tensor cores, bound by
 //   operations on the fp32 FMA path used here.
-//   Design: one block owns 32 consecutive pixels and all channels. z (fp32),
+//   Design: one block owns P consecutive pixels and all channels. z (fp32),
 //   the conv3/conv4 input and the gate product stay in shared memory
-//   ((2C + F) * 32 * 4 bytes: 192 KB at C = F = 512), so each activation
-//   element is read once and the output written once. Eight warps split
-//   the output channels; a lane owns one pixel, so shared-memory reads are
-//   conflict-free and weight reads are warp-uniform (broadcast).
+//   ((2C + F) * P * 4 bytes), so each activation element is read once and
+//   the output written once. P = 32 up to C = F = 512 (192 KB); wider
+//   blocks (the width-64 configuration's C = 1024 middle stack) take
+//   P = 16, 192 KB again. Groups of P lanes split the output channels; a
+//   lane owns one pixel, so shared-memory reads are conflict-free and
+//   weight reads are uniform across a group (broadcast).
 //
 // Numerics follow the TPU kernels: LN statistics and all elementwise math
 // in fp32; matrix-product operands rounded to the compute type with fp32
@@ -46,56 +48,18 @@
 // Kernels run on the caller's stream and allocate nothing. Every entry
 // point returns cudaGetLastError() of its launches (0 = success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "nafblock_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace nafblk;
+
 // K1 tiling
 constexpr int kHaloH = 16;
 constexpr int kHaloW = 16;
 constexpr int kTileH = kHaloH - 2;
 constexpr int kTileW = kHaloW - 2;
 constexpr int kGateChunk = 16;  // gate channels per K1 block
-// K2 tiling
-constexpr int kPix = 32;        // pixels per K2 block (one per lane)
-constexpr int kGroups = kThreads / kPix;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round to the compute type of a matrix-product operand.
-template <typename T> __device__ __forceinline__ float to_cdt(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float dot4(float4 w, float a0, float a1, float a2,
-                                      float a3, float acc) {
-  acc = fmaf(w.x, a0, acc);
-  acc = fmaf(w.y, a1, acc);
-  acc = fmaf(w.z, a2, acc);
-  return fmaf(w.w, a3, acc);
-}
 
 // ---------------------------------------------------------------------------
 // K1: LN1 -> conv1 -> depthwise 3x3 -> SimpleGate (+ SCA partial sums)
@@ -210,45 +174,15 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(
   }
 }
 
-// sums[n, c] = sum over tiles of part[n, tile, c], in tile order
-__global__ void k1_reduce(const float* __restrict__ part,
-                          float* __restrict__ sums, int C, int n_tiles) {
-  const int n = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const float* p = part + (long long)n * n_tiles * C + c;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += p[(long long)t * C];
-  sums[(long long)n * C + c] = s;
-}
-
 // ---------------------------------------------------------------------------
 // K2: SCA scale -> conv3 -> residual -> LN2 -> conv4 -> gate -> conv5 ->
-//     residual.  grid (ceil(HW / kPix), N), block kThreads, dynamic smem
+//     residual.  grid (ceil(HW / P), N), block kThreads, dynamic smem.
+//     P = 32 pixels per block (one per lane of a warp) while (2C + F) * 32
+//     fp32 values fit in shared memory (C <= 512 at F = C), else P = 16
+//     (two 16-lane groups per warp; C = F = 1024 needs 192 KB).
 // ---------------------------------------------------------------------------
 
-// acc[r] += sum_c Wm[o0 + r, c] * in_s[c, lane] for rows o0 + r < M.
-template <int KO>
-__device__ __forceinline__ void rows_dot(const float* __restrict__ Wm, int K,
-                                         int o0, int M,
-                                         const float* __restrict__ in_s,
-                                         int lane, float* acc) {
-  for (int c = 0; c < K; c += 4) {
-    const float a0 = in_s[(c + 0) * kPix + lane];
-    const float a1 = in_s[(c + 1) * kPix + lane];
-    const float a2 = in_s[(c + 2) * kPix + lane];
-    const float a3 = in_s[(c + 3) * kPix + lane];
-#pragma unroll
-    for (int r = 0; r < KO; ++r) {
-      if (o0 + r < M) {
-        const float4 w = ldg4(Wm + (long long)(o0 + r) * K + c);
-        acc[r] = dot4(w, a0, a1, a2, a3, acc[r]);
-      }
-    }
-  }
-}
-
-template <typename T, int KO>
+template <typename T, int KO, int P>
 __global__ void __launch_bounds__(kThreads) k2_kernel(
     const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ att, const float* __restrict__ W3,
@@ -258,142 +192,120 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
     const float* __restrict__ b5, const float* __restrict__ beta,
     const float* __restrict__ gamma, T* __restrict__ out, int C, int F,
     long long HW, float eps) {
+  constexpr int G = kThreads / P;
   extern __shared__ float smem[];
-  float* z_s = smem;               // [C][kPix]  z (fp32)
-  float* a_s = z_s + C * kPix;     // [C][kPix]  conv3 input, then LN2 output
-  float* w_s = a_s + C * kPix;     // [F][kPix]  gate product
-  __shared__ float red_s[kGroups][kPix];
+  float* z_s = smem;            // [C][P]  z (fp32)
+  float* a_s = z_s + C * P;     // [C][P]  conv3 input, then LN2 output
+  float* w_s = a_s + C * P;     // [F][P]  gate product
+  __shared__ float red_s[G * P];
 
-  const int lane = threadIdx.x % kPix;
-  const int grp = threadIdx.x / kPix;
+  const int lane = threadIdx.x % P;
+  const int grp = threadIdx.x / P;
   const int n = blockIdx.y;
-  const long long p = (long long)blockIdx.x * kPix + lane;
+  const long long p = (long long)blockIdx.x * P + lane;
   const bool valid = p < HW;
   const long long base = (long long)n * C * HW + p;
 
-  for (int c = grp; c < C; c += kGroups) {
+  for (int c = grp; c < C; c += G) {
     const float xv = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
     const float gv = valid ? to_f<T>(g[base + (long long)c * HW]) : 0.f;
-    z_s[c * kPix + lane] = xv;
-    a_s[c * kPix + lane] = to_cdt<T>(gv * att[(long long)n * C + c]);
+    z_s[c * P + lane] = xv;
+    a_s[c * P + lane] = to_cdt<T>(gv * att[(long long)n * C + c]);
   }
   __syncthreads();
 
   // conv3 + beta residual: z = x + beta * (W3 v + b3)
-  for (int o0 = grp * KO; o0 < C; o0 += kGroups * KO) {
+  for (int o0 = grp * KO; o0 < C; o0 += G * KO) {
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    rows_dot<KO>(W3, C, o0, C, a_s, lane, acc);
+    rows_dot<KO, P>(W3, C, o0, C, a_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int o = o0 + r;
-      if (o < C) z_s[o * kPix + lane] += beta[o] * (acc[r] + b3[o]);
+      if (o < C) z_s[o * P + lane] += beta[o] * (acc[r] + b3[o]);
     }
   }
   __syncthreads();
 
-  // LN2 statistics per pixel (two passes, channel groups combined in smem)
-  float s = 0.f;
-  for (int c = grp; c < C; c += kGroups) s += z_s[c * kPix + lane];
-  red_s[grp][lane] = s;
-  __syncthreads();
-  s = 0.f;
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) s += red_s[q][lane];
-  const float mu = s / C;
-  __syncthreads();
-  s = 0.f;
-  for (int c = grp; c < C; c += kGroups) {
-    const float d = z_s[c * kPix + lane] - mu;
-    s = fmaf(d, d, s);
-  }
-  red_s[grp][lane] = s;
-  __syncthreads();
-  s = 0.f;
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) s += red_s[q][lane];
-  const float rstd = rsqrtf(s / C + eps);
-  for (int c = grp; c < C; c += kGroups)
-    a_s[c * kPix + lane] =
-        to_cdt<T>(fmaf((z_s[c * kPix + lane] - mu) * rstd, w2n[c], b2n[c]));
+  // LN2 per pixel (two passes, channel groups combined in smem)
+  float mu, rstd;
+  ln_stats<P>(z_s, C, red_s, grp, lane, eps, mu, rstd);
+  for (int c = grp; c < C; c += G)
+    a_s[c * P + lane] =
+        to_cdt<T>(fmaf((z_s[c * P + lane] - mu) * rstd, w2n[c], b2n[c]));
   __syncthreads();
 
   // conv4 + SimpleGate: wv[j] = (W4[j] h2 + b4[j]) * (W4[F + j] h2 + b4[F + j])
-  for (int j0 = grp * KO; j0 < F; j0 += kGroups * KO) {
+  for (int j0 = grp * KO; j0 < F; j0 += G * KO) {
     float qa[KO], qb[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) qa[r] = qb[r] = 0.f;
-    rows_dot<KO>(W4, C, j0, F, a_s, lane, qa);
-    rows_dot<KO>(W4 + (long long)F * C, C, j0, F, a_s, lane, qb);
+    rows_dot<KO, P>(W4, C, j0, F, a_s, lane, qa);
+    rows_dot<KO, P>(W4 + (long long)F * C, C, j0, F, a_s, lane, qb);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int j = j0 + r;
       if (j < F)
-        w_s[j * kPix + lane] = to_cdt<T>((qa[r] + b4[j]) * (qb[r] + b4[F + j]));
+        w_s[j * P + lane] = to_cdt<T>((qa[r] + b4[j]) * (qb[r] + b4[F + j]));
     }
   }
   __syncthreads();
 
   // conv5 + gamma residual: out = z + gamma * (W5 wv + b5)
-  for (int o0 = grp * KO; o0 < C; o0 += kGroups * KO) {
+  for (int o0 = grp * KO; o0 < C; o0 += G * KO) {
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    rows_dot<KO>(W5, F, o0, C, w_s, lane, acc);
+    rows_dot<KO, P>(W5, F, o0, C, w_s, lane, acc);
     if (valid) {
 #pragma unroll
       for (int r = 0; r < KO; ++r) {
         const int o = o0 + r;
         if (o < C)
           out[base + (long long)o * HW] =
-              from_f<T>(z_s[o * kPix + lane] + gamma[o] * (acc[r] + b5[o]));
+              from_f<T>(z_s[o * P + lane] + gamma[o] * (acc[r] + b5[o]));
       }
     }
   }
 }
 
-template <typename T, int KO>
-cudaError_t launch_k2(const void* x, const void* g, const void* att,
-                      const void* W3, const void* b3, const void* w2n,
-                      const void* b2n, const void* W4, const void* b4,
-                      const void* W5, const void* b5, const void* beta,
-                      const void* gamma, void* out, int N, int C, int F,
-                      long long HW, float eps, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * C + F) * kPix * sizeof(float);
+struct K2Args {
+  const void *x, *g, *att, *W3, *b3, *w2n, *b2n, *W4, *b4, *W5, *b5, *beta,
+      *gamma;
+  void* out;
+  int N, C, F;
+  long long HW;
+  float eps;
+};
+
+template <typename T, int KO, int P>
+cudaError_t launch_k2(const K2Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * a.C + a.F) * P * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      k2_kernel<T, KO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k2_kernel<T, KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((HW + kPix - 1) / kPix), (unsigned)N);
-  k2_kernel<T, KO><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const float*>(att), static_cast<const float*>(W3),
-      static_cast<const float*>(b3), static_cast<const float*>(w2n),
-      static_cast<const float*>(b2n), static_cast<const float*>(W4),
-      static_cast<const float*>(b4), static_cast<const float*>(W5),
-      static_cast<const float*>(b5), static_cast<const float*>(beta),
-      static_cast<const float*>(gamma), static_cast<T*>(out), C, F, HW, eps);
+  const dim3 grid((unsigned)((a.HW + P - 1) / P), (unsigned)a.N);
+  k2_kernel<T, KO, P><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+      static_cast<const float*>(a.att), static_cast<const float*>(a.W3),
+      static_cast<const float*>(a.b3), static_cast<const float*>(a.w2n),
+      static_cast<const float*>(a.b2n), static_cast<const float*>(a.W4),
+      static_cast<const float*>(a.b4), static_cast<const float*>(a.W5),
+      static_cast<const float*>(a.b5), static_cast<const float*>(a.beta),
+      static_cast<const float*>(a.gamma), static_cast<T*>(a.out), a.C, a.F,
+      a.HW, a.eps);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_k2_rows(int C, const void* x, const void* g,
-                           const void* att, const void* W3, const void* b3,
-                           const void* w2n, const void* b2n, const void* W4,
-                           const void* b4, const void* W5, const void* b5,
-                           const void* beta, const void* gamma, void* out,
-                           int N, int F, long long HW, float eps,
-                           cudaStream_t s) {
-  // rows per thread: enough that the 8 warps cover C in about one pass
-  if (C <= 32)
-    return launch_k2<T, 4>(x, g, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta,
-                           gamma, out, N, C, F, HW, eps, s);
-  if (C <= 64)
-    return launch_k2<T, 8>(x, g, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta,
-                           gamma, out, N, C, F, HW, eps, s);
-  return launch_k2<T, 16>(x, g, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta,
-                          gamma, out, N, C, F, HW, eps, s);
+cudaError_t launch_k2_rows(const K2Args& a, int P, cudaStream_t s) {
+  // rows per thread: enough that the groups cover C in about one pass
+  if (P == 16) return launch_k2<T, 16, 16>(a, s);
+  if (a.C <= 32) return launch_k2<T, 4, 32>(a, s);
+  if (a.C <= 64) return launch_k2<T, 8, 32>(a, s);
+  return launch_k2<T, 16, 32>(a, s);
 }
 
 }  // namespace
@@ -429,25 +341,35 @@ int nafblk_a(const void* x, const void* w1n, const void* b1n, const void* W1,
 #undef K1_ARGS
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  k1_reduce<<<dim3((unsigned)((C + 127) / 128), (unsigned)N), 128, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(sums), C, n_tiles);
-  return (int)cudaGetLastError();
+  // sums[n, c] = sum over tiles of part[n, tile, c], in tile order
+  return (int)launch_sum_rows(static_cast<const float*>(part),
+                              static_cast<float*>(sums), N, n_tiles, C, s);
+}
+
+// K2 pixels per block: 32 when (2C + F) * 32 fp32 values fit in the
+// dynamic shared memory a Hopper block may use beside K2's static 1 KB,
+// else 16; 0 when even 16 do not fit.
+int nafblk_b_pixels(int C, int F) {
+  const long long limit = 232448 - 1024;
+  for (int P = 32; P >= 16; P /= 2)
+    if ((long long)(2 * C + F) * P * 4 <= limit) return P;
+  return 0;
 }
 
 // K2. x, g, out: [N, C, HW]; att: [N, C] fp32; W3 [C, C], W4 [2F, C],
-// W5 [C, F]. Requires C % 4 == 0 and F % 4 == 0.
+// W5 [C, F]. Requires C % 4 == 0, F % 4 == 0 and nafblk_b_pixels(C, F) > 0.
 int nafblk_b(const void* x, const void* g, const void* att, const void* W3,
              const void* b3, const void* w2n, const void* b2n, const void* W4,
              const void* b4, const void* W5, const void* b5, const void* beta,
              const void* gamma, void* out, int N, int C, int F, long long HW,
              float eps, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch_k2_rows<__nv_bfloat16>(C, x, g, att, W3, b3, w2n, b2n,
-                                              W4, b4, W5, b5, beta, gamma, out,
-                                              N, F, HW, eps, s);
-  return (int)launch_k2_rows<float>(C, x, g, att, W3, b3, w2n, b2n, W4, b4, W5,
-                                    b5, beta, gamma, out, N, F, HW, eps, s);
+  const int P = nafblk_b_pixels(C, F);
+  if (P == 0) return (int)cudaErrorInvalidValue;
+  const K2Args a{x, g, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta, gamma,
+                 out, N, C, F, HW, eps};
+  if (is_bf16) return (int)launch_k2_rows<__nv_bfloat16>(a, P, s);
+  return (int)launch_k2_rows<float>(a, P, s);
 }
 
 }  // extern "C"

@@ -5,11 +5,12 @@ Counterpart of ``lowlight_image_enhancement_tpu/models/nafnet.py``:
 - :class:`NAFBlock` -- LN -> 1x1 conv (C->2C) -> 3x3 depthwise ->
   SimpleGate -> SCA (global mean + 1x1) -> 1x1 conv, then LN -> 1x1 (C->2C)
   -> SimpleGate -> 1x1; residual scales ``beta``/``gamma`` zero-initialised.
-  With ``fused=True`` (the default) the block runs the fused forward
-  (:func:`...ops.nafblock.nafblock_fwd`): kernels K1+K2 on CUDA, their
-  plain version on CPU -- the counterpart of the JAX ``fused_blocks=True``.
-  With ``fused=False`` it runs the eager module graph, the counterpart of
-  the JAX unfused ``NAFBlock``.
+  With ``fused=True`` (the default) the block runs
+  :class:`...ops.nafblock.NAFBlockFunction`: kernels K1+K2 forward and
+  K3+K4 backward on CUDA, their plain versions on CPU -- the counterpart
+  of the JAX ``fused_blocks=True``. With ``fused=False`` it runs the eager
+  module graph under autograd, the counterpart of the JAX unfused
+  ``NAFBlock``.
 - :class:`NAFNet` -- 3x3 intro, encoder stacks with 2x2 stride-2 downs,
   middle stack, decoder stacks with (1x1 no-bias conv + PixelShuffle(2))
   ups and skip-adds, 3x3 ending, global input residual; zero-pads to a
@@ -102,7 +103,9 @@ class NAFBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and (self.dw_expand == 2 or x.is_cuda):
-            # on CUDA a block K1 cannot take (dw_expand != 2) raises there
+            # NAFBlockFunction with or without grad (forward K1+K2 only
+            # under no_grad); on CUDA a block K1 cannot take
+            # (dw_expand != 2) raises there
             n, c, h, w = x.shape
             y = nafblock_fwd(x.contiguous().view(n, c, h * w), self.packed(),
                              (h, w), self.eps)

@@ -33,7 +33,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "nafblock_fwd": {
         "nafblk_a_tiles": (_I, [_I, _I]),
         "nafblk_a": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P]),
+        "nafblk_b_pixels": (_I, [_I, _I]),
         "nafblk_b": (_I, [_P] * 14 + [_I, _I, _I, _L, _F, _I, _P]),
+    },
+    "nafblock_bwd": {
+        "nafblk_p1_pixels": (_I, [_I, _I]),
+        "nafblk_p1_workspace": (_L, [_I, _I, _I, _L, _I]),
+        "nafblk_p1": (_I, [_P] * 18 + [_I, _I, _I, _L, _F, _I, _P]),
+        "nafblk_p2_pixels": (_I, [_I]),
+        "nafblk_p2_workspace": (_L, [_I, _I, _I, _I, _I]),
+        "nafblk_p2": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _I, _P]),
     },
 }
 
@@ -54,7 +63,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path; its name hashes the source, every ``csrc``
+    header and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}.{digest[:12]}.so"
 

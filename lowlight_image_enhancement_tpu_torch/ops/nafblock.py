@@ -1,9 +1,9 @@
-"""Fused NAFBlock forward: kernels K1/K2 (``csrc/nafblock_fwd.cu``) and
-their plain PyTorch versions.
+"""Fused NAFBlock: kernels K1/K2 (``csrc/nafblock_fwd.cu``), K3/K4
+(``csrc/nafblock_bwd.cu``) and their plain PyTorch versions.
 
-Counterpart of ``lowlight_image_enhancement_tpu/ops/pallas/nafblock.py``
-(forward only). Activations use the JAX kernels' layout ``[N, C, H*W]``,
-which is contiguous NCHW viewed flat. One block forward is
+Counterpart of ``lowlight_image_enhancement_tpu/ops/pallas/nafblock.py``.
+Activations use the JAX kernels' layout ``[N, C, H*W]``, which is
+contiguous NCHW viewed flat. One block forward is
 
 - K1 (:func:`call_a`): LN1 -> conv1 1x1 C->2C -> depthwise 3x3 (zero SAME
   padding of the conv1 output) -> SimpleGate, plus the per-(n, c) spatial
@@ -13,13 +13,26 @@ which is contiguous NCHW viewed flat. One block forward is
 - K2 (:func:`call_b`): gate * attention -> conv3 -> ``z = x + beta * .``
   -> LN2 -> conv4 C->2C -> gate -> conv5 -> ``z + gamma * .``.
 
+and its backward (:class:`NAFBlockFunction`, the counterpart of the JAX
+``fused_nafblock`` custom VJP):
+
+- K3 (:func:`call_p1`): recomputes the second half from ``(x, g, att)``
+  and returns ``dz``, the SCA grad ``da`` and the second-half weight grads;
+- the ``[N, C]`` SCA backward (:func:`sca_backward`), plain torch as in
+  the JAX ``_vjp_bwd``;
+- K4 (:func:`call_p2`): recomputes LN1/conv1/depthwise from ``x`` and
+  returns ``dx`` and the first-half weight grads.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
 
 Numerics (as the TPU kernels): LN statistics and elementwise math in fp32,
 matrix-product operands rounded to the compute dtype (bf16 when the
-activations are bf16) with fp32 accumulation; the SCA mean is taken over
-the whole ``H*W`` of the (padded) image.
+activations are bf16) with fp32 accumulation, weight grads in fp32; the
+SCA mean is taken over the whole ``H*W`` of the (padded) image. One
+deliberate difference: the gate gradient uses ``u = dw3x3(t) + bk``, the
+block's true derivative; the TPU kernel P2 leaves ``bk`` out (exact only
+while ``bk == 0``, its initial value).
 """
 
 from __future__ import annotations
@@ -69,13 +82,19 @@ def _compute_dtype(x: torch.Tensor) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+def _ln_stats(xf: torch.Tensor, eps: float):
+    """``(xhat, rstd)`` of the channel LN over axis 1 of fp32 ``[N, C, S]``
+    (the TPU kernels' ``_ln_fwd``)."""
+    mu = xf.mean(1, keepdim=True)
+    xc = xf - mu
+    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + eps)
+    return xc * rstd, rstd
+
+
 def _ln(xf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         eps: float) -> torch.Tensor:
     """Channel LN over axis 1 of fp32 ``[N, C, S]``."""
-    mu = xf.mean(1, keepdim=True)
-    xc = xf - mu
-    var = (xc * xc).mean(1, keepdim=True)
-    return xc * torch.rsqrt(var + eps) * w.float()[:, None] + b.float()[:, None]
+    return _ln_stats(xf, eps)[0] * w.float()[:, None] + b.float()[:, None]
 
 
 def _mm(w: torch.Tensor, a: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -127,6 +146,117 @@ def nafblock_fwd_reference(x: torch.Tensor, p: Params, hw: Tuple[int, int],
     return plain_b(x, g, att, p, eps)
 
 
+def _ln_bwd(dh: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
+            w: torch.Tensor) -> torch.Tensor:
+    """Analytic channel-LN input grad (the TPU kernels' ``_ln_bwd``)."""
+    gxh = dh * w.float()[:, None]
+    return (gxh - gxh.mean(1, keepdim=True)
+            - xhat * (gxh * xhat).mean(1, keepdim=True)) * rstd
+
+
+def _mm_t(w: torch.Tensor, a: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """``w.T @ a`` for ``w [O, I]``, ``a [N, O, S]``, operands rounded to
+    ``cdt``, fp32 accumulation."""
+    return torch.matmul(w.to(cdt).float().t(), a.to(cdt).float())
+
+
+def _outer(a: torch.Tensor, b: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """Weight grad ``sum over n, s of a[n, :, s] b[n, :, s]^T`` with
+    operands rounded to ``cdt`` (fp32 result)."""
+    return torch.einsum("nis,njs->ij", a.to(cdt).float(), b.to(cdt).float())
+
+
+def _sum(t: torch.Tensor) -> torch.Tensor:
+    """Per-channel sum over batch and pixels of ``[N, C, S]``."""
+    return t.sum((0, 2))
+
+
+def plain_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
+             att: torch.Tensor, p: Params, eps: float = 1e-6):
+    """Plain K3: ``(dz in dout.dtype, da [N, C] fp32, grads)`` with fp32
+    grads of W3, b3, w2n, b2n, W4, b4, W5, b5, beta, gamma.
+
+    Mirrors ``_kernel_p1``: the second half is recomputed from ``(x, g,
+    att)``; every product rounds both operands to the compute dtype."""
+    cdt = _compute_dtype(x)
+    f = p["W5"].shape[1]
+    col = lambda k: p[k].float()[:, None]
+    gf = g.float()
+    v = gf * att.float()[:, :, None]
+    pth = _mm(p["W3"], v, cdt) + col("b3")
+    z = x.float() + col("beta") * pth
+    xhat2, rstd2 = _ln_stats(z, eps)
+    h2 = xhat2 * col("w2n") + col("b2n")
+    q = _mm(p["W4"], h2, cdt) + col("b4")
+    q1, q2 = q[:, :f], q[:, f:]
+    wv = q1 * q2
+    s = _mm(p["W5"], wv, cdt) + col("b5")
+
+    do = dout.float()
+    ds = col("gamma") * do
+    dwv = _mm_t(p["W5"], ds, cdt)
+    dq = torch.cat([dwv * q2, dwv * q1], 1)
+    dh2 = _mm_t(p["W4"], dq, cdt)
+    dz = do + _ln_bwd(dh2, xhat2, rstd2, p["w2n"])
+    dp = col("beta") * dz
+    dv = _mm_t(p["W3"], dp, cdt)
+    grads = {
+        "gamma": _sum(do * s), "W5": _outer(ds, wv, cdt), "b5": _sum(ds),
+        "W4": _outer(dq, h2, cdt), "b4": _sum(dq),
+        "w2n": _sum(dh2 * xhat2), "b2n": _sum(dh2),
+        "beta": _sum(dz * pth), "W3": _outer(dp, v, cdt), "b3": _sum(dp),
+    }
+    return dz.to(dout.dtype), (dv * gf).sum(2), grads
+
+
+def sca_backward(da: torch.Tensor, m: torch.Tensor, p: Params, area: int):
+    """SCA backward between the kernels (the JAX ``_vjp_bwd`` glue):
+    ``(dWsca [C, C], dbsca [C], dgc [N, C])`` from the attention grad
+    ``da`` and the saved mean ``m`` (both ``[N, C]`` fp32)."""
+    dgc = (da @ p["Wsca"].float()) / float(area)
+    return da.t() @ m, da.sum(0), dgc
+
+
+def plain_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
+             att: torch.Tensor, p: Params, hw: Tuple[int, int],
+             eps: float = 1e-6):
+    """Plain K4: ``(dx in dz.dtype, grads)`` with fp32 grads of w1n, b1n,
+    W1, b1, kdw ``[2C, 9]`` and bk.
+
+    Mirrors ``_kernel_p2`` on the whole image: LN1/conv1/depthwise are
+    recomputed from ``x`` (conv1 output zero-padded), the gate grad is
+    ``(W3^T (beta dz)) att + dgc``, and the depthwise adjoint and tap grads
+    are convolutions with ``t`` and the flipped taps. ``u`` includes ``bk``
+    (the true derivative; the TPU kernel leaves ``bk`` out)."""
+    n, c, s = x.shape
+    h, w = hw
+    cdt = _compute_dtype(x)
+    col = lambda k: p[k].float()[:, None]
+    xhat, rstd = _ln_stats(x.float(), eps)
+    hn = xhat * col("w1n") + col("b1n")
+    t = _mm(p["W1"], hn, cdt) + col("b1")
+    dwc = t.shape[1]
+    t4 = t.view(n, dwc, h, w)
+    k4 = p["kdw"].float().view(dwc, 1, 3, 3)
+    u = F.conv2d(t4, k4, p["bk"].float(), padding=1, groups=dwc)
+
+    dzf = dz.float()
+    dv = _mm_t(p["W3"], col("beta") * dzf, cdt)
+    dg = (dv * att.float()[:, :, None] + dgc.float()[:, :, None]).view(
+        n, c, h, w)
+    du = torch.cat([dg * u[:, c:], dg * u[:, :c]], 1)
+    dt = F.conv2d(du, k4.flip(2, 3), padding=1, groups=dwc).reshape(n, dwc, s)
+    tp = F.pad(t4, (1, 1, 1, 1))
+    dk = torch.stack([(du * tp[:, :, kh:kh + h, kw:kw + w]).sum((0, 2, 3))
+                      for kh in range(3) for kw in range(3)], 1)
+    dh = _mm_t(p["W1"], dt, cdt)
+    dx = _ln_bwd(dh, xhat, rstd, p["w1n"]) + dzf
+    grads = {"W1": _outer(dt, hn, cdt), "b1": _sum(dt),
+             "w1n": _sum(dh * xhat), "b1n": _sum(dh), "kdw": dk,
+             "bk": du.sum((0, 2, 3))}
+    return dx.to(dz.dtype), grads
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -139,11 +269,6 @@ def _check_cuda(x: torch.Tensor, p: Params, names) -> None:
         raise ValueError("NAFBlock kernels need a contiguous [N, C, H*W] input")
     if x.shape[1] % 4:
         raise ValueError(f"NAFBlock kernels need C % 4 == 0, got C={x.shape[1]}")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            p[k].requires_grad for k in names)):
-        raise RuntimeError(
-            "the NAFBlock kernels are forward-only: run under "
-            "torch.no_grad() (the backward kernels are not ported yet)")
     for k in names:
         if p[k].device != x.device:
             raise ValueError(f"parameter {k} is on {p[k].device}, "
@@ -169,10 +294,13 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-# K2's pixels per block (kPix in csrc/nafblock_fwd.cu) and the dynamic
-# shared memory a Hopper block may use beside K2's 1 KB of static smem
-_K2_PIXELS = 32
-_K2_SMEM_BYTES = 232448 - 1024
+def _like_x(x: torch.Tensor, **named) -> None:
+    for name, t in named.items():
+        if (t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous()
+                or t.device != x.device):
+            raise ValueError(f"{name} must be like x (shape, dtype, device, "
+                             "contiguous)")
+
 
 _A_PARAMS = ("w1n", "b1n", "W1", "b1", "kdw", "bk")
 _B_PARAMS = ("W3", "b3", "w2n", "b2n", "W4", "b4", "W5", "b5", "beta",
@@ -219,19 +347,16 @@ def call_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
         return plain_b(x, g, att, p, eps)
     n, c, s = x.shape
     f = p["W5"].shape[1]
-    if (g.shape != x.shape or g.dtype != x.dtype or not g.is_contiguous()
-            or g.device != x.device):
-        raise ValueError("K2 needs g like x (shape, dtype, device, contiguous)")
+    _like_x(x, g=g)
     if p["W4"].shape != (2 * f, c) or f % 4:
         raise ValueError(f"K2 needs W4 [2F, C] with F % 4 == 0; got "
                          f"W4 {tuple(p['W4'].shape)}")
-    if (2 * c + f) * _K2_PIXELS * 4 > _K2_SMEM_BYTES:
-        raise ValueError(
-            f"K2 keeps (2C+F) x {_K2_PIXELS} fp32 values in shared memory: "
-            f"C={c}, F={f} needs {(2 * c + f) * _K2_PIXELS * 4} bytes, more "
-            f"than the {_K2_SMEM_BYTES} a block can use")
     _check_cuda(x, p, _B_PARAMS)
     lib = _build.load()
+    if lib.nafblk_b_pixels(c, f) == 0:
+        raise ValueError(
+            f"K2 keeps (2C+F) x 16 fp32 values per block in shared memory; "
+            f"C={c}, F={f} does not fit")
     args = _kernel_args(p, _B_PARAMS, _compute_dtype(x))
     att = att.detach().float().contiguous()
     out = torch.empty_like(x)
@@ -249,15 +374,161 @@ def call_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
 call_b.launches = 0
 
 
+_P2_PARAMS = ("w1n", "b1n", "W1", "b1", "kdw", "bk", "W3", "beta")
+
+
+def _split(flat: torch.Tensor, layout) -> Params:
+    """Views of consecutive pieces of ``flat`` named and shaped by
+    ``layout``."""
+    out, o = {}, 0
+    for name, shape in layout:
+        size = 1
+        for d in shape:
+            size *= d
+        out[name] = flat[o:o + size].view(shape)
+        o += size
+    return out
+
+
+def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
+            att: torch.Tensor, p: Params, eps: float = 1e-6):
+    """K3 on ``x, g, dout: [N, C, H*W]``, ``att: [N, C]`` -> ``(dz, da,
+    grads)``; plain version on CPU."""
+    if not x.is_cuda:
+        return plain_p1(x, g, dout, att, p, eps)
+    n, c, s = x.shape
+    f = p["W5"].shape[1]
+    _like_x(x, g=g, dout=dout)
+    if (p["W4"].shape != (2 * f, c) or p["W3"].shape != (c, c)
+            or p["W5"].shape != (c, f) or f % 4):
+        raise ValueError(f"K3 needs W3 [C, C], W4 [2F, C], W5 [C, F] with "
+                         f"F % 4 == 0; got W4 {tuple(p['W4'].shape)}")
+    _check_cuda(x, p, _B_PARAMS)
+    lib = _build.load("nafblock_bwd")
+    bf16 = int(x.dtype == torch.bfloat16)
+    ws_bytes = lib.nafblk_p1_workspace(n, c, f, s, bf16)
+    if ws_bytes < 0:
+        raise ValueError(f"K3 keeps (4C+3F) x 8 fp32 values per block in "
+                         f"shared memory; C={c}, F={f} does not fit")
+    args = _kernel_args(p, _B_PARAMS, _compute_dtype(x))
+    att = att.detach().float().contiguous()
+    dz = torch.empty_like(dout)
+    da = torch.empty((n, c), device=x.device, dtype=torch.float32)
+    layout = [("W3", (c, c)), ("W4", (2 * f, c)), ("W5", (c, f)),
+              ("gamma", (c,)), ("b5", (c,)), ("b4", (2 * f,)),
+              ("w2n", (c,)), ("b2n", (c,)), ("beta", (c,)), ("b3", (c,))]
+    grads = torch.empty(c * c + 3 * f * c + 6 * c + 2 * f,
+                        device=x.device, dtype=torch.float32)
+    ws = torch.empty(ws_bytes, device=x.device, dtype=torch.uint8)
+    with torch.cuda.device(x.device):
+        rc = lib.nafblk_p1(x.data_ptr(), g.data_ptr(), dout.data_ptr(),
+                           att.data_ptr(), *[t.data_ptr() for t in args],
+                           dz.data_ptr(), da.data_ptr(), grads.data_ptr(),
+                           ws.data_ptr(), n, c, f, s, float(eps), bf16,
+                           _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"nafblk_p1 launch failed: CUDA error {rc}")
+    call_p1.launches += 1
+    return dz, da, _split(grads, layout)
+
+
+call_p1.launches = 0
+
+
+def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
+            att: torch.Tensor, p: Params, hw: Tuple[int, int],
+            eps: float = 1e-6):
+    """K4 on ``x, dz: [N, C, H*W]``, ``dgc, att: [N, C]`` -> ``(dx,
+    grads)``; plain version on CPU."""
+    if not x.is_cuda:
+        return plain_p2(x, dz, dgc, att, p, hw, eps)
+    n, c, s = x.shape
+    h, w = hw
+    if h * w != s:
+        raise ValueError(f"hw={hw} does not match H*W={s}")
+    _like_x(x, dz=dz)
+    if p["W1"].shape != (2 * c, c) or p["W3"].shape != (c, c):
+        raise ValueError(f"K4 needs W1 [2C, C] and W3 [C, C]; got W1 "
+                         f"{tuple(p['W1'].shape)}")
+    _check_cuda(x, p, _P2_PARAMS)
+    lib = _build.load("nafblock_bwd")
+    bf16 = int(x.dtype == torch.bfloat16)
+    ws_bytes = lib.nafblk_p2_workspace(n, c, h, w, bf16)
+    if ws_bytes < 0:
+        raise ValueError(f"K4 keeps 4C x 8 fp32 values per block in shared "
+                         f"memory; C={c} does not fit")
+    args = _kernel_args(p, _P2_PARAMS, _compute_dtype(x))
+    dgc = dgc.detach().float().contiguous()
+    att = att.detach().float().contiguous()
+    dx = torch.empty_like(dz)
+    grads = torch.empty(2 * c * c + 24 * c, device=x.device,
+                        dtype=torch.float32)
+    ws = torch.empty(ws_bytes, device=x.device, dtype=torch.uint8)
+    with torch.cuda.device(x.device):
+        rc = lib.nafblk_p2(x.data_ptr(), dz.data_ptr(), dgc.data_ptr(),
+                           att.data_ptr(), *[t.data_ptr() for t in args],
+                           dx.data_ptr(), grads.data_ptr(), ws.data_ptr(),
+                           n, c, h, w, float(eps), bf16, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"nafblk_p2 launch failed: CUDA error {rc}")
+    call_p2.launches += 1
+    out = _split(grads, [("W1", (2 * c, c)), ("taps", (11, 2 * c)),
+                         ("w1n", (c,)), ("b1n", (c,))])
+    taps = out.pop("taps")
+    out.update(kdw=taps[:9].t().contiguous(), bk=taps[9], b1=taps[10])
+    return dx, out
+
+
+call_p2.launches = 0
+
+# the 18 packed views in pack_params order (NAFBlockFunction's inputs)
+PARAM_ORDER = ("w1n", "b1n", "W1", "b1", "kdw", "bk", "Wsca", "bsca", "W3",
+               "b3", "w2n", "b2n", "W4", "b4", "W5", "b5", "beta", "gamma")
+
+
+class NAFBlockFunction(torch.autograd.Function):
+    """One NAFBlock with the fused forward (K1 -> SCA -> K2) and the fused
+    backward (K3 -> SCA backward -> K4): the counterpart of the JAX
+    ``fused_nafblock`` custom VJP. Saves ``(x, g, m, att)`` as the JAX
+    ``_vjp_fwd`` does, and returns ``dx`` and a grad for each packed view.
+
+    ``apply(x, hw, eps, *params)`` with ``x: [N, C, H*W]`` and ``params``
+    the 18 views in :data:`PARAM_ORDER`."""
+
+    @staticmethod
+    def forward(ctx, x, hw, eps, *params):
+        p = dict(zip(PARAM_ORDER, params))
+        area = hw[0] * hw[1]
+        g, sums = call_a(x, p, hw, eps)
+        att = sca_attention(sums, p, area)
+        out = call_b(x, g, att, p, eps)
+        ctx.save_for_backward(x, g, sums / float(area), att, *params)
+        ctx.hw, ctx.eps = hw, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, g, m, att, *params = ctx.saved_tensors
+        p = dict(zip(PARAM_ORDER, params))
+        hw = ctx.hw
+        dz, da, grads = call_p1(x, g, dout.contiguous(), att, p, ctx.eps)
+        dwsca, dbsca, dgc = sca_backward(da, m, p, hw[0] * hw[1])
+        dx, first = call_p2(x, dz, dgc, att, p, hw, ctx.eps)
+        grads.update(first, Wsca=dwsca, bsca=dbsca)
+        return (dx, None, None,
+                *[grads[k].to(p[k].dtype) for k in PARAM_ORDER])
+
+
 def nafblock_fwd(x: torch.Tensor, p: Params, hw: Tuple[int, int],
                  eps: float = 1e-6) -> torch.Tensor:
-    """One NAFBlock forward on ``x: [N, C, H*W]``: K1 -> SCA -> K2 (the
-    plain versions on CPU)."""
-    g, sums = call_a(x, p, hw, eps)
-    att = sca_attention(sums, p, hw[0] * hw[1])
-    return call_b(x, g, att, p, eps)
+    """One NAFBlock on ``x: [N, C, H*W]`` through :class:`NAFBlockFunction`
+    (K1 -> SCA -> K2 forward, K3 -> K4 backward; plain versions on CPU)."""
+    return NAFBlockFunction.apply(x, tuple(hw), float(eps),
+                                  *[p[k] for k in PARAM_ORDER])
 
 
 def reset_launch_counts() -> None:
     call_a.launches = 0
     call_b.launches = 0
+    call_p1.launches = 0
+    call_p2.launches = 0

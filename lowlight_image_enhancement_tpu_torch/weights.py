@@ -11,6 +11,10 @@ and returns a ``state_dict`` for :class:`...models.nafnet.NAFNet`:
   ``down{s}`` -> ``downs.{s}``, ``up{s}`` -> ``ups.{s}.0``,
   ``sca_conv`` -> ``sca.1``, ``beta``/``gamma`` ``[C]`` -> ``[1,C,1,1]``.
 
+:func:`vgg_params_from_jax` does the same for the Flax VGG19 trunk of
+the perceptual loss (``conv{s}_{i}`` HWIO -> the port's
+:class:`...models.vgg.VGG19Features` ``state_dict``).
+
 An unknown or missing key raises ``KeyError``.
 """
 
@@ -21,6 +25,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from lowlight_image_enhancement_tpu_torch.models.vgg import conv_names
 
 _BLOCK_CONVS = ("conv1", "conv2", "conv3", "conv4", "conv5")
 _STAGE = {"enc": "encoders", "dec": "decoders"}
@@ -135,4 +141,19 @@ def params_from_jax(tree: Mapping[str, Any],
                 f"{sorted(set(want) - set(got))}, unknown "
                 f"{sorted(set(got) - set(want))}, shape mismatch "
                 f"{sorted(k for k in set(want) & set(got) if want[k] != got[k])}")
+    return sd
+
+
+def vgg_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``VGG19Features`` params (``conv{s}_{i}`` -> ``kernel`` HWIO,
+    ``bias``; numpy leaves) -> the port's ``VGG19Features`` ``state_dict``
+    (OIHW). Exactly the 16 convs of VGG19 up to relu5_4 are required."""
+    names = [n for n, _, _ in conv_names()]
+    if set(tree) != set(names):
+        raise KeyError(f"VGG19 params: missing {sorted(set(names) - set(tree))}"
+                       f", unknown {sorted(set(tree) - set(names))}")
+    sd: Dict[str, torch.Tensor] = {}
+    for name in names:
+        for k, v in _conv(tree[name], name).items():
+            sd[f"{name}.{k}"] = v
     return sd
