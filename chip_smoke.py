@@ -18,8 +18,9 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    (``nafblk_p2``) and the whole block backward (``NAFBlockFunction`` vs
    the plain backward) at every width of a 384x384, N=2 training crop
    (C=32@384^2 ... C=512@24^2), at the width-64 configuration's
-   C=1024@32^2 and at C=64@20^2 (a side that leaves K4 ragged edge
-   tiles), checking dz, da, dx and every weight grad;
+   C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles)
+   and at NAFSSR's C=48 with 30x90 pixels and N=16, checking dz, da, dx
+   and every weight grad;
 5. serving phase: ``RestorationServer`` on ``NewBPNAFNet`` (width 32,
    full depth: 36 NAFBlocks) in bf16 with seeded random weights answers 8
    mixed-size requests (one through the tiled path); checks shapes,
@@ -28,10 +29,36 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
 6. training phase: the train step of ``configs/sid_newbp_mono_selfcontained
    .yml`` (``NewBPNAFNet`` in bf16, ``HybridLossPlus`` with the random
    bf16 VGG19 trunk, AdamW + clip 0.01 on the cosine schedule) on one
-   seeded synthetic 2x3x384x384 batch: 1 warm-up and 5 timed steps;
+   seeded synthetic 2x3x384x384 batch: 1 warm-up and 3 timed steps;
    checks finite logs, 36 launches of each of K1-K4 per step, a falling
    loss, fp32 gradients through the kernels against the eager block path,
-   and one eval forward.
+   and one eval forward;
+7. LayerNorm and pool kernel phase: holds K5 (``ln_fwd``), K6 (``ln_bwd``),
+   K7 (``relu_pool_fwd``) and K8 (``pool_bwd``, with and without the relu)
+   against their plain versions in fp32 and bf16: the LN kernels at the
+   five Baseline widths of a training crop (C=32@384^2 ... C=512@24^2,
+   N=2) and of a served batch (C=32@512^2 ... C=512@32^2), at NAFSSR's
+   C=48 with 30x90 pixels and N=16, at C=1024@32^2 and at a ragged
+   C=64@20x20; the pool kernels (exact equality) at the four VGG19 pool
+   shapes, at an odd H and W, with ties and with NaNs in some windows;
+   times each beside its plain version, its bound and the one library
+   call that computes the same function;
+8. path P: the training step of 6. with the perceptual trunk's pools on
+   ``kernel_fused`` (8 launches of K7 and 4 of K8 per step) and then on
+   ``kernel_bwd`` (4 of K8, none of K7), and the perceptual term and its
+   gradient held equal under the three pool options in fp32;
+9. path B: ``Baseline`` at the published width-32 configuration under the
+   same recipe in bf16: training steps (72 launches of K5 and of K6 per
+   step), one eval forward, the fp32 gradient of every parameter through
+   K5/K6 against the same model with ``LayerNorm2d`` on the plain version,
+   and the 8 served requests (one through the tiled path), every one held
+   against the same request served with the plain LayerNorm, in bf16 and
+   in fp32;
+10. path S: ``NAFSSR`` of ``configs/stereo_nafssr.yml`` (width 48, 16
+   blocks, drop-path 0.1 from a seeded generator) with its AdamW / cosine
+   / MSE train block on a seeded synthetic 16x6x30x90 batch: training
+   steps (32 launches of each of K1-K6 per step), one eval forward, and
+   the same fp32 gradient check.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line ``{"kernels": [...]}`` and the card line before the last line, and
@@ -40,6 +67,7 @@ as its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -54,7 +82,9 @@ from lowlight_image_enhancement_tpu_torch.losses import assert_finite_logs
 from lowlight_image_enhancement_tpu_torch.models import define_network
 from lowlight_image_enhancement_tpu_torch.models.nafnet import NAFBlock
 from lowlight_image_enhancement_tpu_torch.ops import _build
+from lowlight_image_enhancement_tpu_torch.ops import layernorm as ln
 from lowlight_image_enhancement_tpu_torch.ops import nafblock as ops
+from lowlight_image_enhancement_tpu_torch.ops import pool
 from lowlight_image_enhancement_tpu_torch.serving import RestorationServer
 from lowlight_image_enhancement_tpu_torch.training.config import parse
 from lowlight_image_enhancement_tpu_torch.training.schedules import (
@@ -69,6 +99,7 @@ from lowlight_image_enhancement_tpu_torch.training.train_step import (
 )
 from lowlight_image_enhancement_tpu_torch.training.trainer import (
     build_hybrid_loss,
+    build_training_losses,
 )
 
 SEED = 0
@@ -92,21 +123,55 @@ BATCH = 2
 # order; bf16 allows 4 bf16 ulps at the top of the range (a rounding of
 # an operand or of the stored result may land on the other side).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+# a served output against the same request on a plain path of the model:
+# |kernel - plain| <= SERVE_TOL * max(1, max|plain|)
+SERVE_TOL = {torch.bfloat16: 0.1, torch.float32: 1e-3}
 SERVE_SHAPES = [(512, 512)] * 4 + [(600, 400)] * 2 + [(256, 384),
                                                       (1500, 1000)]
 TRAIN_CONFIG = Path(__file__).resolve().parent / "configs" / \
     "sid_newbp_mono_selfcontained.yml"
-TRAIN_STEPS = 5
-PALLAS = "lowlight_image_enhancement_tpu/ops/pallas/nafblock.py"
+STEREO_CONFIG = TRAIN_CONFIG.with_name("stereo_nafssr.yml")
+TRAIN_STEPS = 3
+# the NAFNet paper's Baseline-width32 (megvii-research/NAFNet,
+# options/train/SIDD/Baseline-width32.yml)
+BASELINE_W32 = {"type": "Baseline", "width": 32,
+                "enc_blk_nums": [2, 2, 4, 8], "middle_blk_num": 12,
+                "dec_blk_nums": [2, 2, 2, 2], "dw_expand": 1,
+                "ffn_expand": 2}
+# NAFSSR's blocks (configs/stereo_nafssr.yml): 16 pairs of 30x90 views at
+# C=48, each of the 16 blocks applied to both views; 30 and 90 are no
+# multiples of K4's 12-pixel tile
+NAFSSR_BLOCK = (16, 48, 30, 90, 32, "nafssr")
+# (N, C, H, W, LayerNorms at this shape in one Baseline-width32 forward):
+# the 384x384 training crop, then a served 512x512 batch
+LN_SHAPES = [(BATCH, c, s, s, 2 * n, "baseline") for c, s, n in TRAIN_PATH]
+LN_SHAPES += [(BATCH, c, s, s, 2 * n, "baseline_serve")
+              for c, s, n in MAIN_PATH]
+LN_SHAPES += [NAFSSR_BLOCK, (BATCH, *WIDE, WIDE[1], 0, "w1024"),
+              (BATCH, *RAGGED, RAGGED[1], 0, "ragged")]
+# (N, C, H, W, pools at this shape in one VGG19 pass, kind of input)
+POOL_SHAPES = [(BATCH, 64, 384, 384, 1, "vgg"),
+               (BATCH, 128, 192, 192, 1, "vgg"),
+               (BATCH, 256, 96, 96, 1, "vgg"), (BATCH, 512, 48, 48, 1, "vgg"),
+               (BATCH, 64, 37, 51, 0, "odd"), (BATCH, 64, 96, 96, 0, "ties"),
+               (BATCH, 64, 96, 96, 0, "nan")]
+PALLAS = "lowlight_image_enhancement_tpu/ops/pallas/"
 CSRC = "lowlight_image_enhancement_tpu_torch/csrc/"
 KERNELS = {
-    "nafblk_a": ("K1", CSRC + "nafblock_fwd.cu", PALLAS + ":462"),
-    "nafblk_b": ("K2", CSRC + "nafblock_fwd.cu", PALLAS + ":534"),
-    "nafblk_p1": ("K3", CSRC + "nafblock_bwd.cu", PALLAS + ":579"),
-    "nafblk_p2": ("K4", CSRC + "nafblock_bwd.cu", PALLAS + ":698"),
+    "nafblk_a": ("K1", CSRC + "nafblock_fwd.cu", PALLAS + "nafblock.py:462"),
+    "nafblk_b": ("K2", CSRC + "nafblock_fwd.cu", PALLAS + "nafblock.py:534"),
+    "nafblk_p1": ("K3", CSRC + "nafblock_bwd.cu", PALLAS + "nafblock.py:579"),
+    "nafblk_p2": ("K4", CSRC + "nafblock_bwd.cu", PALLAS + "nafblock.py:698"),
+    "ln_fwd": ("K5", CSRC + "layernorm.cu", PALLAS + "layernorm.py:36"),
+    "ln_bwd": ("K6", CSRC + "layernorm.cu", PALLAS + "layernorm.py:50"),
+    "relu_pool_fwd": ("K7", CSRC + "pool.cu", PALLAS + "pool.py:84"),
+    "pool_bwd": ("K8", CSRC + "pool.cu", PALLAS + "pool.py:92"),
 }
 WRAPPERS = {"nafblk_a": ops.call_a, "nafblk_b": ops.call_b,
-            "nafblk_p1": ops.call_p1, "nafblk_p2": ops.call_p2}
+            "nafblk_p1": ops.call_p1, "nafblk_p2": ops.call_p2,
+            "ln_fwd": ln.call_ln_fwd, "ln_bwd": ln.call_ln_bwd,
+            "relu_pool_fwd": pool.call_relu_pool_fwd,
+            "pool_bwd": pool.call_pool_bwd}
 
 
 def card_line() -> str:
@@ -123,6 +188,18 @@ def check(ok: bool, what: str) -> None:
 
 def launches() -> dict:
     return {k: w.launches for k, w in WRAPPERS.items()}
+
+
+def reset_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def expect_launches(counts: dict, what: str, **expected: int) -> None:
+    """Every kernel's count: the named ones as given, every other 0."""
+    for k, n in counts.items():
+        want = expected.get(k, 0)
+        check(n == want, f"{what}: {k} launched {n} times, expected {want}")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -166,14 +243,14 @@ def err(got: torch.Tensor, ref: torch.Tensor, scale=None):
     return e, e / max(s, 1e-30)
 
 
-def bound(kind: str, c: int, hw: int, dt: torch.dtype):
+def bound(kind: str, c: int, hw: int, dt: torch.dtype, n: int = BATCH):
     """Least time (ms) for one call's work: bytes (each input read once,
     each output written once) over the HBM rate vs the FLOPs of its
     matrix products (F = C) over the operand type's peak."""
     s = torch.tensor([], dtype=dt).element_size()
-    act = BATCH * c * hw
-    px = BATCH * hw
-    nc = 4 * BATCH * c                        # one [N, C] fp32 array
+    act = n * c * hw
+    px = n * hw
+    nc = 4 * n * c                            # one [N, C] fp32 array
     if kind == "nafblk_a":     # x in, g out; W1, kdw, vectors; sums out
         nbytes = 2 * act * s + 4 * (2 * c * c + 18 * c + 6 * c) + nc
         flops = px * (4 * c * c + 36 * c)
@@ -195,19 +272,23 @@ def bound(kind: str, c: int, hw: int, dt: torch.dtype):
                                  "operations")
 
 
-def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, path):
-    b_ms, b_by = bound(kind, c, side * side, dt)
+def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, path, n=BATCH,
+           hw=None):
+    h, w = hw or (side, side)
+    b_ms, b_by = bound(kind, c, h * w, dt, n)
     rows.setdefault(kind, []).append(dict(
-        path=path, c=c, side=side, dtype=str(dt)[6:], blocks=blocks, err=e,
-        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by))
-    print(f"  C={c:4d} {side}x{side} {str(dt)[6:]:8s} {kind}: kernel "
+        path=path, n=n, c=c, side=side, h=h, w=w, dtype=str(dt)[6:],
+        blocks=blocks, err=e, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+        bound_by=b_by))
+    print(f"  N={n:2d} C={c:4d} {h}x{w} {str(dt)[6:]:8s} {kind}: kernel "
           f"{t_k:.4f} ms  plain {t_p:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
 
 
 def show(checks, c, side, dt):
     tol = TOL[dt]
+    dims = side if isinstance(side, str) else f"{side}x{side}"
     for name, (e, rel) in checks.items():
-        print(f"  C={c:4d} {side}x{side} {str(dt)[6:]:8s} {name:14s} "
+        print(f"  C={c:4d} {dims} {str(dt)[6:]:8s} {name:14s} "
               f"max_abs={e:.3e} rel={rel:.3e} tol={tol:.1e}")
         check(rel <= tol, f"{name} C={c} {dt}: rel {rel} > {tol}")
 
@@ -256,16 +337,17 @@ def forward_phase(gen: torch.Generator, rows: dict) -> None:
 
 
 def backward_phase(gen: torch.Generator, rows: dict) -> None:
-    widths = [(c, s, n, "train") for c, s, n in TRAIN_PATH]
-    widths += [(*WIDE, 0, "w64"), (*RAGGED, 0, "ragged")]
-    for c, side, nblk, path in widths:
-        hw = side * side
-        shw = (side, side)
+    widths = [(BATCH, c, s, s, n, "train") for c, s, n in TRAIN_PATH]
+    widths += [(BATCH, *WIDE, WIDE[1], 0, "w64"),
+               (BATCH, *RAGGED, RAGGED[1], 0, "ragged"), NAFSSR_BLOCK]
+    for n, c, side, wide, nblk, path in widths:
+        hw = side * wide
+        shw = (side, wide)
         blk = NAFBlock(c).cuda()
         randomize_(blk, gen, 1.0)
         p = blk.packed()
-        x32 = torch.randn((BATCH, c, hw), generator=gen, device="cuda")
-        d32 = torch.randn((BATCH, c, hw), generator=gen, device="cuda")
+        x32 = torch.randn((n, c, hw), generator=gen, device="cuda")
+        d32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
             x, dout = x32.to(dt), d32.to(dt)
             checks = {}
@@ -301,7 +383,7 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
             worst = max((err(gv, ref[k]) for k, gv in
                          zip(ops.PARAM_ORDER, got[1:])), key=lambda e: e[1])
             checks["block.dparams"] = worst
-            show(checks, c, side, dt)
+            show(checks, c, f"{side}x{wide} N={n}", dt)
             with torch.no_grad():
                 t = {
                     "nafblk_a": (time_ms(lambda: ops.call_a(x, p, shw)),
@@ -319,15 +401,13 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                 }
             for k, (t_k, t_p) in t.items():
                 report(k, rows, c, side, dt, nblk, checks[k][0], t_k, t_p,
-                       path)
+                       path, n, shw)
         del blk, x32, d32
 
 
-def serving_phase(gen: torch.Generator) -> dict:
-    net = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
-                         device="cuda")
-    check(len(net.blocks()) == 36, "NewBPNAFNet must hold 36 NAFBlocks")
-    randomize_(net, gen, 0.1)
+def serve_mix(net, what: str, **per_forward: int) -> dict:
+    """The 8-request mix through ``RestorationServer``: shapes, finiteness,
+    4 forward batches and ``per_forward`` launches in each."""
     server = RestorationServer(net, device="cuda")
     rng = np.random.default_rng(SEED)
     images = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
@@ -335,7 +415,7 @@ def serving_phase(gen: torch.Generator) -> dict:
     server.predict(images[:1])             # warm-up (cuDNN, allocator)
     torch.cuda.synchronize()
 
-    ops.reset_launch_counts()
+    reset_launches()
     server.forward_batches = 0
     t0 = time.perf_counter()
     outs = server.predict(images)
@@ -348,48 +428,74 @@ def serving_phase(gen: torch.Generator) -> dict:
         check(out.shape == im.shape, f"output {out.shape} for {im.shape}")
         check(bool(np.isfinite(out).all()), f"non-finite output {im.shape}")
     check(batches == 4, f"expected 4 forward batches, ran {batches}")
-    for k in ("nafblk_a", "nafblk_b"):
-        check(counts[k] == 36 * batches,
-              f"{k}: {counts[k]} launches for {batches} batches")
-    for k in ("nafblk_p1", "nafblk_p2"):
-        check(counts[k] == 0, f"{k} launched {counts[k]} times serving")
-    print(f"serving: {len(images)} requests in {wall:.3f} s "
+    expect_launches(counts, f"{what} serving",
+                    **{k: n * batches for k, n in per_forward.items()})
+    used = {k: n for k, n in counts.items() if n}
+    print(f"{what} serving: {len(images)} requests in {wall:.3f} s "
           f"({wall / len(images) * 1e3:.1f} ms/request), {batches} forward "
-          f"batches, launches {counts}")
-
-    # the same request on the model's plain (eager) path on the card
-    probe = SERVE_SHAPES.index((256, 384))
-    res = {}
-    for dt, tol in ((torch.bfloat16, 0.1), (torch.float32, 1e-3)):
-        net.dtype = dt
-        fused = server.predict([images[probe]])[0]
-        for b in net.blocks():
-            b.fused = False
-        plain = server.predict([images[probe]])[0]
-        for b in net.blocks():
-            b.fused = True
-        e = float(np.abs(fused - plain).max())
-        scale = float(np.abs(plain).max())
-        print(f"serving vs eager path, {str(dt)[6:]}: max_abs={e:.3e} "
-              f"max|ref|={scale:.3e} tol={tol:.1e} * max(1, max|ref|)")
-        check(e <= tol * max(1.0, scale), f"served {dt} output off eager path")
-        res[str(dt)[6:]] = e
-    return {"launches": counts, "wall_s": wall, "eager_err": res}
+          f"batches, launches {used}")
+    return {"launches": counts, "wall_s": wall, "server": server,
+            "images": images, "outputs": outs}
 
 
-def training_phase() -> dict:
-    opt = parse(str(TRAIN_CONFIG), is_train=True)
-    train = opt["train"]
-    amp = bool(train.get("enable_amp"))
-    net = define_network({**opt["network_g"],
-                          "dtype": "bfloat16" if amp else "float32"},
+def served_err(what: str, dt: torch.dtype, got, ref) -> float:
+    """Served outputs against the same requests on a plain path: each
+    within ``SERVE_TOL[dt] * max(1, max|ref|)``; returns the worst error."""
+    tol, worst = SERVE_TOL[dt], 0.0
+    for g, r in zip(got, ref):
+        e = float(np.abs(g - r).max())
+        scale = float(np.abs(r).max())
+        print(f"served {what}, {str(dt)[6:]}, {r.shape[0]}x{r.shape[1]}: "
+              f"max_abs={e:.3e} max|ref|={scale:.3e} tol={tol:.1e} * "
+              f"max(1, max|ref|)")
+        check(g.shape == r.shape and bool(np.isfinite(g).all())
+              and e <= tol * max(1.0, scale),
+              f"served {dt} {r.shape} output off the plain path ({what})")
+        worst = max(worst, e)
+    return worst
+
+
+def serving_phase(gen: torch.Generator) -> dict:
+    net = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
                          device="cuda")
     check(len(net.blocks()) == 36, "NewBPNAFNet must hold 36 NAFBlocks")
-    # residual scales 0.01: the blocks start near the identity that
-    # NAFNet's zero init of beta/gamma gives, yet every kernel gradient is
-    # nonzero (at 0.1 the first AdamW steps overshoot and the loss bumps)
-    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED), 0.01)
-    loss = build_hybrid_loss(train, device="cuda")
+    randomize_(net, gen, 0.1)
+    res = serve_mix(net, "NewBPNAFNet", nafblk_a=36, nafblk_b=36)
+    server, images = res.pop("server"), res.pop("images")
+    del res["outputs"]
+
+    # the same request on the model's plain (eager) path on the card
+    probe = [images[SERVE_SHAPES.index((256, 384))]]
+    eager = {}
+    for dt in SERVE_TOL:
+        net.dtype = dt
+        fused = server.predict(probe)
+        for b in net.blocks():
+            b.fused = False
+        plain = server.predict(probe)
+        for b in net.blocks():
+            b.fused = True
+        eager[str(dt)[6:]] = served_err("NewBPNAFNet vs eager blocks", dt,
+                                        fused, plain)
+    return {**res, "eager_err": eager}
+
+
+def recipe(config: Path, network_g: dict, res_scale: float,
+           pool_impl: str = None):
+    """``(net, loss, state, step)`` of ``config``'s train block around
+    ``network_g`` (its ``network_g`` when None), on the card, with seeded
+    random weights; ``pool_impl`` goes to ``hybrid_opt.perceptual``."""
+    opt = parse(str(config), is_train=True)
+    train = copy.deepcopy(opt["train"])
+    if pool_impl is not None:
+        train["hybrid_opt"]["perceptual"] = {"pool_impl": pool_impl}
+    amp = bool(train.get("enable_amp"))
+    net = define_network({**(network_g or opt["network_g"]),
+                          "dtype": "bfloat16" if amp else "float32"},
+                         device="cuda")
+    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED),
+               res_scale)
+    loss, pixel_loss = build_training_losses(train, device="cuda")
     optim = dict(train["optim_g"])
     base_lr = float(optim.pop("lr"))
     schedule = make_schedule(train["scheduler"], base_lr,
@@ -401,24 +507,32 @@ def training_phase() -> dict:
         use_grad_clip=bool(train.get("use_grad_clip", True)),
         accum_steps=int(train.get("accum_steps", 1)))
     state = create_train_state(net, optimizer, loss)
-    step = make_train_step(net, loss, optimizer)
+    step = make_train_step(net, loss, optimizer, pixel_loss=pixel_loss)
+    return net, loss, state, step
 
-    # one seeded synthetic batch of the recipe's shape (2 x 384^2 crops)
+
+def flagship_batch() -> dict:
+    """One seeded synthetic batch of the flagship recipe's shape (2 x 384^2
+    crops): uniform ``gt``, exposure ratios 100 and 300."""
     rng = np.random.default_rng(SEED)
     gt = rng.uniform(0, 1, (BATCH, 3, 384, 384)).astype(np.float32)
     expo = np.array([100.0, 300.0], np.float32)
     lq = np.clip(gt / expo[:, None, None, None]
                  + rng.normal(0, 1e-3, gt.shape), 0, 1).astype(np.float32)
-    batch = {"lq": torch.from_numpy(lq).cuda(),
-             "gt": torch.from_numpy(gt).cuda(),
-             "expo_ratio": torch.from_numpy(expo).cuda()}
+    return {"lq": torch.from_numpy(lq).cuda(),
+            "gt": torch.from_numpy(gt).cuda(),
+            "expo_ratio": torch.from_numpy(expo).cuda()}
 
+
+def run_steps(what: str, step, state, batch, **per_step: int) -> dict:
+    """1 warm-up and ``TRAIN_STEPS`` timed steps: finite logs, ``per_step``
+    launches in every step (every other kernel none), a falling loss."""
     state, logs0 = step(state, batch)             # warm-up
     assert_finite_logs(logs0)
     torch.cuda.synchronize()
-    times, history, per_step = [], [], []
+    times, history, total = [], [], {k: 0 for k in WRAPPERS}
     for _ in range(TRAIN_STEPS):
-        ops.reset_launch_counts()
+        reset_launches()
         t0 = time.perf_counter()
         state, logs = step(state, batch)
         torch.cuda.synchronize()
@@ -426,21 +540,76 @@ def training_phase() -> dict:
         counts = launches()
         assert_finite_logs(logs)
         history.append({k: float(v) for k, v in logs.items()})
-        per_step.append(counts)
+        expect_launches(counts, f"{what} training step", **per_step)
         for k, n in counts.items():
-            check(n == 36, f"{k}: {n} launches in one training step")
-    l0, l5 = float(logs0["l_total"]), history[-1]["l_total"]
-    print(f"training: {TRAIN_STEPS} steps, ms/step median "
+            total[k] += n
+    l0, l1 = float(logs0["l_total"]), history[-1]["l_total"]
+    print(f"{what} training: {TRAIN_STEPS} steps, ms/step median "
           f"{statistics.median(times):.1f} (all {[round(t, 1) for t in times]})"
-          f", l_total {l0:.6f} -> {l5:.6f}, launches/step {per_step[-1]}")
+          f", l_total {l0:.6f} -> {l1:.6f}, launches/step {per_step}")
     for i, h in enumerate(history):
         print(f"  step {state.step - TRAIN_STEPS + i}: "
               + " ".join(f"{k}={v:.6g}" for k, v in h.items()))
-    check(l5 < l0, f"l_total did not fall: {l0} -> {l5}")
+    check(l1 < l0, f"{what}: l_total did not fall: {l0} -> {l1}")
+    return {"ms_per_step": statistics.median(times), "step_ms": times,
+            "l_total": [l0] + [h["l_total"] for h in history],
+            "launches": total, "launches_per_step": per_step}
+
+
+def compare_grads(what: str, names, g_kernel, g_plain) -> float:
+    """Each leaf against its own scale: |kernel - plain| <= 1e-3 * max|g|
+    of that leaf (1e-30 only lets a leaf whose gradient is exactly 0 in
+    both pass). Returns the worst leaf's share of its limit."""
+    readings = []
+    for k, gk, gp in zip(names, g_kernel, g_plain):
+        gmax = gp.abs().max().item()
+        d = (gk - gp).abs().max().item()
+        readings.append((d / max(1e-3 * gmax, 1e-30), k, d, gmax))
+    readings.sort(reverse=True)
+    print(f"fp32 gradients, {what}: {len(names)} leaves, limit 1e-3 * "
+          f"max|g_plain| per leaf; worst five:")
+    for frac, k, d, gmax in readings[:5]:
+        print(f"  {k}: max_abs={d:.3e} max|g_plain|={gmax:.3e} "
+              f"({frac:.3e} of its limit)")
+    smallest = min(readings, key=lambda r: r[3])
+    print(f"  smallest max|g_plain|: {smallest[1]} {smallest[3]:.3e}")
+    for frac, k, d, gmax in readings:
+        check(frac <= 1.0, f"fp32 grad {k} ({what}): |kernel - plain| {d} > "
+              f"1e-3 * {gmax}")
+    return readings[0][0]
+
+
+def set_dtype(net, loss, dt: torch.dtype) -> None:
+    net.dtype = dt
+    if loss.perceptual is not None:
+        loss.perceptual.vgg.dtype = dt
+
+
+def eval_forward(what: str, net, lq: torch.Tensor, shape,
+                 **expected: int) -> None:
+    reset_launches()
+    out = make_eval_step(net)(lq)
+    torch.cuda.synchronize()
+    counts = launches()
+    check(tuple(out.shape) == tuple(shape)
+          and bool(torch.isfinite(out).all()), f"{what} eval forward: bad "
+          f"output {tuple(out.shape)}")
+    expect_launches(counts, f"{what} eval forward", **expected)
+
+
+def training_phase() -> dict:
+    net, loss, state, step = recipe(TRAIN_CONFIG, None, 0.01)
+    check(len(net.blocks()) == 36, "NewBPNAFNet must hold 36 NAFBlocks")
+    # residual scales 0.01: the blocks start near the identity that
+    # NAFNet's zero init of beta/gamma gives, yet every kernel gradient is
+    # nonzero (at 0.1 the first AdamW steps overshoot and the loss bumps)
+    batch = flagship_batch()
+    four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
+    res = run_steps("NewBPNAFNet", step, state, batch, **four)
 
     # fp32 gradients through the kernels vs the eager block path
-    net.dtype = torch.float32
-    loss.perceptual.vgg.dtype = torch.float32
+    amp_dt = net.dtype
+    set_dtype(net, loss, torch.float32)
     params = list(net.parameters())
     names = [k for k, _ in net.named_parameters()]
 
@@ -449,7 +618,7 @@ def training_phase() -> dict:
         total, _ = loss(**hybrid_batch_kwargs(out, batch))
         return torch.autograd.grad(total, params)
 
-    ops.reset_launch_counts()
+    reset_launches()
     g_kernel = grads()
     check(ops.call_p1.launches == 36 and ops.call_p2.launches == 36,
           "fp32 check did not run the backward kernels")
@@ -458,52 +627,334 @@ def training_phase() -> dict:
     g_eager = grads()
     for b in net.blocks():
         b.fused = True
-    # each leaf against its own scale: |kernel - eager| <= 1e-3 * max|g|
-    # of that leaf (1e-30 only lets a leaf whose gradient is exactly 0
-    # in both pass)
-    readings = []
-    for k, gk, ge in zip(names, g_kernel, g_eager):
-        gmax = ge.abs().max().item()
-        d = (gk - ge).abs().max().item()
-        readings.append((d / max(1e-3 * gmax, 1e-30), k, d, gmax))
-    readings.sort(reverse=True)
-    print(f"fp32 gradients, kernels vs eager blocks: {len(names)} leaves, "
-          f"limit 1e-3 * max|g_eager| per leaf; worst five:")
-    for frac, k, d, gmax in readings[:5]:
-        print(f"  {k}: max_abs={d:.3e} max|g_eager|={gmax:.3e} "
-              f"({frac:.3e} of its limit)")
-    smallest = min(readings, key=lambda r: r[3])
-    print(f"  smallest max|g_eager|: {smallest[1]} {smallest[3]:.3e}")
-    for frac, k, d, gmax in readings:
-        check(frac <= 1.0, f"fp32 grad {k}: |kernel - eager| {d} > 1e-3 * "
-              f"{gmax}")
-    worst = readings[0]
-    net.dtype = torch.bfloat16 if amp else torch.float32
-    loss.perceptual.vgg.dtype = torch.bfloat16 if amp else torch.float32
+    res["grad_check_worst"] = compare_grads(
+        "K1-K4 vs eager NAFBlocks", names, g_kernel, g_eager)
+    set_dtype(net, loss, amp_dt)
 
-    ops.reset_launch_counts()
-    out = make_eval_step(net)(batch["lq"])
-    torch.cuda.synchronize()
-    counts = launches()
-    check(out.shape == batch["lq"].shape and bool(torch.isfinite(out).all()),
-          "eval forward: bad output")
-    check(counts == {"nafblk_a": 36, "nafblk_b": 36, "nafblk_p1": 0,
-                     "nafblk_p2": 0}, f"eval forward launches {counts}")
-    return {"ms_per_step": statistics.median(times), "step_ms": times,
-            "l_total": [l0] + [h["l_total"] for h in history],
-            "launches": {k: sum(c[k] for c in per_step) for k in WRAPPERS},
-            "launches_per_step": per_step[-1],
-            "grad_check_worst": worst[0]}
+    eval_forward("NewBPNAFNet", net, batch["lq"], batch["lq"].shape,
+                 nafblk_a=36, nafblk_b=36)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K5-K8: kernel phase
+# ---------------------------------------------------------------------------
+
+
+def ln_pool_bound(kind: str, shape, dt: torch.dtype):
+    """Least time (ms) for one call: bytes (each input read once, each
+    output written once) over the HBM rate vs a few fp32 operations per
+    element over the fp32 peak. All four are bound by bytes."""
+    n, c, h, w = shape
+    s = torch.tensor([], dtype=dt).element_size()
+    elems = n * c * h * w
+    if kind == "ln_fwd":      # x in; y, xhat (fp32), rstd out; w, b in
+        nbytes = (2 * s + 4) * elems + 4 * n * h * w + 8 * c
+        flops = 8 * elems
+    elif kind == "ln_bwd":    # g, xhat, rstd, w in; gx, gw, gb out
+        nbytes = (2 * s + 4) * elems + 4 * n * h * w + 12 * c
+        flops = 11 * elems
+    elif kind == "relu_pool_fwd":     # x in, y (a quarter) out
+        nbytes = 1.25 * s * elems
+        flops = 2 * elems
+    else:                             # x, dy in, dx out
+        nbytes = 2.25 * s * elems
+        flops = 3 * elems
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def report_row(kind, rows, shape, dt, count, path, e, t_k, t_p, t_lib):
+    b_ms, b_by = ln_pool_bound(kind, shape, dt)
+    n, c, h, w = shape
+    rows.setdefault(kind, []).append(dict(
+        path=path, n=n, c=c, h=h, w=w, dtype=str(dt)[6:], blocks=count,
+        err=e, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+        library_ms=t_lib))
+    print(f"  N={n:2d} C={c:4d} {h}x{w} {str(dt)[6:]:8s} {kind}: kernel "
+          f"{t_k:.4f} ms  plain {t_p:.4f} ms  library {t_lib:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by})")
+
+
+def ln_phase(gen: torch.Generator, rows: dict) -> None:
+    for n, c, h, w, count, path in LN_SHAPES:
+        shape = (n, c, h, w)
+        x32 = torch.randn((n, c, h * w), generator=gen, device="cuda") * 2 \
+            + 0.5
+        g32 = torch.randn((n, c, h * w), generator=gen, device="cuda")
+        wt = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        bt = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dt), g32.to(dt)
+            y_k, xhat_k, rstd_k = ln.call_ln_fwd(x, wt, bt)
+            y_p, xhat_p, rstd_p = ln.plain_ln_fwd(x, wt, bt)
+            gx_k, gw_k, gb_k = ln.call_ln_bwd(g, xhat_p, rstd_p, wt)
+            gx_p, gw_p, gb_p = ln.plain_ln_bwd(g, xhat_p, rstd_p, wt)
+            torch.cuda.synchronize()
+            checks = {"ln_fwd": err(y_k, y_p)}
+            dims = f"{h}x{w} N={n}"
+            show(checks, c, dims, dt)
+            # the fp32 residuals and weight grads at the fp32 tolerance
+            # in either activation type
+            show({"ln_fwd.xhat": err(xhat_k, xhat_p),
+                  "ln_fwd.rstd": err(rstd_k, rstd_p)}, c, dims,
+                 torch.float32)
+            checks["ln_bwd"] = err(gx_k, gx_p)
+            show({"ln_bwd": checks["ln_bwd"]}, c, dims, dt)
+            show({"ln_bwd.gw": err(gw_k, gw_p), "ln_bwd.gb": err(gb_k, gb_p)},
+                 c, dims, torch.float32)
+
+            # the library call: F.layer_norm on the channels-last view
+            x_cl = x.transpose(1, 2).contiguous().requires_grad_(True)
+            g_cl = g.transpose(1, 2).contiguous()
+            w_lib = wt.to(dt).requires_grad_(True)
+            b_lib = bt.to(dt).requires_grad_(True)
+            lib_fwd = lambda: torch.nn.functional.layer_norm(
+                x_cl, (c,), w_lib, b_lib, 1e-6)
+            y_lib = lib_fwd()
+            lib_bwd = lambda: torch.autograd.grad(
+                y_lib, (x_cl, w_lib, b_lib), g_cl, retain_graph=True)
+            with torch.no_grad():
+                t5 = (time_ms(lambda: ln.call_ln_fwd(x, wt, bt)),
+                      time_ms(lambda: ln.plain_ln_fwd(x, wt, bt)),
+                      time_ms(lib_fwd))
+                t6 = (time_ms(lambda: ln.call_ln_bwd(g, xhat_p, rstd_p, wt)),
+                      time_ms(lambda: ln.plain_ln_bwd(g, xhat_p, rstd_p, wt)))
+            t6 += (time_ms(lib_bwd),)
+            report_row("ln_fwd", rows, shape, dt, count, path,
+                       checks["ln_fwd"][0], *t5)
+            report_row("ln_bwd", rows, shape, dt, count, path,
+                       checks["ln_bwd"][0], *t6)
+            del x_cl, g_cl, y_lib
+        del x32, g32
+
+
+def same(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """Exact equality, a NaN equal to a NaN; returns max |got - ref| over
+    the entries that are no NaN (0.0 when the check passes)."""
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(ref.shape)} "
+          f"{ref.dtype}")
+    ok = (got == ref) | (got.isnan() & ref.isnan())
+    bad = int((~ok).sum())
+    print(f"  {what}: {bad} of {ok.numel()} entries differ (tolerance 0)")
+    check(bad == 0, f"{what}: {bad} entries differ")
+    return float((got.float() - ref.float()).nan_to_num(0.0).abs().max())
+
+
+def pool_phase(gen: torch.Generator, rows: dict) -> None:
+    for n, c, h, w, count, kind in POOL_SHAPES:
+        shape = (n, c, h, w)
+        x32 = torch.randn(shape, generator=gen, device="cuda")
+        if kind == "ties":       # a handful of values: most windows tie
+            values = torch.tensor([-1.0, -0.0, 0.0, 0.5, 2.0], device="cuda")
+            x32 = values[torch.randint(0, 5, shape, generator=gen,
+                                       device="cuda")]
+        elif kind == "nan":
+            x32[torch.rand(shape, generator=gen, device="cuda") < 0.1] = \
+                float("nan")
+        d32 = torch.randn((n, c, h // 2, w // 2), generator=gen,
+                          device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dt), d32.to(dt)
+            tag = f"N={n} C={c:3d} {h}x{w} {kind} {str(dt)[6:]}"
+            e7 = same(pool.call_relu_pool_fwd(x), pool.plain_relu_pool_fwd(x),
+                      f"{tag} relu_pool_fwd")
+            e8 = max(same(pool.call_pool_bwd(x, dy, relu),
+                          pool.plain_pool_bwd(x, dy, relu),
+                          f"{tag} pool_bwd relu={relu}")
+                     for relu in (True, False))
+            torch.cuda.synchronize()
+            xr = x.clone().requires_grad_(True)
+            y_lib = torch.nn.functional.max_pool2d(xr, 2, 2)
+            with torch.no_grad():
+                t7 = (time_ms(lambda: pool.call_relu_pool_fwd(x)),
+                      time_ms(lambda: pool.plain_relu_pool_fwd(x)),
+                      time_ms(lambda: torch.nn.functional.max_pool2d(x, 2, 2)))
+                t8 = (time_ms(lambda: pool.call_pool_bwd(x, dy, True)),
+                      time_ms(lambda: pool.plain_pool_bwd(x, dy, True)))
+            t8 += (time_ms(lambda: torch.autograd.grad(
+                y_lib, xr, dy, retain_graph=True)),)
+            report_row("relu_pool_fwd", rows, shape, dt, count, kind, e7, *t7)
+            report_row("pool_bwd", rows, shape, dt, count, kind, e8, *t8)
+            del xr, y_lib
+        del x32, d32
+
+
+# ---------------------------------------------------------------------------
+# paths P (perceptual loss, K7/K8), B (Baseline, K5/K6), S (NAFSSR)
+# ---------------------------------------------------------------------------
+
+
+def perceptual_path() -> dict:
+    batch = flagship_batch()
+    four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
+    res, losses = {}, {}
+    for impl, extra in (("kernel_fused", dict(relu_pool_fwd=8, pool_bwd=4)),
+                        ("kernel_bwd", dict(pool_bwd=4))):
+        net, loss, state, step = recipe(TRAIN_CONFIG, None, 0.01, impl)
+        check(loss.perceptual.vgg.pool_impl == impl, "pool_impl not passed")
+        res[impl] = run_steps(f"NewBPNAFNet pool_impl={impl}", step, state,
+                              batch, **four, **extra)
+        losses[impl] = loss
+        del net, state, step
+    losses["reduce_window"] = build_hybrid_loss(
+        parse(str(TRAIN_CONFIG), is_train=True)["train"], device="cuda")
+
+    # the perceptual term and its gradient under the three options, fp32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    pred = (batch["gt"] + 0.2 * torch.randn(
+        batch["gt"].shape, generator=gen, device="cuda")).requires_grad_(True)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # same conv algorithms thrice
+    out = {}
+    try:
+        for impl, loss in losses.items():
+            loss.perceptual.vgg.dtype = torch.float32
+            reset_launches()
+            val = loss.perceptual(pred, batch["gt"])
+            (grad,) = torch.autograd.grad(val, pred)
+            out[impl] = (val.detach(), grad, launches())
+    finally:
+        torch.backends.cudnn.deterministic = was
+    expect_launches(out["reduce_window"][2], "perceptual reduce_window")
+    expect_launches(out["kernel_bwd"][2], "perceptual kernel_bwd", pool_bwd=4)
+    expect_launches(out["kernel_fused"][2], "perceptual kernel_fused",
+                    relu_pool_fwd=8, pool_bwd=4)
+    v0, g0, _ = out["reduce_window"]
+    gmax = g0.abs().max().item()
+    check(gmax > 0 and bool(torch.isfinite(g0).all()),
+          "perceptual gradient is zero or not finite")
+    for impl in ("kernel_bwd", "kernel_fused"):
+        v, g, _ = out[impl]
+        dv = abs(float(v) - float(v0))
+        dg = (g - g0).abs().max().item()
+        print(f"perceptual term fp32, {impl} vs reduce_window: value "
+              f"{float(v):.8g} vs {float(v0):.8g}, grad max_abs={dg:.3e} "
+              f"max|g|={gmax:.3e} (limit 1e-6 * max|g|)")
+        check(dv <= 1e-6 * abs(float(v0)), f"perceptual value under {impl}")
+        check(dg <= 1e-6 * gmax, f"perceptual gradient under {impl}")
+        res[impl]["grad_err"] = dg / gmax
+    return res
+
+
+def plain_layernorm(fn):
+    """``fn()`` with every ``LayerNorm2d`` on the plain eager
+    ``layer_norm_2d`` (under autograd; no K5/K6)."""
+    kernel_forward = ln.LayerNorm2d.forward
+    ln.LayerNorm2d.forward = lambda self, x: ln.layer_norm_2d(
+        x, self.weight, self.bias, self.eps)
+    try:
+        reset_launches()
+        out = fn()
+        check(ln.call_ln_fwd.launches == 0 and ln.call_ln_bwd.launches == 0,
+              "the plain LayerNorm run launched K5/K6")
+        return out
+    finally:
+        ln.LayerNorm2d.forward = kernel_forward
+
+
+def baseline_path() -> dict:
+    net, loss, state, step = recipe(TRAIN_CONFIG, BASELINE_W32, 0.01)
+    norms = [m for m in net.modules() if isinstance(m, ln.LayerNorm2d)]
+    check(len(norms) == 72 and net.dtype == torch.bfloat16,
+          "Baseline-width32 must hold 72 LayerNorms and run in bf16")
+    batch = flagship_batch()
+    res = run_steps("Baseline", step, state, batch, ln_fwd=72, ln_bwd=72)
+    eval_forward("Baseline", net, batch["lq"], batch["lq"].shape, ln_fwd=72)
+
+    # fp32 gradients through K5/K6 vs the plain LayerNorm
+    amp_dt = net.dtype
+    set_dtype(net, loss, torch.float32)
+    params = list(net.parameters())
+    names = [k for k, _ in net.named_parameters()]
+
+    def grads():
+        out = net(batch["lq"])
+        total, _ = loss(**hybrid_batch_kwargs(out, batch))
+        return torch.autograd.grad(total, params)
+
+    reset_launches()
+    g_kernel = grads()
+    check(ln.call_ln_fwd.launches == 72 and ln.call_ln_bwd.launches == 72,
+          "fp32 check did not run K5/K6 72 times")
+    res["grad_check_worst"] = compare_grads(
+        "Baseline, K5/K6 vs plain LayerNorm", names, g_kernel,
+        plain_layernorm(grads))
+    set_dtype(net, loss, amp_dt)
+    del g_kernel, state, step
+
+    serve = serve_mix(net, "Baseline", ln_fwd=72)
+    res["serve_wall_s"] = serve["wall_s"]
+    res["serve_launches"] = serve["launches"]
+
+    # every served request (the buckets and the tiled one) through K5 vs
+    # the same request with the plain LayerNorm
+    server, images = serve["server"], serve["images"]
+    res["serve_err"] = {}
+    for dt in SERVE_TOL:
+        net.dtype = dt
+        reset_launches()
+        got = serve["outputs"] if dt == amp_dt else server.predict(images)
+        check(dt == amp_dt or ln.call_ln_fwd.launches > 0,
+              "the served fp32 requests did not run K5")
+        ref = plain_layernorm(lambda: server.predict(images))
+        res["serve_err"][str(dt)[6:]] = served_err(
+            "Baseline, K5 vs plain LayerNorm", dt, got, ref)
+    net.dtype = amp_dt
+    return res
+
+
+def nafssr_path() -> dict:
+    net, loss, state, step = recipe(STEREO_CONFIG, None, 0.01)
+    check(len(net.blocks()) == 16 and net.blocks()[0].conv1.in_channels == 48
+          and all(b.scam is not None and b.drop_path.rate == 0.1
+                  for b in net.body), "NAFSSR must be the config's network")
+    net.generator = torch.Generator(device="cuda").manual_seed(SEED)
+    # a seeded synthetic batch of the config's size: 16 stereo pairs, 60x180
+    # targets and their 2x2-averaged 30x90 inputs
+    rng = np.random.default_rng(SEED)
+    gt = torch.from_numpy(rng.uniform(0, 1, (16, 6, 60, 180))
+                          .astype(np.float32)).cuda()
+    batch = {"lq": torch.nn.functional.avg_pool2d(gt, 2), "gt": gt}
+    per_step = dict(nafblk_a=32, nafblk_b=32, nafblk_p1=32, nafblk_p2=32,
+                    ln_fwd=32, ln_bwd=32)
+    res = run_steps("NAFSSR", step, state, batch, **per_step)
+    eval_forward("NAFSSR", net, batch["lq"], gt.shape, nafblk_a=32,
+                 nafblk_b=32, ln_fwd=32)
+
+    # fp32 gradients through K5/K6 vs the plain LayerNorm (eval mode: no
+    # drop-path draw, so both runs see the same network)
+    check(net.dtype == torch.float32, "the stereo recipe trains in fp32")
+    net.eval()
+    params = list(net.parameters())
+    names = [k for k, _ in net.named_parameters()]
+
+    def grads():
+        return torch.autograd.grad(
+            ((net(batch["lq"]) - gt) ** 2).mean(), params)
+
+    reset_launches()
+    g_kernel = grads()
+    check(ln.call_ln_fwd.launches == 32 and ln.call_ln_bwd.launches == 32,
+          "fp32 check did not run K5/K6 32 times")
+    res["grad_check_worst"] = compare_grads(
+        "NAFSSR, K5/K6 vs plain LayerNorm", names, g_kernel,
+        plain_layernorm(grads))
+    return res
 
 
 def summary(k: str, rows: list, launches_: int, unit: str) -> dict:
-    """One kernels-line entry: bf16 times summed over the blocks of one
-    pass of ``unit``."""
+    """One kernels-line entry: times summed over the calls of one pass of
+    ``unit`` (``blocks`` calls at each row's shape)."""
     tag, source, replaces = KERNELS[k]
     t_bytes = sum(r["blocks"] * r["bound_ms"] for r in rows
                   if r["bound_by"] == "bytes")
     t_ops = sum(r["blocks"] * r["bound_ms"] for r in rows
                 if r["bound_by"] == "operations")
+    lib = [r["blocks"] * r["library_ms"] for r in rows if "library_ms" in r]
     return {
         "name": k, "tag": tag, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches_,
@@ -512,7 +963,7 @@ def summary(k: str, rows: list, launches_: int, unit: str) -> dict:
         "plain_ms": sum(r["blocks"] * r["plain_ms"] for r in rows),
         "bound_ms": t_bytes + t_ops,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "unit": unit,
+        "library_ms": sum(lib) if lib else None, "unit": unit,
     }
 
 
@@ -536,34 +987,80 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows: dict = {}
+    print("LayerNorm kernel phase (K5/K6):")
+    ln_phase(gen, rows)
+    print("pool kernel phase (K7/K8):")
+    pool_phase(gen, rows)
     print("forward kernel phase (batch 2, serving widths and C=1024):")
     forward_phase(gen, rows)
     print("backward kernel phase (batch 2, 384x384 training widths):")
     backward_phase(gen, rows)
     serve = serving_phase(gen)
     train = training_phase()
+    perc = perceptual_path()
+    base = baseline_path()
+    ssr = nafssr_path()
 
     kernels = []
-    for k in KERNELS:
-        bf16 = [r for r in rows[k] if r["dtype"] == "bfloat16"]
-        if k in ("nafblk_a", "nafblk_b"):
-            entry = summary(k, [r for r in bf16 if r["path"] == "serve"],
-                            serve["launches"][k],
-                            "one 512x512 N=2 bf16 forward (36 blocks)")
-            step = summary(k, [r for r in bf16 if r["path"] == "train"],
-                           0, "")
-            entry.update(train_launches=train["launches"][k],
-                         train_ms=step["ms"], train_plain_ms=step["plain_ms"],
-                         train_bound_ms=step["bound_ms"])
-        else:
-            entry = summary(k, [r for r in bf16 if r["path"] == "train"],
-                            train["launches"][k],
-                            "one 384x384 N=2 bf16 training step (36 blocks)")
-        entry["per_width"] = rows[k]
+    bf16 = lambda k: [r for r in rows[k] if r["dtype"] == "bfloat16"]
+    on = lambda rs, path: [r for r in rs if r["path"] == path]
+
+    def nafssr_keys(k):
+        """The kernel's launches and fp32 times in one NAFSSR step."""
+        fp32 = [r for r in rows[k] if r["dtype"] == "float32"]
+        step = summary(k, on(fp32, "nafssr"), 0, "")
+        return dict(nafssr_launches=ssr["launches"][k], nafssr_ms=step["ms"],
+                    nafssr_plain_ms=step["plain_ms"],
+                    nafssr_bound_ms=step["bound_ms"],
+                    nafssr_library_ms=step["library_ms"])
+
+    for k in ("nafblk_a", "nafblk_b"):
+        entry = summary(k, on(bf16(k), "serve"), serve["launches"][k],
+                        "one 512x512 N=2 bf16 forward (36 blocks)")
+        step = summary(k, on(bf16(k), "train"), 0, "")
+        entry.update(train_launches=train["launches"][k],
+                     train_ms=step["ms"], train_plain_ms=step["plain_ms"],
+                     train_bound_ms=step["bound_ms"], **nafssr_keys(k))
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels, "card": card,
-                      "train_ms_per_step": train["ms_per_step"],
-                      "serve_wall_s": serve["wall_s"]}))
+    for k in ("nafblk_p1", "nafblk_p2"):
+        entry = summary(k, on(bf16(k), "train"), train["launches"][k],
+                        "one 384x384 N=2 bf16 training step (36 blocks)")
+        entry.update(nafssr_keys(k))
+        kernels.append(entry)
+    for k in ("ln_fwd", "ln_bwd"):
+        entry = summary(k, on(bf16(k), "baseline"), base["launches"][k],
+                        "one Baseline-width32 384x384 N=2 bf16 training step "
+                        "(72 LayerNorms)")
+        entry.update(serve_launches=base["serve_launches"][k],
+                     **nafssr_keys(k))
+        if k == "ln_fwd":      # serving runs no backward
+            fwd = summary(k, on(bf16(k), "baseline_serve"), 0, "")
+            entry.update(serve_ms=fwd["ms"], serve_plain_ms=fwd["plain_ms"],
+                         serve_bound_ms=fwd["bound_ms"],
+                         serve_library_ms=fwd["library_ms"])
+        kernels.append(entry)
+    # per training step under kernel_fused the trunk runs on the prediction
+    # and on the target (K7 twice per pool site) and backward once
+    for k, passes in (("relu_pool_fwd", 2), ("pool_bwd", 1)):
+        vgg = [dict(r, blocks=passes) for r in on(bf16(k), "vgg")]
+        entry = summary(k, vgg, perc["kernel_fused"]["launches"][k],
+                        "one 384x384 N=2 bf16 training step with "
+                        "pool_impl=kernel_fused (4 pool sites)")
+        entry.update(
+            kernel_bwd_launches=perc["kernel_bwd"]["launches"][k])
+        kernels.append(entry)
+    for entry in kernels:
+        entry["per_width"] = rows[entry["name"]]
+    print(json.dumps({
+        "kernels": kernels, "card": card,
+        "train_ms_per_step": train["ms_per_step"],
+        "serve_wall_s": serve["wall_s"],
+        "kernel_fused_ms_per_step": perc["kernel_fused"]["ms_per_step"],
+        "kernel_bwd_ms_per_step": perc["kernel_bwd"]["ms_per_step"],
+        "baseline_ms_per_step": base["ms_per_step"],
+        "baseline_serve_wall_s": base["serve_wall_s"],
+        "baseline_serve_err": base["serve_err"],
+        "nafssr_ms_per_step": ssr["ms_per_step"]}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

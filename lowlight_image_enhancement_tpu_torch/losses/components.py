@@ -40,12 +40,14 @@ Scalar = Union[torch.Tensor, float]
 @LOSS_REGISTRY.register()
 class PerceptualLoss(nn.Module):
     """Frozen-VGG19 feature loss on sRGB [0,1] inputs (clamped by the
-    trunk). ``dtype`` is the trunk's compute type (bf16 under AMP)."""
+    trunk). ``dtype`` is the trunk's compute type (bf16 under AMP);
+    ``pool_impl`` is the trunk's (:class:`...models.vgg.VGG19Features`)."""
 
     def __init__(self, criterion: str = "mse", taps=("relu5_4",),
                  weights_path: Optional[str] = None,
                  require_pretrained: bool = False, loss_weight: float = 1.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 pool_impl: Optional[str] = None):
         super().__init__()
         if criterion not in {"mse", "l1"}:
             raise ValueError("criterion must be 'mse' or 'l1'")
@@ -53,7 +55,8 @@ class PerceptualLoss(nn.Module):
         self.loss_weight = float(loss_weight)
         self.vgg, self.pretrained = load_vgg19_features(
             taps=taps, weights_path=weights_path,
-            dtype=dtype if dtype is not None else torch.float32)
+            dtype=dtype if dtype is not None else torch.float32,
+            pool_impl=pool_impl)
         if require_pretrained and not self.pretrained:
             raise RuntimeError(
                 "PerceptualLoss: pretrained VGG19 weights not found. The "

@@ -62,7 +62,8 @@ class HybridLossPlus(nn.Module):
     Weights and flags default as in the reference (``w_l1_raw=1.0,
     w_perc=0.02, w_lpips=0.0, w_deltaE=0.02, w_ssim=0.05, w_phys=0.10``);
     with ``use_phys`` exactly one of ``physics_kernel`` (RAW) or
-    ``physics_psf_module`` (sRGB) must be given. Call with NCHW keywords::
+    ``physics_psf_module`` (sRGB) must be given; ``perc_pool_impl`` is the
+    perceptual trunk's ``pool_impl``. Call with NCHW keywords::
 
         total, logs = loss(Bhat_raw=..., B_raw=..., A_raw=...,
                            expo_ratio=..., Bhat_srgb01=..., B_srgb01=...,
@@ -82,6 +83,7 @@ class HybridLossPlus(nn.Module):
                  perceptual: Optional[PerceptualLoss] = None,
                  require_pretrained: bool = False,
                  perc_dtype: Optional[torch.dtype] = None,
+                 perc_pool_impl: Optional[str] = None,
                  **_ignored: Any):
         super().__init__()
         if use_phys and ((physics_kernel is None)
@@ -101,7 +103,8 @@ class HybridLossPlus(nn.Module):
         self.perceptual = None
         if use_perc:
             self.perceptual = perceptual or PerceptualLoss(
-                require_pretrained=require_pretrained, dtype=perc_dtype)
+                require_pretrained=require_pretrained, dtype=perc_dtype,
+                pool_impl=perc_pool_impl)
         self.deltaE = DeltaE00Loss() if use_deltaE else None
         self.ssim = SSIMLoss() if use_ssim else None
         self.phys_raw = (PhysicsConsistencyLoss(physics_kernel)

@@ -13,12 +13,22 @@ from typing import Any, Mapping
 
 from lowlight_image_enhancement_tpu_torch import resolve_device
 from lowlight_image_enhancement_tpu_torch.models import newbp as _newbp  # noqa: F401
+from lowlight_image_enhancement_tpu_torch.models.baseline import (  # noqa: F401
+    Baseline,
+    BaselineBlock,
+)
 from lowlight_image_enhancement_tpu_torch.models.nafnet import (  # noqa: F401
     NAFBlock,
     NAFNet,
     SimpleGate,
     pixel_shuffle,
     simple_gate,
+)
+from lowlight_image_enhancement_tpu_torch.models.nafssr import (  # noqa: F401
+    NAFSSR,
+    SCAM,
+    DropPath,
+    NAFBlockSR,
 )
 from lowlight_image_enhancement_tpu_torch.models.newbp import (  # noqa: F401
     as_dtype,

@@ -11,7 +11,8 @@ Counterpart of ``lowlight_image_enhancement_tpu/models/nafnet.py``:
   of the JAX ``fused_blocks=True``. With ``fused=False`` it runs the eager
   module graph under autograd, the counterpart of the JAX unfused
   ``NAFBlock``.
-- :class:`NAFNet` -- 3x3 intro, encoder stacks with 2x2 stride-2 downs,
+- :class:`UShapedNet` (shared with ``models/baseline.py``) and
+  :class:`NAFNet` -- 3x3 intro, encoder stacks with 2x2 stride-2 downs,
   middle stack, decoder stacks with (1x1 no-bias conv + PixelShuffle(2))
   ups and skip-adds, 3x3 ending, global input residual; zero-pads to a
   multiple of ``2**len(enc_blk_nums)`` and crops afterwards.
@@ -25,7 +26,7 @@ Parameters stay fp32; ``dtype`` is the activation dtype.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -129,23 +130,17 @@ class NAFBlock(nn.Module):
         return z + y * self.gamma.to(dt)
 
 
-@ARCH_REGISTRY.register()
-class NAFNet(nn.Module):
-    """U-shaped NAFNet (reference ``NAFNet_arch.py:83-162``) on NCHW input.
+class UShapedNet(nn.Module):
+    """The U-shaped macro-structure NAFNet and Baseline share (reference
+    ``NAFNet_arch.py:83-162``) around ``block(channels) -> nn.Module``.
+    ``forward`` takes fp32 ``[N, img_channel, H, W]`` and returns fp32."""
 
-    SID config: ``width=32, enc_blk_nums=(2,2,4,8), middle_blk_num=12,
-    dec_blk_nums=(2,2,2,2)`` -- 36 NAFBlocks over channels 32 to 512.
-    ``forward`` takes fp32 ``[N, img_channel, H, W]`` and returns fp32.
-    """
-
-    def __init__(self, img_channel: int = 3, width: int = 16,
-                 middle_blk_num: int = 1, enc_blk_nums: Sequence[int] = (),
-                 dec_blk_nums: Sequence[int] = (), dw_expand: int = 2,
-                 ffn_expand: int = 2, dtype: torch.dtype = torch.float32,
-                 fused_blocks: bool = True):
+    def __init__(self, block: Callable[[int], nn.Module], img_channel: int,
+                 width: int, middle_blk_num: int,
+                 enc_blk_nums: Sequence[int], dec_blk_nums: Sequence[int],
+                 dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
-        blk = lambda ch: NAFBlock(ch, dw_expand, ffn_expand, fused_blocks)
         self.intro = nn.Conv2d(img_channel, width, 3, padding=1)
         self.ending = nn.Conv2d(width, img_channel, 3, padding=1)
         self.encoders = nn.ModuleList()
@@ -154,20 +149,19 @@ class NAFNet(nn.Module):
         self.ups = nn.ModuleList()
         chan = width
         for num in enc_blk_nums:
-            self.encoders.append(nn.Sequential(*[blk(chan) for _ in range(num)]))
+            self.encoders.append(
+                nn.Sequential(*[block(chan) for _ in range(num)]))
             self.downs.append(nn.Conv2d(chan, 2 * chan, 2, 2))
             chan *= 2
         self.middle_blks = nn.Sequential(
-            *[blk(chan) for _ in range(middle_blk_num)])
+            *[block(chan) for _ in range(middle_blk_num)])
         for num in dec_blk_nums:
             self.ups.append(nn.Sequential(
                 nn.Conv2d(chan, chan * 2, 1, bias=False), nn.PixelShuffle(2)))
             chan //= 2
-            self.decoders.append(nn.Sequential(*[blk(chan) for _ in range(num)]))
+            self.decoders.append(
+                nn.Sequential(*[block(chan) for _ in range(num)]))
         self.padder_size = 2 ** len(enc_blk_nums)
-
-    def blocks(self):
-        return [m for m in self.modules() if isinstance(m, NAFBlock)]
 
     def forward(self, inp: torch.Tensor) -> torch.Tensor:
         _, _, h, w = inp.shape
@@ -192,3 +186,26 @@ class NAFNet(nn.Module):
         if ph == 0 and pw == 0:
             return x
         return F.pad(x, (0, pw, 0, ph))
+
+
+@ARCH_REGISTRY.register()
+class NAFNet(UShapedNet):
+    """U-shaped NAFNet (reference ``NAFNet_arch.py:83-162``) on NCHW input.
+
+    SID config: ``width=32, enc_blk_nums=(2,2,4,8), middle_blk_num=12,
+    dec_blk_nums=(2,2,2,2)`` -- 36 NAFBlocks over channels 32 to 512.
+    ``forward`` takes fp32 ``[N, img_channel, H, W]`` and returns fp32.
+    """
+
+    def __init__(self, img_channel: int = 3, width: int = 16,
+                 middle_blk_num: int = 1, enc_blk_nums: Sequence[int] = (),
+                 dec_blk_nums: Sequence[int] = (), dw_expand: int = 2,
+                 ffn_expand: int = 2, dtype: torch.dtype = torch.float32,
+                 fused_blocks: bool = True):
+        super().__init__(
+            lambda ch: NAFBlock(ch, dw_expand, ffn_expand, fused_blocks),
+            img_channel, width, middle_blk_num, enc_blk_nums, dec_blk_nums,
+            dtype)
+
+    def blocks(self):
+        return [m for m in self.modules() if isinstance(m, NAFBlock)]

@@ -25,7 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lowlight_image_enhancement_tpu_torch.ops.image_ops import max_pool_2x2
+from lowlight_image_enhancement_tpu_torch.ops.image_ops import (
+    MAXPOOL_IMPLS,
+    max_pool_2x2,
+)
+from lowlight_image_enhancement_tpu_torch.ops.pool import relu_max_pool_2x2
 
 logger = logging.getLogger(__name__)
 
@@ -50,13 +54,30 @@ def conv_names():
 class VGG19Features(nn.Module):
     """VGG19 up to relu5_4 (no final pool), returning the requested
     ``relu{stage}_{i}`` activations. Parameters are fp32 and frozen;
-    ``dtype`` is the trunk's compute type (bf16 under AMP)."""
+    ``dtype`` is the trunk's compute type (bf16 under AMP).
+
+    ``pool_impl`` selects how the four 2x2 max pools run; every value gives
+    the same output and the same gradient:
+
+    - ``None``: ``max_pool_2x2``'s own default (``$LLIE_MAXPOOL_IMPL``,
+      else ``reduce_window``: the library pool under autograd);
+    - ``reduce_window`` / ``kernel_bwd`` (``pallas_bwd``): passed to
+      ``max_pool_2x2`` (``kernel_bwd``: library forward, kernel K8
+      backward);
+    - ``kernel_fused``: the stage-final ``relu(pool(x))`` sites run
+      ``relu_max_pool_2x2`` (kernel K7 forward, K8 backward); a pool that
+      follows a tapped relu runs ``kernel_bwd``."""
 
     def __init__(self, taps: Sequence[str] = ("relu5_4",),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 pool_impl: Optional[str] = None):
         super().__init__()
         self.taps = tuple(taps)
         self.dtype = dtype
+        if pool_impl is not None and pool_impl not in (*MAXPOOL_IMPLS,
+                                                       "kernel_fused"):
+            raise ValueError(f"unknown pool_impl {pool_impl!r}")
+        self.pool_impl = pool_impl
         known = {n.replace("conv", "relu") for n, _, _ in conv_names()}
         unknown = set(self.taps) - known
         if unknown:
@@ -73,6 +94,8 @@ class VGG19Features(nn.Module):
                            device=x.device).view(shape)
         x = ((x.clamp(0.0, 1.0) - mean) / std).to(self.dtype)
         outputs: Dict[str, torch.Tensor] = {}
+        fused = self.pool_impl == "kernel_fused"
+        impl = "kernel_bwd" if fused else self.pool_impl
         for stage, (_, n_convs) in enumerate(VGG19_CFG, start=1):
             for i in range(1, n_convs + 1):
                 conv = getattr(self, f"conv{stage}_{i}")
@@ -84,13 +107,14 @@ class VGG19Features(nn.Module):
                 # pool first, as the JAX trunk does, unless it is a tap
                 if (i == n_convs and stage < len(VGG19_CFG)
                         and name not in self.taps):
-                    x = F.relu(max_pool_2x2(x))
+                    x = (relu_max_pool_2x2(x) if fused
+                         else F.relu(max_pool_2x2(x, impl)))
                     continue
                 x = F.relu(x)
                 if name in self.taps:
                     outputs[name] = x
                 if i == n_convs and stage < len(VGG19_CFG):
-                    x = max_pool_2x2(x)
+                    x = max_pool_2x2(x, impl)
         return outputs
 
 
@@ -110,13 +134,15 @@ def _random_init_(module: VGG19Features, generator: torch.Generator) -> None:
 def load_vgg19_features(taps: Sequence[str] = ("relu5_4",),
                         weights_path: Optional[str] = None,
                         dtype: torch.dtype = torch.float32,
-                        generator: Optional[torch.Generator] = None):
-    """``(module, pretrained)`` on the CPU (move it with ``.to``).
+                        generator: Optional[torch.Generator] = None,
+                        pool_impl: Optional[str] = None):
+    """``(module, pretrained)`` on the CPU (move it with ``.to``);
+    ``pool_impl`` as in :class:`VGG19Features`.
 
     Weight search order: ``weights_path`` -> ``$LLIE_VGG19_NPZ`` ->
     ``weights/vgg19_features.npz`` beside this package's modules -> a
     deterministic random trunk from ``generator`` (seed 0 when None)."""
-    module = VGG19Features(taps=taps, dtype=dtype)
+    module = VGG19Features(taps=taps, dtype=dtype, pool_impl=pool_impl)
     candidates = [
         weights_path,
         os.environ.get("LLIE_VGG19_NPZ"),

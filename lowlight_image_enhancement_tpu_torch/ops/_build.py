@@ -44,6 +44,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "nafblk_p2_workspace": (_L, [_I, _I, _I, _I, _I]),
         "nafblk_p2": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _I, _P]),
     },
+    "layernorm": {
+        "ln_bwd_blocks": (_I, [_I, _L]),
+        "ln_fwd": (_I, [_P] * 6 + [_I, _I, _L, _F, _I, _P]),
+        "ln_bwd": (_I, [_P] * 7 + [_I, _I, _L, _I, _P]),
+    },
+    "pool": {
+        "relu_pool_fwd": (_I, [_P, _P, _L, _I, _I, _I, _P]),
+        "pool_bwd": (_I, [_P, _P, _P, _L, _I, _I, _I, _I, _P]),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -99,6 +108,14 @@ def build(names=None) -> Dict[str, str]:
         os.replace(tmp, lib)
         logs[name] = log
     return logs
+
+
+def current_stream(x) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``x``'s device:
+    every kernel of the port is enqueued there."""
+    import torch
+
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def load(name: str = "nafblock_fwd") -> ctypes.CDLL:

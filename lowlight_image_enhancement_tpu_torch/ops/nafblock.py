@@ -43,6 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from lowlight_image_enhancement_tpu_torch.ops import _build
+from lowlight_image_enhancement_tpu_torch.ops.layernorm import (
+    ln_input_grad as _ln_bwd,
+)
+from lowlight_image_enhancement_tpu_torch.ops.layernorm import (
+    ln_stats as _ln_stats,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -80,15 +86,6 @@ def _compute_dtype(x: torch.Tensor) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-
-
-def _ln_stats(xf: torch.Tensor, eps: float):
-    """``(xhat, rstd)`` of the channel LN over axis 1 of fp32 ``[N, C, S]``
-    (the TPU kernels' ``_ln_fwd``)."""
-    mu = xf.mean(1, keepdim=True)
-    xc = xf - mu
-    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + eps)
-    return xc * rstd, rstd
 
 
 def _ln(xf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -144,14 +141,6 @@ def nafblock_fwd_reference(x: torch.Tensor, p: Params, hw: Tuple[int, int],
     g, sums = plain_a(x, p, hw, eps)
     att = sca_attention(sums, p, hw[0] * hw[1])
     return plain_b(x, g, att, p, eps)
-
-
-def _ln_bwd(dh: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
-            w: torch.Tensor) -> torch.Tensor:
-    """Analytic channel-LN input grad (the TPU kernels' ``_ln_bwd``)."""
-    gxh = dh * w.float()[:, None]
-    return (gxh - gxh.mean(1, keepdim=True)
-            - xhat * (gxh * xhat).mean(1, keepdim=True)) * rstd
 
 
 def _mm_t(w: torch.Tensor, a: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -290,8 +279,7 @@ def _kernel_args(p: Params, names, cdt: torch.dtype) -> list:
     return out
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+_stream = _build.current_stream
 
 
 def _like_x(x: torch.Tensor, **named) -> None:

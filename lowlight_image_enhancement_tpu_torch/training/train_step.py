@@ -178,7 +178,12 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
     gradients of every trainable tensor, ``logs['grad_norm']`` (before the
     clip), one optimizer step. ``batch`` holds NCHW ``lq`` and ``gt`` and
     optionally ``short_raw``, ``long_raw``, ``short_obs``, ``expo_ratio``.
-    Logs are detached tensors (no host sync)."""
+    Logs are detached tensors (no host sync).
+
+    Every call puts ``net`` in train mode and leaves it there (a module
+    with drop-path then draws from its generator): call ``net.eval()``, or
+    go through ``make_eval_step``, before using the bare ``net`` for
+    inference between steps."""
     if mixup_alpha:
         raise NotImplementedError(
             "mixup needs training/augment.py, which the port has not "
@@ -186,6 +191,7 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
 
     def train_step(state: TrainState, batch: Batch):
         params = state.optimizer.params
+        net.train()       # the JAX step applies with deterministic=False
         output = net(batch["lq"])
         total = torch.zeros((), device=output.device)
         logs: Dict[str, torch.Tensor] = {}
@@ -210,10 +216,17 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
 
 
 def make_eval_step(net: nn.Module) -> Callable:
-    """``eval_step(lq) -> output``: the forward under ``torch.no_grad``."""
+    """``eval_step(lq) -> output``: the forward under ``torch.no_grad`` in
+    eval mode (the JAX ``deterministic=True``: no drop-path); the module's
+    mode is put back afterwards."""
 
     @torch.no_grad()
     def eval_step(lq: torch.Tensor) -> torch.Tensor:
-        return net(lq)
+        was_training = net.training
+        net.eval()
+        try:
+            return net(lq)
+        finally:
+            net.train(was_training)
 
     return eval_step

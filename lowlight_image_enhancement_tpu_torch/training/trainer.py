@@ -1,6 +1,7 @@
-"""The loss factory of the experiment trainer.
+"""The loss factories of the experiment trainer.
 
-Counterpart of ``build_hybrid_loss`` in
+Counterpart of ``build_hybrid_loss`` and of the loss set-up in
+``Trainer.__init__`` of
 ``lowlight_image_enhancement_tpu/training/trainer.py``. The ``Trainer``
 class (config -> data -> model -> loop, checkpoints, validation) waits
 for the port's data slice, with ``train.py`` and ``checkpoint.py``.
@@ -8,11 +9,12 @@ for the port's data slice, with ``train.py`` and ``checkpoint.py``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from lowlight_image_enhancement_tpu_torch import resolve_device
+from lowlight_image_enhancement_tpu_torch.losses import build_loss
 from lowlight_image_enhancement_tpu_torch.losses.hybrid import HybridLossPlus
 from lowlight_image_enhancement_tpu_torch.ops.psf import (
     build_psf_kernels,
@@ -30,6 +32,8 @@ def build_hybrid_loss(train_opt: Mapping[str, Any],
       config that asks for the perceptual term gets ImageNet VGG19 or an
       error; ``pretrained: false`` opts into the random trunk);
     - ``enable_amp`` runs the perceptual trunk in bf16;
+    - ``perceptual.pool_impl`` selects the trunk's max-pool implementation
+      (``models/vgg.py``; absent: the default);
     - the ``physics`` block becomes a ``CrosstalkPSF`` (sRGB, default) or,
       with ``domain: raw``, the normalised raw kernel."""
     hybrid_opt = train_opt.get("hybrid_opt")
@@ -40,6 +44,9 @@ def build_hybrid_loss(train_opt: Mapping[str, Any],
     kwargs.pop("type", None)
     kwargs.pop("device", None)
     physics = kwargs.pop("physics", None)
+    perceptual = kwargs.pop("perceptual", None) or {}
+    if "pool_impl" in perceptual:
+        kwargs["perc_pool_impl"] = perceptual["pool_impl"]
     kwargs.setdefault("require_pretrained",
                       bool(kwargs.pop("pretrained", True)))
     if train_opt.get("enable_amp", False):
@@ -53,3 +60,21 @@ def build_hybrid_loss(train_opt: Mapping[str, Any],
         else:
             kwargs["physics_psf_module"] = create_crosstalk_psf(mode, spec)
     return HybridLossPlus(**kwargs).to(dev)
+
+
+def build_training_losses(train_opt: Mapping[str, Any], device: Any = "cuda"
+                          ) -> Tuple[HybridLossPlus, Optional[Callable]]:
+    """``(loss, pixel_loss)`` for ``make_train_step`` as the JAX ``Trainer``
+    sets them up: the ``hybrid_opt`` loss, and the ``pixel_opt`` loss when
+    the config has one. A pixel-only config (``configs/stereo_nafssr.yml``)
+    gets a ``HybridLossPlus`` with every term off and the raw L1 weighted
+    0, so the pixel loss is the whole objective."""
+    loss = build_hybrid_loss(train_opt, device)
+    if loss is None:
+        loss = HybridLossPlus(
+            w_l1_raw=0.0 if train_opt.get("pixel_opt") else 1.0,
+            use_perc=False, use_deltaE=False, use_ssim=False,
+            use_phys=False).to(resolve_device(device))
+    pixel_loss = (build_loss(train_opt["pixel_opt"])
+                  if train_opt.get("pixel_opt") else None)
+    return loss, pixel_loss

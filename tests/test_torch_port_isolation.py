@@ -48,15 +48,19 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok": true' not in res.stdout
 
 
-def test_nvcc_command_targets_sm90a(tmp_path, monkeypatch):
+SOURCES = ["nafblock_fwd", "nafblock_bwd", "layernorm", "pool"]
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_nvcc_command_targets_sm90a(tmp_path, monkeypatch, name):
     nvcc = tmp_path / "cuda" / "bin" / "nvcc"
     nvcc.parent.mkdir(parents=True)
     nvcc.write_text("")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
-    cmd = _build.nvcc_command("nafblock_fwd", tmp_path / "x.so")
+    cmd = _build.nvcc_command(name, tmp_path / "x.so")
     assert cmd[0] == str(nvcc)
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert cmd[-1].endswith("csrc/nafblock_fwd.cu")
+    assert cmd[-1].endswith(f"csrc/{name}.cu")
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
@@ -66,10 +70,40 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
         _build.nvcc_path()
 
 
-def test_library_name_tracks_source_and_flags():
-    lib = _build.library_path("nafblock_fwd")
+@pytest.mark.parametrize("name", SOURCES)
+def test_library_name_tracks_source_and_flags(name, monkeypatch):
+    lib = _build.library_path(name)
     assert lib.parent == _build.BUILD_DIR
     assert lib.parent.parts[-2:] == ("build", "torch_kernels")
-    assert lib.name.startswith("libnafblock_fwd.") and lib.suffix == ".so"
-    assert set(_build.SIGNATURES) == {
+    assert lib.name.startswith(f"lib{name}.") and lib.suffix == ".so"
+    assert set(_build.SIGNATURES) == set(SOURCES) == {
         p.stem for p in _build.CSRC.glob("*.cu")}
+    monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-g"])
+    assert _build.library_path(name) != lib
+
+
+def test_build_starts_one_nvcc_per_missing_source(tmp_path, monkeypatch):
+    """``build`` compiles every source that has no current library, all
+    started together, and moves each result to its hashed name."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "k")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    started = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **_kw):
+            started.append(cmd[-1])
+            self.out = Path(cmd[cmd.index("-o") + 1])
+
+        def communicate(self):
+            assert len(started) == len(SOURCES)     # all started first
+            self.out.write_bytes(b"")
+            return "ptxas info", None
+
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    logs = _build.build()
+    assert sorted(logs) == sorted(SOURCES)
+    assert sorted(Path(s).stem for s in started) == sorted(SOURCES)
+    assert all(_build.library_path(n).exists() for n in SOURCES)
+    assert _build.build() == {}                     # nothing left to build
