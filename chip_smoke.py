@@ -60,6 +60,16 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    steps (32 launches of each of K1-K6 per step), one eval forward, and
    the same fp32 gradient check.
 
+Every kernel row carries two times: ``ms``, CUDA events around the
+wrapper (host time included), and ``device_ms``, the kernel's own device
+kernels read by ``torch.profiler`` ("not measured" where the profiler
+shows no device time or keeps losing records), with the split by device
+kernel. K3 is called twice at every shape and must give the same bits, and
+its wrapper's tile arithmetic is held against the built kernel's shared
+memory and occupancy. After the timed steps of every training path one
+more step runs under the profiler: the device's busy time and its idle
+share of the step.
+
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line ``{"kernels": [...]}`` and the card line before the last line, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -69,6 +79,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -202,6 +213,19 @@ def expect_launches(counts: dict, what: str, **expected: int) -> None:
         check(n == want, f"{what}: {k} launched {n} times, expected {want}")
 
 
+def timed(fn, plain):
+    """``(ms around the wrapper, ms of the plain version, device time by
+    device kernel)`` of one kernel call."""
+    return time_ms(fn), time_ms(plain), device_times(fn)
+
+
+def timed_library(fn, calls: int = 1):
+    """``(ms around the call, its device time by device kernel)``; the
+    device time only where the main paths call the kernel at this shape
+    (``calls``), else None."""
+    return time_ms(fn), device_times(fn) if calls else None
+
+
 def time_ms(fn, iters: int = 20) -> float:
     """Median device time of ``fn`` (CUDA events), after warm-up."""
     for _ in range(3):
@@ -215,6 +239,75 @@ def time_ms(fn, iters: int = 20) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+# the CUDA API calls that start a device kernel, as torch.profiler names
+# them on the host side of a trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+PROFILER_TRIES = 3
+# Where a window of kernel calls came back short, the record it lacked was
+# that of the first kernel launched in it, so a window's work starts this
+# much after the window. Windows that still lack records are taken again.
+PROFILER_SLACK_S = 0.005
+
+
+def device_records(averages) -> dict:
+    """``{name: (records, microseconds in all)}`` of the device side of a
+    ``torch.profiler`` window's ``key_averages()``: kernels, and copies
+    and fills as ``Memcpy ...`` and ``Memset``. A kernel's name is its
+    identifier without namespace, template and argument lists."""
+    out: dict = {}
+    for ev in averages:
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total = getattr(ev, "self_device_time_total", None)
+        if total is None:
+            total = ev.self_cuda_time_total
+        if total <= 0 or ev.count <= 0:
+            continue
+        name = re.sub(r"<.*", "", ev.key.split("(anonymous namespace)::")[-1])
+        name = re.sub(r"^void\s+", "", name.split("(")[0]).strip()
+        count, t = out.get(name, (0, 0.0))
+        out[name] = (count + ev.count, t + total)
+    return out
+
+
+def device_times(fn, iters: int = 5) -> dict:
+    """Device time (ms per call of ``fn``) by device kernel name over a
+    profiler window of ``iters`` calls; ``fn`` is warm (:func:`time_ms` ran
+    it). The profiler now and then loses records: a window counts only if
+    every kernel was recorded a multiple of ``iters`` times, else it is
+    taken again. Empty ("not measured") when ``PROFILER_TRIES`` windows in
+    a row were short of records or showed no device time; no time is
+    estimated."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILER_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_SLACK_S)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = device_records(prof.key_averages())
+        if records and all(n % iters == 0 for n, _ in records.values()):
+            return {k: t / iters / 1e3 for k, (_, t) in records.items()}
+        print(f"  profiler window of {iters} calls taken again: records "
+              f"{ {k: n for k, (n, _) in records.items()} }")
+    return {}
+
+
+def device_ms(times: dict):
+    """The sum of a :func:`device_times` split, or "not measured"."""
+    return sum(times.values()) if times else "not measured"
+
+
+def show_split(what: str, times: dict) -> None:
+    parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        times.items(), key=lambda kv: -kv[1]))
+    print(f"  {what}: device {fmt_device(device_ms(times))} per call "
+          f"[{parts}]")
 
 
 def randomize_(module: torch.nn.Module, gen: torch.Generator,
@@ -272,16 +365,22 @@ def bound(kind: str, c: int, hw: int, dt: torch.dtype, n: int = BATCH):
                                  "operations")
 
 
-def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, path, n=BATCH,
-           hw=None):
+def fmt_device(dev) -> str:
+    return f"{dev:.4f} ms" if isinstance(dev, float) else str(dev)
+
+
+def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, split, path,
+           n=BATCH, hw=None):
     h, w = hw or (side, side)
     b_ms, b_by = bound(kind, c, h * w, dt, n)
+    dev = device_ms(split)
     rows.setdefault(kind, []).append(dict(
         path=path, n=n, c=c, side=side, h=h, w=w, dtype=str(dt)[6:],
-        blocks=blocks, err=e, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-        bound_by=b_by))
+        blocks=blocks, err=e, ms=t_k, device_ms=dev, device_split=split,
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by))
     print(f"  N={n:2d} C={c:4d} {h}x{w} {str(dt)[6:]:8s} {kind}: kernel "
-          f"{t_k:.4f} ms  plain {t_p:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+          f"{t_k:.4f} ms (device {fmt_device(dev)})  plain {t_p:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by})")
 
 
 def show(checks, c, side, dt):
@@ -323,16 +422,15 @@ def forward_phase(gen: torch.Generator, rows: dict) -> None:
             show(checks, c, side, dt)
             with torch.no_grad():
                 t = {
-                    "nafblk_a": (
-                        time_ms(lambda: ops.call_a(x, p, (side, side))),
-                        time_ms(lambda: ops.plain_a(x, p, (side, side)))),
-                    "nafblk_b": (
-                        time_ms(lambda: ops.call_b(x, g_p, att, p)),
-                        time_ms(lambda: ops.plain_b(x, g_p, att, p))),
+                    "nafblk_a": timed(
+                        lambda: ops.call_a(x, p, (side, side)),
+                        lambda: ops.plain_a(x, p, (side, side))),
+                    "nafblk_b": timed(
+                        lambda: ops.call_b(x, g_p, att, p),
+                        lambda: ops.plain_b(x, g_p, att, p)),
                 }
-            for k, (t_k, t_p) in t.items():
-                report(k, rows, c, side, dt, nblk, checks[k][0], t_k, t_p,
-                       path)
+            for k, times in t.items():
+                report(k, rows, c, side, dt, nblk, checks[k][0], *times, path)
         del blk, x32
 
 
@@ -346,10 +444,29 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
         blk = NAFBlock(c).cuda()
         randomize_(blk, gen, 1.0)
         p = blk.packed()
+        # the wrapper's tile arithmetic against the built kernel: shared
+        # memory as the kernel sums it, blocks per SM as the runtime counts
+        lib = _build.load("nafblock_bwd")
+        check(lib.nafblk_smem_limit() == ops.P1_SMEM_LIMIT,
+              "K3: shared-memory limit differs between ops/nafblock.py and "
+              "csrc")
+        for tile in ops.P1_TILES:
+            smem = ops.p1_smem_bytes(c, c, tile)
+            if smem > ops.P1_SMEM_LIMIT:
+                continue
+            per_sm = lib.nafblk_p1_mma_blocks_per_sm(c, c, tile)
+            print(f"  K3 bf16 C={c:4d} tile {tile:2d}: {smem} bytes of shared "
+                  f"memory, {per_sm} blocks per SM")
+            check(lib.nafblk_p1_mma_smem(c, c, tile) == smem
+                  and per_sm == ops.p1_blocks_per_sm(c, c, tile),
+                  f"K3 C={c} tile {tile}: ops/nafblock.py counts {smem} bytes "
+                  f"and {ops.p1_blocks_per_sm(c, c, tile)} blocks per SM")
         x32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         d32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
             x, dout = x32.to(dt), d32.to(dt)
+            # K3 gets its matrices as NAFBlockFunction hands them over
+            pk = ops.rounded_matrices(p, dt)
             checks = {}
             with torch.no_grad():
                 g_k, _ = ops.call_a(x, p, shw)
@@ -358,12 +475,18 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                 m = sums / hw
                 out_k = ops.call_b(x, g, att, p)
                 out_p = ops.plain_b(x, g, att, p)
-                dz_k, da_k, gk = ops.call_p1(x, g, dout, att, p)
+                dz_k, da_k, gk = ops.call_p1(x, g, dout, att, pk)
+                dz_2, da_2, gk_2 = ops.call_p1(x, g, dout, att, pk)
                 dz, da, gp = ops.plain_p1(x, g, dout, att, p)
                 dwsca, dbsca, dgc = ops.sca_backward(da, m, p, hw)
                 dx_k, g1k = ops.call_p2(x, dz, dgc, att, p, shw)
                 dx, g1p = ops.plain_p2(x, dz, dgc, att, p, shw)
             torch.cuda.synchronize()
+            # no float atomics in K3: a second call gives the same bits
+            check(torch.equal(dz_k, dz_2) and torch.equal(da_k, da_2)
+                  and all(torch.equal(gk[k], gk_2[k]) for k in gk),
+                  f"K3 C={c} {dt}: two calls differ")
+            del dz_2, da_2, gk_2
             checks["nafblk_a"] = err(g_k, g)
             checks["nafblk_b"] = err(out_k, out_p)
             checks["nafblk_p1"] = err(dz_k, dz)
@@ -386,22 +509,22 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
             show(checks, c, f"{side}x{wide} N={n}", dt)
             with torch.no_grad():
                 t = {
-                    "nafblk_a": (time_ms(lambda: ops.call_a(x, p, shw)),
-                                 time_ms(lambda: ops.plain_a(x, p, shw))),
-                    "nafblk_b": (time_ms(lambda: ops.call_b(x, g, att, p)),
-                                 time_ms(lambda: ops.plain_b(x, g, att, p))),
-                    "nafblk_p1": (
-                        time_ms(lambda: ops.call_p1(x, g, dout, att, p)),
-                        time_ms(lambda: ops.plain_p1(x, g, dout, att, p))),
-                    "nafblk_p2": (
-                        time_ms(lambda: ops.call_p2(x, dz, dgc, att, p,
-                                                    shw)),
-                        time_ms(lambda: ops.plain_p2(x, dz, dgc, att, p,
-                                                     shw))),
+                    "nafblk_a": timed(lambda: ops.call_a(x, p, shw),
+                                      lambda: ops.plain_a(x, p, shw)),
+                    "nafblk_b": timed(lambda: ops.call_b(x, g, att, p),
+                                      lambda: ops.plain_b(x, g, att, p)),
+                    "nafblk_p1": timed(
+                        lambda: ops.call_p1(x, g, dout, att, pk),
+                        lambda: ops.plain_p1(x, g, dout, att, p)),
+                    "nafblk_p2": timed(
+                        lambda: ops.call_p2(x, dz, dgc, att, p, shw),
+                        lambda: ops.plain_p2(x, dz, dgc, att, p, shw)),
                 }
-            for k, (t_k, t_p) in t.items():
-                report(k, rows, c, side, dt, nblk, checks[k][0], t_k, t_p,
-                       path, n, shw)
+            for k, times in t.items():
+                report(k, rows, c, side, dt, nblk, checks[k][0], *times, path,
+                       n, shw)
+            show_split(f"K3 {str(dt)[6:]} N={n} C={c} {side}x{wide}",
+                       t["nafblk_p1"][2])
         del blk, x32, d32
 
 
@@ -531,6 +654,7 @@ def run_steps(what: str, step, state, batch, **per_step: int) -> dict:
     assert_finite_logs(logs0)
     torch.cuda.synchronize()
     times, history, total = [], [], {k: 0 for k in WRAPPERS}
+    first = state.step
     for _ in range(TRAIN_STEPS):
         reset_launches()
         t0 = time.perf_counter()
@@ -543,17 +667,64 @@ def run_steps(what: str, step, state, batch, **per_step: int) -> dict:
         expect_launches(counts, f"{what} training step", **per_step)
         for k, n in counts.items():
             total[k] += n
+    trace = traced_step(what, step, state, batch, statistics.median(times))
     l0, l1 = float(logs0["l_total"]), history[-1]["l_total"]
     print(f"{what} training: {TRAIN_STEPS} steps, ms/step median "
           f"{statistics.median(times):.1f} (all {[round(t, 1) for t in times]})"
           f", l_total {l0:.6f} -> {l1:.6f}, launches/step {per_step}")
     for i, h in enumerate(history):
-        print(f"  step {state.step - TRAIN_STEPS + i}: "
+        print(f"  step {first + i}: "
               + " ".join(f"{k}={v:.6g}" for k, v in h.items()))
     check(l1 < l0, f"{what}: l_total did not fall: {l0} -> {l1}")
     return {"ms_per_step": statistics.median(times), "step_ms": times,
             "l_total": [l0] + [h["l_total"] for h in history],
-            "launches": total, "launches_per_step": per_step}
+            "launches": total, "launches_per_step": per_step, **trace}
+
+
+def traced_step(what: str, step, state, batch, untraced_ms: float) -> dict:
+    """One more step under ``torch.profiler``: the device's busy time (the
+    sum of every device kernel, copy and fill; one stream, so they do not
+    overlap) and its idle share of the untraced median step. The profiler
+    now and then loses a few kernel records, so a trace is held against
+    the kernel launches that its host side shows, and an incomplete one is
+    taken again. If ``PROFILER_TRIES`` traces all lack records, the fullest
+    is reported as what it is: a lower bound of the busy time, with both
+    counts beside it. Nothing is added for the lost records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = None
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_SLACK_S)
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        records = device_records(averages)
+        recorded = sum(n for k, (n, _) in records.items()
+                       if not k.startswith("Mem"))
+        launched = sum(ev.count for ev in averages if ev.key in LAUNCH_CALLS)
+        if best is None or recorded - launched > best[1] - best[2]:
+            best = (records, recorded, launched)
+        if recorded == launched:
+            break
+    records, recorded, launched = best
+    if not records or not launched:
+        print(f"{what} traced step: the profiler shows no device time")
+        return {"device_busy_ms": "not measured",
+                "device_idle_share": "not measured", "device_top": {},
+                "kernel_records": [recorded, launched]}
+    totals = {k: t / 1e3 for k, (_, t) in records.items()}
+    busy = sum(totals.values())
+    top = dict(sorted(totals.items(), key=lambda kv: -kv[1])[:12])
+    note = "" if recorded == launched else " (a lower bound: records lost)"
+    print(f"{what} traced step: device busy {busy:.1f} ms{note} of the "
+          f"{untraced_ms:.1f} ms untraced median step (idle share "
+          f"{1 - busy / untraced_ms:.2f}), {recorded} kernel records for "
+          f"{launched} launches; top (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in top.items()))
+    return {"device_busy_ms": busy,
+            "device_idle_share": 1 - busy / untraced_ms, "device_top": top,
+            "kernel_records": [recorded, launched]}
 
 
 def compare_grads(what: str, names, g_kernel, g_plain) -> float:
@@ -666,16 +837,22 @@ def ln_pool_bound(kind: str, shape, dt: torch.dtype):
                                  "operations")
 
 
-def report_row(kind, rows, shape, dt, count, path, e, t_k, t_p, t_lib):
+def report_row(kind, rows, shape, dt, count, path, e, t_k, t_p, split, t_lib,
+               lib_split):
     b_ms, b_by = ln_pool_bound(kind, shape, dt)
     n, c, h, w = shape
+    dev = device_ms(split)
+    # None: no main path calls the kernel at this shape, no window taken
+    lib_dev = None if lib_split is None else device_ms(lib_split)
     rows.setdefault(kind, []).append(dict(
         path=path, n=n, c=c, h=h, w=w, dtype=str(dt)[6:], blocks=count,
-        err=e, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-        library_ms=t_lib))
+        err=e, ms=t_k, device_ms=dev, device_split=split, plain_ms=t_p,
+        bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+        library_device_ms=lib_dev))
     print(f"  N={n:2d} C={c:4d} {h}x{w} {str(dt)[6:]:8s} {kind}: kernel "
-          f"{t_k:.4f} ms  plain {t_p:.4f} ms  library {t_lib:.4f} ms  "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"{t_k:.4f} ms (device {fmt_device(dev)})  plain {t_p:.4f} ms  "
+          f"library {t_lib:.4f} ms (device {fmt_device(lib_dev)})  bound "
+          f"{b_ms:.4f} ms ({b_by})")
 
 
 def ln_phase(gen: torch.Generator, rows: dict) -> None:
@@ -717,12 +894,12 @@ def ln_phase(gen: torch.Generator, rows: dict) -> None:
             lib_bwd = lambda: torch.autograd.grad(
                 y_lib, (x_cl, w_lib, b_lib), g_cl, retain_graph=True)
             with torch.no_grad():
-                t5 = (time_ms(lambda: ln.call_ln_fwd(x, wt, bt)),
-                      time_ms(lambda: ln.plain_ln_fwd(x, wt, bt)),
-                      time_ms(lib_fwd))
-                t6 = (time_ms(lambda: ln.call_ln_bwd(g, xhat_p, rstd_p, wt)),
-                      time_ms(lambda: ln.plain_ln_bwd(g, xhat_p, rstd_p, wt)))
-            t6 += (time_ms(lib_bwd),)
+                t5 = timed(lambda: ln.call_ln_fwd(x, wt, bt),
+                           lambda: ln.plain_ln_fwd(x, wt, bt))
+                t5 += timed_library(lib_fwd)
+                t6 = timed(lambda: ln.call_ln_bwd(g, xhat_p, rstd_p, wt),
+                           lambda: ln.plain_ln_bwd(g, xhat_p, rstd_p, wt))
+            t6 += timed_library(lib_bwd, count)
             report_row("ln_fwd", rows, shape, dt, count, path,
                        checks["ln_fwd"][0], *t5)
             report_row("ln_bwd", rows, shape, dt, count, path,
@@ -770,13 +947,15 @@ def pool_phase(gen: torch.Generator, rows: dict) -> None:
             xr = x.clone().requires_grad_(True)
             y_lib = torch.nn.functional.max_pool2d(xr, 2, 2)
             with torch.no_grad():
-                t7 = (time_ms(lambda: pool.call_relu_pool_fwd(x)),
-                      time_ms(lambda: pool.plain_relu_pool_fwd(x)),
-                      time_ms(lambda: torch.nn.functional.max_pool2d(x, 2, 2)))
-                t8 = (time_ms(lambda: pool.call_pool_bwd(x, dy, True)),
-                      time_ms(lambda: pool.plain_pool_bwd(x, dy, True)))
-            t8 += (time_ms(lambda: torch.autograd.grad(
-                y_lib, xr, dy, retain_graph=True)),)
+                lib7 = lambda: torch.nn.functional.max_pool2d(x, 2, 2)
+                t7 = timed(lambda: pool.call_relu_pool_fwd(x),
+                           lambda: pool.plain_relu_pool_fwd(x))
+                t7 += timed_library(lib7, count)
+                t8 = timed(lambda: pool.call_pool_bwd(x, dy, True),
+                           lambda: pool.plain_pool_bwd(x, dy, True))
+            lib8 = lambda: torch.autograd.grad(y_lib, xr, dy,
+                                               retain_graph=True)
+            t8 += timed_library(lib8, count)
             report_row("relu_pool_fwd", rows, shape, dt, count, kind, e7, *t7)
             report_row("pool_bwd", rows, shape, dt, count, kind, e8, *t8)
             del xr, y_lib
@@ -955,11 +1134,22 @@ def summary(k: str, rows: list, launches_: int, unit: str) -> dict:
     t_ops = sum(r["blocks"] * r["bound_ms"] for r in rows
                 if r["bound_by"] == "operations")
     lib = [r["blocks"] * r["library_ms"] for r in rows if "library_ms" in r]
+    lib_dev = [r["blocks"] * r["library_device_ms"] for r in rows
+               if isinstance(r.get("library_device_ms"), float)]
+    split: dict = {}
+    for r in rows:
+        for name, t in r["device_split"].items():
+            split[name] = split.get(name, 0.0) + r["blocks"] * t
+    measured = all(r["device_split"] for r in rows)
     return {
         "name": k, "tag": tag, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches_,
         "max_abs_err": max(r["err"] for r in rows),
         "ms": sum(r["blocks"] * r["ms"] for r in rows),
+        "device_ms": sum(split.values()) if measured else "not measured",
+        "device_split": split,
+        "library_device_ms": (sum(lib_dev) if len(lib_dev) == len(rows)
+                              and lib_dev else None),
         "plain_ms": sum(r["blocks"] * r["plain_ms"] for r in rows),
         "bound_ms": t_bytes + t_ops,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -987,19 +1177,25 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows: dict = {}
-    print("LayerNorm kernel phase (K5/K6):")
-    ln_phase(gen, rows)
-    print("pool kernel phase (K7/K8):")
-    pool_phase(gen, rows)
-    print("forward kernel phase (batch 2, serving widths and C=1024):")
-    forward_phase(gen, rows)
-    print("backward kernel phase (batch 2, 384x384 training widths):")
-    backward_phase(gen, rows)
-    serve = serving_phase(gen)
-    train = training_phase()
-    perc = perceptual_path()
-    base = baseline_path()
-    ssr = nafssr_path()
+
+    def phase(title: str, fn, *args):
+        print(f"{title}:")
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"{title}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    phase("LayerNorm kernel phase (K5/K6)", ln_phase, gen, rows)
+    phase("pool kernel phase (K7/K8)", pool_phase, gen, rows)
+    phase("forward kernel phase (batch 2, serving widths and C=1024)",
+          forward_phase, gen, rows)
+    phase("backward kernel phase (batch 2, 384x384 training widths)",
+          backward_phase, gen, rows)
+    serve = phase("serving phase", serving_phase, gen)
+    train = phase("training phase", training_phase)
+    perc = phase("path P", perceptual_path)
+    base = phase("path B", baseline_path)
+    ssr = phase("path S", nafssr_path)
 
     kernels = []
     bf16 = lambda k: [r for r in rows[k] if r["dtype"] == "bfloat16"]
@@ -1010,6 +1206,7 @@ def main() -> int:
         fp32 = [r for r in rows[k] if r["dtype"] == "float32"]
         step = summary(k, on(fp32, "nafssr"), 0, "")
         return dict(nafssr_launches=ssr["launches"][k], nafssr_ms=step["ms"],
+                    nafssr_device_ms=step["device_ms"],
                     nafssr_plain_ms=step["plain_ms"],
                     nafssr_bound_ms=step["bound_ms"],
                     nafssr_library_ms=step["library_ms"])
@@ -1019,7 +1216,8 @@ def main() -> int:
                         "one 512x512 N=2 bf16 forward (36 blocks)")
         step = summary(k, on(bf16(k), "train"), 0, "")
         entry.update(train_launches=train["launches"][k],
-                     train_ms=step["ms"], train_plain_ms=step["plain_ms"],
+                     train_ms=step["ms"], train_device_ms=step["device_ms"],
+                     train_plain_ms=step["plain_ms"],
                      train_bound_ms=step["bound_ms"], **nafssr_keys(k))
         kernels.append(entry)
     for k in ("nafblk_p1", "nafblk_p2"):
@@ -1035,7 +1233,9 @@ def main() -> int:
                      **nafssr_keys(k))
         if k == "ln_fwd":      # serving runs no backward
             fwd = summary(k, on(bf16(k), "baseline_serve"), 0, "")
-            entry.update(serve_ms=fwd["ms"], serve_plain_ms=fwd["plain_ms"],
+            entry.update(serve_ms=fwd["ms"], serve_device_ms=fwd["device_ms"],
+                         serve_library_device_ms=fwd["library_device_ms"],
+                         serve_plain_ms=fwd["plain_ms"],
                          serve_bound_ms=fwd["bound_ms"],
                          serve_library_ms=fwd["library_ms"])
         kernels.append(entry)
@@ -1054,6 +1254,21 @@ def main() -> int:
     print(json.dumps({
         "kernels": kernels, "card": card,
         "train_ms_per_step": train["ms_per_step"],
+        "device_busy_ms": {"train": train["device_busy_ms"],
+                           "kernel_fused":
+                               perc["kernel_fused"]["device_busy_ms"],
+                           "kernel_bwd": perc["kernel_bwd"]["device_busy_ms"],
+                           "baseline": base["device_busy_ms"],
+                           "nafssr": ssr["device_busy_ms"]},
+        # [kernel records, kernel launches] of each traced step: a busy
+        # time is complete only where the two are equal
+        "kernel_records": {"train": train["kernel_records"],
+                           "kernel_fused":
+                               perc["kernel_fused"]["kernel_records"],
+                           "kernel_bwd": perc["kernel_bwd"]["kernel_records"],
+                           "baseline": base["kernel_records"],
+                           "nafssr": ssr["kernel_records"]},
+        "train_device_top": train["device_top"],
         "serve_wall_s": serve["wall_s"],
         "kernel_fused_ms_per_step": perc["kernel_fused"]["ms_per_step"],
         "kernel_bwd_ms_per_step": perc["kernel_bwd"]["ms_per_step"],

@@ -13,14 +13,22 @@
 //   (fp32) and rstd (fp32) that K6 reads.
 //   Bound: bytes. It reads x once and writes y, xhat and rstd:
 //   (2 s + 4) N C S + 4 N S bytes for s bytes per activation element, and a
-//   handful of FLOPs per element.
-//   Design: one thread per pixel (n, s) walks the C channels at stride S, so
-//   the 32 lanes of a warp read 32 neighbouring pixels of one channel: every
-//   load and store is coalesced in the NCHW layout and no transpose to rows
-//   of C is needed. The thread passes over its column three times (mean,
-//   centred variance, normalise); the second and third pass find the
-//   block's C x 256 elements in L1/L2. Any S (the tail block is masked) and
-//   any C.
+//   handful of FLOPs per element. At the wide stages of a U-net (C = 512
+//   on 24 x 24 pixels) that is a few microseconds, so what limits the kernel
+//   there is how many SMs take part and how long one thread's chain of
+//   dependent strided loads is, not the memory rate.
+//   Design: a block owns PX neighbouring pixels of one image (PX = 32, 16
+//   or 8, chosen by the wrapper so that N * ceil(S / PX) blocks give each
+//   of the 132 SMs two) and its 256 threads form 256 / PX groups that share the C
+//   channels: lane = pixel, group g takes channels g, g + 256 / PX, ...
+//   A group reads PX neighbouring pixels of one channel, one contiguous
+//   segment (PX * s bytes: a 32-byte sector is half used only for bf16 at
+//   PX = 8), so no transpose to rows of C is needed. x is read from HBM
+//   once into shared memory as fp32 [C][PX] (128 KB at C = 1024, PX = 32);
+//   the mean and then the centred variance are reduced across the groups
+//   through shared memory (ln_stats, the order of the TPU kernel), and y,
+//   xhat and rstd are written once. Any S (the tail is masked) and any C
+//   up to 1024.
 //
 // K6 -- replaces lowlight_image_enhancement_tpu/ops/pallas/layernorm.py:
 //       _ln_bwd_kernel (pallas_call in _bwd_call).
@@ -45,35 +53,75 @@ namespace {
 using namespace nafblk;
 
 // ---------------------------------------------------------------------------
-// K5: grid (ceil(S / kThreads), N), block kThreads
+// K5: grid (ceil(S / PX), N), block kThreads, C * PX floats of dynamic
+// shared memory
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int PX>
 __global__ void __launch_bounds__(kThreads) ln_fwd_kernel(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ b, T* __restrict__ y, float* __restrict__ xhat,
     float* __restrict__ rstd, int C, long long S, float eps) {
-  const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (s >= S) return;
-  const int n = blockIdx.y;
-  const long long base = (long long)n * C * S + s;
-  const T* xp = x + base;
+  constexpr int G = kThreads / PX;
+  extern __shared__ float x_s[];  // [C][PX]
+  __shared__ float red_s[G * PX];
 
-  float sum = 0.f;
-  for (int c = 0; c < C; ++c) sum += to_f<T>(xp[(long long)c * S]);
-  const float mu = sum / C;
-  float sq = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float d = to_f<T>(xp[(long long)c * S]) - mu;
-    sq = fmaf(d, d, sq);
-  }
-  const float r = rsqrtf(sq / C + eps);
-  rstd[(long long)n * S + s] = r;
-  for (int c = 0; c < C; ++c) {
+  const int lane = threadIdx.x % PX;
+  const int grp = threadIdx.x / PX;
+  const long long s = (long long)blockIdx.x * PX + lane;
+  const bool live = s < S;
+  const int n = blockIdx.y;
+  const long long base = (long long)n * C * S + (live ? s : 0);
+
+  // unrolled so that a thread's loads are all in flight at once
+#pragma unroll 8
+  for (int c = grp; c < C; c += G)
+    x_s[c * PX + lane] = live ? to_f<T>(x[base + (long long)c * S]) : 0.f;
+  // each thread reads back only what it wrote: no barrier needed before
+  float mu, r;
+  ln_stats<PX>(x_s, C, red_s, grp, lane, eps, mu, r);
+  if (!live) return;
+  if (grp == 0) rstd[(long long)n * S + s] = r;
+#pragma unroll 4
+  for (int c = grp; c < C; c += G) {
     const long long o = base + (long long)c * S;
-    const float xh = (to_f<T>(x[o]) - mu) * r;
+    const float xh = (x_s[c * PX + lane] - mu) * r;
     xhat[o] = xh;
     y[o] = from_f<T>(fmaf(xh, w[c], b[c]));
+  }
+}
+
+template <typename T, int PX>
+cudaError_t launch_ln_fwd(const void* x, const float* w, const float* b,
+                          void* y, float* xhat, float* rstd, int N, int C,
+                          long long S, float eps, cudaStream_t st) {
+  const size_t smem = (size_t)C * PX * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ln_fwd_kernel<T, PX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((S + PX - 1) / PX), (unsigned)N);
+  ln_fwd_kernel<T, PX><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(x), w, b, static_cast<T*>(y), xhat, rstd, C, S,
+      eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_ln_fwd(const void* x, const float* w, const float* b, void* y,
+                       float* xhat, float* rstd, int N, int C, long long S,
+                       float eps, int px, cudaStream_t st) {
+  switch (px) {
+    case 32:
+      return launch_ln_fwd<T, 32>(x, w, b, y, xhat, rstd, N, C, S, eps, st);
+    case 16:
+      return launch_ln_fwd<T, 16>(x, w, b, y, xhat, rstd, N, C, S, eps, st);
+    case 8:
+      return launch_ln_fwd<T, 8>(x, w, b, y, xhat, rstd, N, C, S, eps, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -160,20 +208,15 @@ int ln_bwd_blocks(int N, long long S) {
   return N * (int)((S + nafblk::kThreads - 1) / nafblk::kThreads);
 }
 
+// px: pixels per block, 32, 16 or 8 (ops/layernorm.py:ln_fwd_tile)
 int ln_fwd(const void* x, const float* w, const float* b, void* y, float* xhat,
            float* rstd, int N, int C, long long S, float eps, int is_bf16,
-           void* stream) {
+           int px, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((S + kThreads - 1) / kThreads), (unsigned)N);
-  if (is_bf16) {
-    ln_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)x, w, b, (__nv_bfloat16*)y, xhat, rstd, C, S,
-        eps);
-  } else {
-    ln_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)x, w, b, (float*)y, xhat, rstd, C, S, eps);
-  }
-  return (int)cudaGetLastError();
+  if (is_bf16)
+    return (int)run_ln_fwd<__nv_bfloat16>(x, w, b, y, xhat, rstd, N, C, S,
+                                          eps, px, st);
+  return (int)run_ln_fwd<float>(x, w, b, y, xhat, rstd, N, C, S, eps, px, st);
 }
 
 // part: fp32 [2, ln_bwd_blocks(N, S), C]; gwb: fp32 [2, C] (gw, then gb)

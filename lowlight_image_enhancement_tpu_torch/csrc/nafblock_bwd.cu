@@ -2,9 +2,9 @@
 // (nafblk_p2), bound to Python through a plain C interface (ctypes).
 //
 // Layout as in nafblock_fwd.cu: activations contiguous NCHW viewed as
-// [N, C, H*W]; weights fp32, matrices already rounded to the compute type
-// (bf16 when activations are bf16), row-major [Cout, Cin]; vectors [C].
-// Every weight gradient is fp32.
+// [N, C, H*W]; vectors fp32 [C]; matrices row-major [Cout, Cin], already
+// rounded to the compute type: fp32 for the fp32 kernels and for K4, bf16
+// for K3 in bf16. Every weight gradient is fp32.
 //
 // K3 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_p1 (pallas_call in _call_p1).
@@ -15,22 +15,60 @@
 //   and the fp32 grads of W3, b3, norm2, W4, b4, W5, b5, beta, gamma.
 //   Bound: reads x, g, dout and writes dz (4 * C * HW activation elements
 //   per image); ~24 * C^2 FLOPs per pixel at F = C (8 C^2 recompute, 8 C^2
-//   input-side products, 8 C^2 weight-gradient outer products). Memory-
-//   bound in bf16 on the tensor cores up to C ~ 64; this version runs fp32
-//   FMAs (no tensor cores) and is bound by operations.
-//   Design: k3_kernel owns P pixels and all channels, like K2; v, z/xhat2,
-//   pth, ds/dp, q/dq and wv stay in shared memory ((4C + 3F) * P * 4
-//   bytes: P = 32 up to C = F = 256, P = 16 at C = F = 512, 224 KB). The
-//   vector grads are reduced over the block's pixels with lane shuffles and
-//   written as per-block partials. A weight grad is a sum over every pixel
-//   of an outer product of two per-pixel vectors; the TPU grid carries its
-//   accumulator in VMEM from one step to the next, which has no parallel
-//   counterpart here (4 C^2 fp32 values per block at C = 512 is 4 MB). So
-//   k3_kernel writes the two operands of each product -- (ds, wv), (dq,
-//   h2), (dp, v), already rounded to the compute type, as the TPU kernel's
-//   _dot rounds them -- to a workspace, and wgrad_kernel (a tiled 64 x 64
-//   product split over pixel chunks) writes fp32 partials that sum_rows
-//   adds in a fixed order. No float atomics: two runs give the same bits.
+//   input-side products, 8 C^2 weight-gradient outer products): the same
+//   7.2 GFLOP at every width of a 2 x 384 x 384 U-net pass, 0.007 ms at
+//   the bf16 tensor-core peak, so bytes bound it up to C ~ 64 (0.02 ms at
+//   C = 32) and operations above.
+//
+//   In bf16 (nafblock_p1_mma.cuh) every product runs on the tensor cores
+//   as mma.sync.m16n8k16 with fp32 accumulators, operands by ldmatrix:
+//   - k3_mma_kernel: a block walks tiles of P pixels (32, 16 or 8; the
+//     wrapper chooses the tile and the blocks per image so that the card
+//     is full, ops/nafblock.py:p1_tile and p1_grid) of one image, with
+//     every channel. The product operands v, h2, wv, ds, dq, dp live
+//     in shared memory as bf16 [channels][P]: channel-major is what
+//     ldmatrix.trans turns into the B fragments, so nothing is transposed;
+//     z/xhat2, pth, q (then dh2) stay fp32 as in the TPU kernel: 22 C
+//     bytes a pixel at F = C against 28 C of the fp32 kernel, and dq
+//     reuses the space of h2 and wv. The weights come as bf16 and pass
+//     through a ring of three 128 x 32 slabs in shared memory (cp.async,
+//     two loads in flight, XOR-swizzled chunks instead of padding; a
+//     deeper ring bought nothing, while computing a slab's offsets once
+//     and not for every slab took a third off the time); the transposed
+//     products
+//     read the same slabs with ldmatrix.trans, so no transposed copy of a
+//     weight exists. Up to C = F = 64 the three matrices (at most 36 KB),
+//     the vectors and the block's partial sums stay in shared memory for
+//     all the tiles a block walks: no ring, one barrier per product, no
+//     round trip to global memory for a sum, three blocks on an SM. A
+//     warp owns 16 output rows and all P pixels, so a row's sum over the
+//     tile (every vector gradient) stays inside the warp: four lanes by
+//     shuffle. A block adds its tiles' sums into its own row of partials;
+//     sum_rows adds the rows. x, g and dout are read 16 bytes a thread
+//     where H*W allows; the six operand streams go to the workspace 16
+//     bytes a thread.
+//   - wgrad_mma_kernel: the three weight gradients in one launch. Both
+//     operands of a gradient are [channels][H*W] with the contraction
+//     index contiguous, which is what mma takes for A and for B. 64 x 64
+//     tiles, the pixels split into chunks so that ~264 blocks run; fp32
+//     partials, one row per chunk, added by sum_rows in a fixed order.
+//   No float atomics anywhere: two runs give the same bits. One call is 5
+//   launches (it was 9). What limits it now: at C >= 128 the instructions
+//   around each slab's few tensor-core operations (a slab is 2 to 8
+//   mma per warp and one block barrier), at C <= 64 the chain of short
+//   phases of one tile (six products and six elementwise passes with a
+//   barrier between them; two of eight warps own rows at C = 32).
+//   mma.sync and not wgmma: a call is 7.2 GFLOP, which mma.sync at half
+//   the peak would do in 0.015 ms; the kernel is far from either rate,
+//   and wgmma's 64-row tiles would leave C = 32 and C = 48 half empty.
+//
+//   In fp32 the FMA kernels of the first port stay (TF32 would break the
+//   1e-4 tolerance): k3_kernel owns P pixels and all channels, like K2;
+//   v, z/xhat2, pth, ds/dp, q/dq and wv stay in shared memory ((4C + 3F)
+//   * P * 4 bytes: P = 32 up to C = F = 256, P = 16 at C = F = 512). It
+//   writes the two operands of each weight gradient to a workspace, and
+//   wgrad_kernel (a tiled 64 x 64 fp32 product split over pixel chunks)
+//   writes partials that sum_rows adds in a fixed order.
 //
 // K4 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_p2 (pallas_call in _call_p2).
@@ -66,6 +104,7 @@
 // returns cudaGetLastError() of its launches (0 = success).
 
 #include "nafblock_common.cuh"
+#include "nafblock_p1_mma.cuh"
 
 namespace {
 
@@ -198,7 +237,7 @@ cudaError_t wgrad(const T* A, const T* B, int M, int Nc, int N, long long HW,
 }
 
 // ---------------------------------------------------------------------------
-// K3: second half backward.  grid (ceil(HW / P), N), block kThreads.
+// K3 in fp32.  grid (ceil(HW / P), N), block kThreads.
 // Per-block vector partials, V = 6C + 2F floats:
 //   [dgamma C | db5 C | db4 2F | dw2n C | db2n C | dbeta C | db3 C]
 // and the SCA grad partials da [N, blocks, C].
@@ -210,18 +249,19 @@ int p1_pixels(int C, int F) {
   return 0;
 }
 
-template <typename T, int KO, int P>
+template <int KO, int P>
 __global__ void __launch_bounds__(kThreads) k3_kernel(
-    const T* __restrict__ x, const T* __restrict__ g,
-    const T* __restrict__ dout, const float* __restrict__ att,
+    const float* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ dout, const float* __restrict__ att,
     const float* __restrict__ W3, const float* __restrict__ b3,
     const float* __restrict__ w2n, const float* __restrict__ b2n,
     const float* __restrict__ W4, const float* __restrict__ b4,
     const float* __restrict__ W5, const float* __restrict__ b5,
     const float* __restrict__ beta, const float* __restrict__ gamma,
-    T* __restrict__ dz_out, T* __restrict__ v_o, T* __restrict__ h2_o,
-    T* __restrict__ wv_o, T* __restrict__ ds_o, T* __restrict__ dq_o,
-    T* __restrict__ dp_o, float* __restrict__ vpart,
+    float* __restrict__ dz_out, float* __restrict__ v_o,
+    float* __restrict__ h2_o, float* __restrict__ wv_o,
+    float* __restrict__ ds_o, float* __restrict__ dq_o,
+    float* __restrict__ dp_o, float* __restrict__ vpart,
     float* __restrict__ dapart, int C, int F, long long HW, float eps) {
   constexpr int G = kThreads / P;
   extern __shared__ float smem[];
@@ -251,12 +291,12 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
 
   // v = g * att (conv3 and dW3 operand), z = x
   for (int c = grp; c < C; c += G) {
-    const float xv = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
-    const float gv = valid ? to_f<T>(g[base + (long long)c * HW]) : 0.f;
-    const float v = to_cdt<T>(gv * attn[c]);
+    const float xv = valid ? x[base + (long long)c * HW] : 0.f;
+    const float gv = valid ? g[base + (long long)c * HW] : 0.f;
+    const float v = gv * attn[c];
     a_s[c * P + lane] = v;
     z_s[c * P + lane] = xv;
-    if (valid) v_o[base + (long long)c * HW] = from_f<T>(v);
+    if (valid) v_o[base + (long long)c * HW] = v;
   }
   __syncthreads();
 
@@ -283,10 +323,10 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
   ln_stats<P>(z_s, C, red_s, grp, lane, eps, mu, rstd);
   for (int c = grp; c < C; c += G) {
     const float xh = (z_s[c * P + lane] - mu) * rstd;
-    const float h2 = to_cdt<T>(fmaf(xh, w2n[c], b2n[c]));
+    const float h2 = fmaf(xh, w2n[c], b2n[c]);
     z_s[c * P + lane] = xh;
     a_s[c * P + lane] = h2;
-    if (valid) h2_o[base + (long long)c * HW] = from_f<T>(h2);
+    if (valid) h2_o[base + (long long)c * HW] = h2;
   }
   __syncthreads();
 
@@ -303,11 +343,11 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       if (j < F) {
         const float q1 = qa[r] + b4[j];
         const float q2 = qb[r] + b4[F + j];
-        const float wv = to_cdt<T>(q1 * q2);
+        const float wv = q1 * q2;
         q_s[j * P + lane] = q1;
         q_s[(F + j) * P + lane] = q2;
         w_s[j * P + lane] = wv;
-        if (valid) wv_o[baseF + (long long)j * HW] = from_f<T>(wv);
+        if (valid) wv_o[baseF + (long long)j * HW] = wv;
       }
     }
   }
@@ -325,15 +365,14 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       const int o = o0 + r;
       const bool ok = o < C;
       const float dov =
-          (ok && valid) ? to_f<T>(dout[base + (long long)o * HW]) : 0.f;
+          (ok && valid) ? dout[base + (long long)o * HW] : 0.f;
       const float sv = ok ? acc[r] + b5[o] : 0.f;
       const float ds = ok ? gamma[o] * dov : 0.f;
       const float sum_g = group_sum<P>(dov * sv);
       const float sum_b = group_sum<P>(ds);
       if (ok) {
-        const float dsr = to_cdt<T>(ds);
-        d_s[o * P + lane] = dsr;
-        if (valid) ds_o[base + (long long)o * HW] = from_f<T>(dsr);
+        d_s[o * P + lane] = ds;
+        if (valid) ds_o[base + (long long)o * HW] = ds;
         if (lane == 0) {
           vp[o] = sum_g;
           vp[C + o] = sum_b;
@@ -361,12 +400,11 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       const float s1 = group_sum<P>(dq1);
       const float s2 = group_sum<P>(dq2);
       if (ok) {
-        const float r1 = to_cdt<T>(dq1), r2 = to_cdt<T>(dq2);
-        q_s[f * P + lane] = r1;
-        q_s[(F + f) * P + lane] = r2;
+        q_s[f * P + lane] = dq1;
+        q_s[(F + f) * P + lane] = dq2;
         if (valid) {
-          dq_o[baseQ + (long long)f * HW] = from_f<T>(r1);
-          dq_o[baseQ + (long long)(F + f) * HW] = from_f<T>(r2);
+          dq_o[baseQ + (long long)f * HW] = dq1;
+          dq_o[baseQ + (long long)(F + f) * HW] = dq2;
         }
         if (lane == 0) {
           vp[2 * C + f] = s1;
@@ -415,7 +453,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     const bool ok = c < C;
     float dzv = 0.f, pth = 0.f, dp = 0.f;
     if (ok && valid) {
-      const float dov = to_f<T>(dout[base + (long long)c * HW]);
+      const float dov = dout[base + (long long)c * HW];
       const float gxh = a_s[c * P + lane] * w2n[c];
       dzv = dov + (gxh - mean_g - z_s[c * P + lane] * mean_gx) * rstd;
       pth = p_s[c * P + lane];
@@ -424,11 +462,10 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     const float s_beta = group_sum<P>(dzv * pth);
     const float s_b3 = group_sum<P>(dp);
     if (ok) {
-      const float dpr = to_cdt<T>(dp);
-      d_s[c * P + lane] = dpr;
+      d_s[c * P + lane] = dp;
       if (valid) {
-        dz_out[base + (long long)c * HW] = from_f<T>(dzv);
-        dp_o[base + (long long)c * HW] = from_f<T>(dpr);
+        dz_out[base + (long long)c * HW] = dzv;
+        dp_o[base + (long long)c * HW] = dp;
       }
       if (lane == 0) {
         vp[4 * C + 2 * F + c] = s_beta;
@@ -450,7 +487,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       const int c = c0 + r;
       const bool ok = c < C;
       const float gv =
-          (ok && valid) ? to_f<T>(g[base + (long long)c * HW]) : 0.f;
+          (ok && valid) ? g[base + (long long)c * HW] : 0.f;
       const float s_a = group_sum<P>(acc[r] * gv);
       if (ok && lane == 0) dap[c] = s_a;
     }
@@ -458,20 +495,19 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
 }
 
 struct P1Work {
-  void *v, *h2, *wv, *ds, *dq, *dp;  // per-pixel operands [N, ch, HW], T
+  float *v, *h2, *wv, *ds, *dq, *dp;  // per-pixel operands [N, ch, HW]
   float *vpart, *dapart, *wpart;
 };
 
-P1Work carve_p1(Carver& cv, int N, int C, int F, long long HW, int P,
-                size_t esize) {
+P1Work carve_p1(Carver& cv, int N, int C, int F, long long HW, int P) {
   P1Work w;
   const size_t px = (size_t)N * HW;
-  w.v = cv.take<char>(px * C * esize);
-  w.h2 = cv.take<char>(px * C * esize);
-  w.wv = cv.take<char>(px * F * esize);
-  w.ds = cv.take<char>(px * C * esize);
-  w.dq = cv.take<char>(px * 2 * F * esize);
-  w.dp = cv.take<char>(px * C * esize);
+  w.v = cv.take<float>(px * C);
+  w.h2 = cv.take<float>(px * C);
+  w.wv = cv.take<float>(px * F);
+  w.ds = cv.take<float>(px * C);
+  w.dq = cv.take<float>(px * 2 * F);
+  w.dp = cv.take<float>(px * C);
   const size_t blocks = (size_t)N * ((HW + P - 1) / P);
   w.vpart = cv.take<float>(blocks * (6 * C + 2 * F));
   w.dapart = cv.take<float>(blocks * C);
@@ -493,42 +529,39 @@ struct P1Args {
   float eps;
 };
 
-template <typename T, int KO, int P>
+template <int KO, int P>
 cudaError_t launch_k3(const P1Args& a, const P1Work& w, cudaStream_t s) {
   const size_t smem = (size_t)(4 * a.C + 3 * a.F) * P * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      k3_kernel<T, KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k3_kernel<KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((a.HW + P - 1) / P);
-  k3_kernel<T, KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.g),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.att),
+  k3_kernel<KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.g),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.att),
       static_cast<const float*>(a.W3), static_cast<const float*>(a.b3),
       static_cast<const float*>(a.w2n), static_cast<const float*>(a.b2n),
       static_cast<const float*>(a.W4), static_cast<const float*>(a.b4),
       static_cast<const float*>(a.W5), static_cast<const float*>(a.b5),
       static_cast<const float*>(a.beta), static_cast<const float*>(a.gamma),
-      static_cast<T*>(a.dz), static_cast<T*>(w.v), static_cast<T*>(w.h2),
-      static_cast<T*>(w.wv), static_cast<T*>(w.ds), static_cast<T*>(w.dq),
-      static_cast<T*>(w.dp), w.vpart, w.dapart, a.C, a.F, a.HW, a.eps);
+      static_cast<float*>(a.dz), w.v, w.h2, w.wv, w.ds, w.dq, w.dp, w.vpart,
+      w.dapart, a.C, a.F, a.HW, a.eps);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t run_p1(const P1Args& a, cudaStream_t s) {
   const int P = p1_pixels(a.C, a.F);
   if (P == 0) return cudaErrorInvalidValue;
   Carver cv{static_cast<char*>(a.ws)};
-  const P1Work w = carve_p1(cv, a.N, a.C, a.F, a.HW, P, sizeof(T));
+  const P1Work w = carve_p1(cv, a.N, a.C, a.F, a.HW, P);
   cudaError_t err;
   if (P == 32)
-    err = a.C <= 64 ? launch_k3<T, 8, 32>(a, w, s)
-                    : launch_k3<T, 16, 32>(a, w, s);
+    err = a.C <= 64 ? launch_k3<8, 32>(a, w, s) : launch_k3<16, 32>(a, w, s);
   else if (P == 16)
-    err = launch_k3<T, 16, 16>(a, w, s);
+    err = launch_k3<16, 16>(a, w, s);
   else
-    err = launch_k3<T, 16, 8>(a, w, s);
+    err = launch_k3<16, 8>(a, w, s);
   if (err != cudaSuccess) return err;
 
   const int C = a.C, F = a.F, N = a.N;
@@ -543,16 +576,173 @@ cudaError_t run_p1(const P1Args& a, cudaStream_t s) {
   if ((err = launch_sum_rows(w.dapart, static_cast<float*>(a.da), N, blocks,
                              C, s)))
     return err;
-  if ((err = wgrad<T>(static_cast<const T*>(w.ds),
-                      static_cast<const T*>(w.wv), C, F, N, a.HW, w.wpart,
-                      dW5, s)))
+  if ((err = wgrad<float>(w.ds, w.wv, C, F, N, a.HW, w.wpart, dW5, s)))
     return err;
-  if ((err = wgrad<T>(static_cast<const T*>(w.dq),
-                      static_cast<const T*>(w.h2), 2 * F, C, N, a.HW,
-                      w.wpart, dW4, s)))
+  if ((err = wgrad<float>(w.dq, w.h2, 2 * F, C, N, a.HW, w.wpart, dW4, s)))
     return err;
-  return wgrad<T>(static_cast<const T*>(w.dp), static_cast<const T*>(w.v), C,
-                  C, N, a.HW, w.wpart, dW3, s);
+  return wgrad<float>(w.dp, w.v, C, C, N, a.HW, w.wpart, dW3, s);
+}
+
+// ---------------------------------------------------------------------------
+// K3 in bf16: k3_mma_kernel + wgrad_mma_kernel (nafblock_p1_mma.cuh).
+// a.W3, a.W4, a.W5 are bf16 here. The wrapper chooses the pixel tile P and
+// the blocks per image BX (ops/nafblock.py:p1_tile, p1_grid: it fills the
+// card from what it knows of the SMs); here they are only checked.
+// ---------------------------------------------------------------------------
+
+bool p1_mma_ok(int C, int F, long long HW, int P, int BX) {
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && F % 16 == 0 &&
+         C > 0 && F > 0 && BX >= 1 && BX <= (HW + P - 1) / P &&
+         (long long)k3_mma_smem(C, F, P) <= kSmemLimit;
+}
+
+struct P1MmaWork {
+  bf16 *v, *h2, *wv, *ds, *dq, *dp;  // operand streams [N, rows, HWp]
+  float *vpart, *dapart, *wpart;
+  long long HWp, L;  // padded pixels per image; pixels per wgrad chunk
+  int tiles, S;      // pixel tiles per image; wgrad chunks per image
+};
+
+P1MmaWork carve_p1_mma(Carver& cv, int N, int C, int F, long long HW, int P,
+                       int BX) {
+  P1MmaWork w;
+  w.HWp = (HW + 7) / 8 * 8;
+  w.tiles = (int)((HW + P - 1) / P);
+  const int wtiles =
+      wgrad_tiles(C, C) + wgrad_tiles(2 * F, C) + wgrad_tiles(C, F);
+  long long S = (kGBlocks + (long long)wtiles * N - 1) / ((long long)wtiles * N);
+  const long long max_s = (w.HWp + kGK - 1) / kGK;
+  if (S > max_s) S = max_s;
+  w.L = ((w.HWp + S - 1) / S + kGK - 1) / kGK * kGK;
+  w.S = (int)((w.HWp + w.L - 1) / w.L);
+  const size_t px = (size_t)N * w.HWp;
+  w.v = cv.take<bf16>(px * C);
+  w.h2 = cv.take<bf16>(px * C);
+  w.wv = cv.take<bf16>(px * F);
+  w.ds = cv.take<bf16>(px * C);
+  w.dq = cv.take<bf16>(px * 2 * F);
+  w.dp = cv.take<bf16>(px * C);
+  w.vpart = cv.take<float>((size_t)N * BX * (6 * C + 2 * F));
+  w.dapart = cv.take<float>((size_t)N * BX * C);
+  w.wpart = cv.take<float>((size_t)N * w.S *
+                           ((size_t)C * C + (size_t)3 * F * C));
+  return w;
+}
+
+template <int P, bool RES>
+cudaError_t launch_k3_mma_as(const K3Mma& k, int BX, int N, size_t smem,
+                             cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      k3_mma_kernel<P, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  k3_mma_kernel<P, RES>
+      <<<dim3((unsigned)BX, (unsigned)N), kThreads, smem, s>>>(k);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_k3_mma(const K3Mma& k, int BX, int N, size_t smem,
+                          cudaStream_t s) {
+  return resident(k.C, k.F) ? launch_k3_mma_as<P, true>(k, BX, N, smem, s)
+                            : launch_k3_mma_as<P, false>(k, BX, N, smem, s);
+}
+
+// Blocks of k3_mma_kernel that the CUDA runtime places on one SM.
+template <int P, bool RES>
+int k3_mma_occupancy_as(size_t smem) {
+  int blocks = 0;
+  if (cudaFuncSetAttribute(k3_mma_kernel<P, RES>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, k3_mma_kernel<P, RES>, kThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+template <int P>
+int k3_mma_occupancy(int C, int F) {
+  const size_t smem = k3_mma_smem(C, F, P);
+  return resident(C, F) ? k3_mma_occupancy_as<P, true>(smem)
+                        : k3_mma_occupancy_as<P, false>(smem);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+cudaError_t run_p1_mma(const P1Args& a, int P, int BX, cudaStream_t s) {
+  const int C = a.C, F = a.F, N = a.N;
+  if (!p1_mma_ok(C, F, a.HW, P, BX) || !aligned16(a.W3) || !aligned16(a.W4) ||
+      !aligned16(a.W5))
+    return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const P1MmaWork w = carve_p1_mma(cv, N, C, F, a.HW, P, BX);
+
+  K3Mma k;
+  k.x = static_cast<const bf16*>(a.x);
+  k.g = static_cast<const bf16*>(a.g);
+  k.dout = static_cast<const bf16*>(a.dout);
+  k.att = static_cast<const float*>(a.att);
+  k.W3 = static_cast<const bf16*>(a.W3);
+  k.W4 = static_cast<const bf16*>(a.W4);
+  k.W5 = static_cast<const bf16*>(a.W5);
+  k.b3 = static_cast<const float*>(a.b3);
+  k.w2n = static_cast<const float*>(a.w2n);
+  k.b2n = static_cast<const float*>(a.b2n);
+  k.b4 = static_cast<const float*>(a.b4);
+  k.b5 = static_cast<const float*>(a.b5);
+  k.beta = static_cast<const float*>(a.beta);
+  k.gamma = static_cast<const float*>(a.gamma);
+  k.dz = static_cast<bf16*>(a.dz);
+  k.v_o = w.v;
+  k.h2_o = w.h2;
+  k.wv_o = w.wv;
+  k.ds_o = w.ds;
+  k.dq_o = w.dq;
+  k.dp_o = w.dp;
+  k.vpart = w.vpart;
+  k.dapart = w.dapart;
+  k.C = C;
+  k.F = F;
+  k.HW = a.HW;
+  k.HWp = w.HWp;
+  k.tiles = w.tiles;
+  k.vec = a.HW % 8 == 0 && aligned16(a.x) && aligned16(a.g) &&
+          aligned16(a.dout);
+  k.eps = a.eps;
+  const size_t smem = k3_mma_smem(C, F, P);
+  cudaError_t err = P == 32   ? launch_k3_mma<32>(k, BX, N, smem, s)
+                    : P == 16 ? launch_k3_mma<16>(k, BX, N, smem, s)
+                              : launch_k3_mma<8>(k, BX, N, smem, s);
+  if (err != cudaSuccess) return err;
+
+  float* grads = static_cast<float*>(a.grads);
+  const long long V = (long long)C * C + (long long)3 * F * C;
+  if ((err = launch_sum_rows(w.vpart, grads + V, 1, N * BX, 6 * C + 2 * F,
+                             s)))
+    return err;
+  if ((err = launch_sum_rows(w.dapart, static_cast<float*>(a.da), N, BX, C,
+                             s)))
+    return err;
+
+  // dW3 = dp v^T, dW4 = dq h2^T, dW5 = ds wv^T, in the order of grads
+  WgradMma g;
+  g.prod[0] = {w.dp, w.v, C, C, 0, 0};
+  g.prod[1] = {w.dq, w.h2, 2 * F, C, (long long)C * C, wgrad_tiles(C, C)};
+  g.prod[2] = {w.ds, w.wv, C, F, (long long)C * C + (long long)2 * F * C,
+               wgrad_tiles(C, C) + wgrad_tiles(2 * F, C)};
+  g.part = w.wpart;
+  g.V = V;
+  g.HWp = w.HWp;
+  g.L = w.L;
+  const unsigned wtiles =
+      (unsigned)(g.prod[2].tile0 + wgrad_tiles(C, F));
+  wgrad_mma_kernel<<<dim3(wtiles, (unsigned)w.S, (unsigned)N), kThreads, 0,
+                     s>>>(g);
+  if ((err = cudaGetLastError())) return err;
+  return launch_sum_rows(w.wpart, grads, 1, N * w.S, V, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -938,33 +1128,61 @@ cudaError_t run_p2(const P2Args& a, cudaStream_t s) {
 
 extern "C" {
 
-// K3 pixels per block (0: the shape does not fit in shared memory).
+// fp32 K3 pixels per block (0: the shape does not fit in shared memory).
 int nafblk_p1_pixels(int C, int F) { return p1_pixels(C, F); }
 
-// Workspace bytes nafblk_p1 needs.
-long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16) {
-  const int P = p1_pixels(C, F);
-  if (P == 0) return -1;
+// Dynamic shared memory (bytes) of the bf16 K3 with a tile of P pixels,
+// and the most a block may have.
+long long nafblk_p1_mma_smem(int C, int F, int P) {
+  return (long long)k3_mma_smem(C, F, P);
+}
+long long nafblk_smem_limit() { return kSmemLimit; }
+
+// Blocks of the bf16 K3 with a tile of P pixels that share one SM of the
+// current device, as the CUDA runtime counts them from the built kernel's
+// registers and shared memory (-1: the tile is not taken or a call failed).
+int nafblk_p1_mma_blocks_per_sm(int C, int F, int P) {
+  if (!p1_mma_ok(C, F, P, P, 1)) return -1;
+  return P == 32   ? k3_mma_occupancy<32>(C, F)
+         : P == 16 ? k3_mma_occupancy<16>(C, F)
+                   : k3_mma_occupancy<8>(C, F);
+}
+
+// Workspace bytes nafblk_p1 needs (-1: the shape or tile is not taken).
+// tile, grid: pixels per block (8, 16 or 32) and blocks per image of the
+// bf16 kernel; unused in fp32.
+long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16,
+                              int tile, int grid) {
   Carver cv{nullptr};
-  carve_p1(cv, N, C, F, HW, P, is_bf16 ? 2 : 4);
+  if (is_bf16) {
+    if (!p1_mma_ok(C, F, HW, tile, grid)) return -1;
+    carve_p1_mma(cv, N, C, F, HW, tile, grid);
+  } else {
+    const int P = p1_pixels(C, F);
+    if (P == 0) return -1;
+    carve_p1(cv, N, C, F, HW, P);
+  }
   return (long long)cv.off;
 }
 
 // K3. x, g, dout, dz: [N, C, HW] (fp32, or bf16 when is_bf16); att, da:
-// [N, C] fp32; grads: fp32 [dW3 C*C | dW4 2F*C | dW5 C*F | dgamma C |
-// db5 C | db4 2F | dw2n C | db2n C | dbeta C | db3 C]; ws: workspace.
-// Requires C % 4 == 0, F % 4 == 0, nafblk_p1_pixels(C, F) > 0.
+// [N, C] fp32; W3, W4, W5: fp32, or bf16 when is_bf16; the vectors fp32;
+// grads: fp32 [dW3 C*C | dW4 2F*C | dW5 C*F | dgamma C | db5 C | db4 2F |
+// dw2n C | db2n C | dbeta C | db3 C]; ws: workspace.
+// fp32 requires C % 4 == 0, F % 4 == 0, nafblk_p1_pixels(C, F) > 0; bf16
+// requires C % 16 == 0, F % 16 == 0, a tile that fits and 1 <= grid <= the
+// image's tiles.
 int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
               const void* W3, const void* b3, const void* w2n, const void* b2n,
               const void* W4, const void* b4, const void* W5, const void* b5,
               const void* beta, const void* gamma, void* dz, void* da,
               void* grads, void* ws, int N, int C, int F, long long HW,
-              float eps, int is_bf16, void* stream) {
+              float eps, int is_bf16, int tile, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const P1Args a{x, g, dout, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta,
                  gamma, dz, da, grads, ws, N, C, F, HW, eps};
-  if (is_bf16) return (int)run_p1<__nv_bfloat16>(a, s);
-  return (int)run_p1<float>(a, s);
+  if (is_bf16) return (int)run_p1_mma(a, tile, grid, s);
+  return (int)run_p1(a, s);
 }
 
 // K4 pixels per block of its second kernel (0: does not fit).

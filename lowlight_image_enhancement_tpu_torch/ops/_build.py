@@ -38,15 +38,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "nafblock_bwd": {
         "nafblk_p1_pixels": (_I, [_I, _I]),
-        "nafblk_p1_workspace": (_L, [_I, _I, _I, _L, _I]),
-        "nafblk_p1": (_I, [_P] * 18 + [_I, _I, _I, _L, _F, _I, _P]),
+        "nafblk_p1_mma_smem": (_L, [_I, _I, _I]),
+        "nafblk_smem_limit": (_L, []),
+        "nafblk_p1_mma_blocks_per_sm": (_I, [_I, _I, _I]),
+        "nafblk_p1_workspace": (_L, [_I, _I, _I, _L, _I, _I, _I]),
+        "nafblk_p1": (_I, [_P] * 18 + [_I, _I, _I, _L, _F, _I, _I, _I, _P]),
         "nafblk_p2_pixels": (_I, [_I]),
         "nafblk_p2_workspace": (_L, [_I, _I, _I, _I, _I]),
         "nafblk_p2": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _I, _P]),
     },
     "layernorm": {
         "ln_bwd_blocks": (_I, [_I, _L]),
-        "ln_fwd": (_I, [_P] * 6 + [_I, _I, _L, _F, _I, _P]),
+        "ln_fwd": (_I, [_P] * 6 + [_I, _I, _L, _F, _I, _I, _P]),
         "ln_bwd": (_I, [_P] * 7 + [_I, _I, _L, _I, _P]),
     },
     "pool": {
@@ -116,6 +119,19 @@ def current_stream(x) -> int:
     import torch
 
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def launch(x, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``x``'s device current and ``stream``
+    PyTorch's current stream there; returns the entry point's CUDA error
+    code. The device guard is taken only when ``x`` lies on another device
+    than the current one."""
+    import torch
+
+    if x.device.index == torch.cuda.current_device():
+        return fn(*args, current_stream(x))
+    with torch.cuda.device(x.device):
+        return fn(*args, current_stream(x))
 
 
 def load(name: str = "nafblock_fwd") -> ctypes.CDLL:

@@ -106,13 +106,16 @@ def _check_activation(x: torch.Tensor, what: str) -> None:
 
 
 def _vector(v: torch.Tensor, like: torch.Tensor, name: str) -> torch.Tensor:
-    """``v`` as a contiguous fp32 ``[C]`` on ``like``'s device."""
+    """``v`` as a contiguous fp32 ``[C]`` on ``like``'s device (``v`` itself
+    when it is one already)."""
     if v.device != like.device:
         raise ValueError(f"{name} is on {v.device}, input on {like.device}")
     if v.numel() != like.shape[1]:
         raise ValueError(f"{name} has {v.numel()} entries for C="
                          f"{like.shape[1]}")
-    return v.detach().float().contiguous().view(-1)
+    if v.dtype == torch.float32 and v.is_contiguous():
+        return v
+    return v.detach().float().contiguous()
 
 
 def _residual(t: torch.Tensor, shape, like: torch.Tensor, name: str) -> None:
@@ -120,6 +123,21 @@ def _residual(t: torch.Tensor, shape, like: torch.Tensor, name: str) -> None:
             or not t.is_contiguous() or t.device != like.device):
         raise ValueError(f"{name} must be contiguous fp32 {tuple(shape)} on "
                          f"{like.device}")
+
+
+# blocks K5 aims for: two for each of the 132 SMs of an H100
+LN_FWD_BLOCKS = 264
+
+
+def ln_fwd_tile(n: int, s: int) -> int:
+    """Pixels per block of K5 on ``[N, C, S]``: the widest of 32, 16 and 8
+    that still gives ``LN_FWD_BLOCKS`` blocks, else 8 (which gives at least
+    ``N * S / 8`` blocks). A narrower tile reads shorter contiguous
+    segments (``tile`` elements per channel)."""
+    for px in (32, 16):
+        if n * -(-s // px) >= LN_FWD_BLOCKS:
+            return px
+    return 8
 
 
 def call_ln_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -136,12 +154,10 @@ def call_ln_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     xhat = torch.empty((n, c, s), device=x.device, dtype=torch.float32)
     rstd = torch.empty((n, s), device=x.device, dtype=torch.float32)
     lib = _build.load("layernorm")
-    with torch.cuda.device(x.device):
-        rc = lib.ln_fwd(x.data_ptr(), wf.data_ptr(), bf.data_ptr(),
-                        y.data_ptr(), xhat.data_ptr(), rstd.data_ptr(),
-                        n, c, s, float(eps),
-                        int(x.dtype == torch.bfloat16),
-                        _build.current_stream(x))
+    rc = _build.launch(x, lib.ln_fwd, x.data_ptr(), wf.data_ptr(),
+                       bf.data_ptr(), y.data_ptr(), xhat.data_ptr(),
+                       rstd.data_ptr(), n, c, s, float(eps),
+                       int(x.dtype == torch.bfloat16), ln_fwd_tile(n, s))
     if rc != 0:
         raise RuntimeError(f"ln_fwd launch failed: CUDA error {rc}")
     call_ln_fwd.launches += 1

@@ -1,5 +1,6 @@
 """Fused NAFBlock: kernels K1/K2 (``csrc/nafblock_fwd.cu``), K3/K4
-(``csrc/nafblock_bwd.cu``) and their plain PyTorch versions.
+(``csrc/nafblock_bwd.cu``, ``csrc/nafblock_p1_mma.cuh``) and their plain
+PyTorch versions.
 
 Counterpart of ``lowlight_image_enhancement_tpu/ops/pallas/nafblock.py``.
 Activations use the JAX kernels' layout ``[N, C, H*W]``, which is
@@ -17,7 +18,9 @@ and its backward (:class:`NAFBlockFunction`, the counterpart of the JAX
 ``fused_nafblock`` custom VJP):
 
 - K3 (:func:`call_p1`): recomputes the second half from ``(x, g, att)``
-  and returns ``dz``, the SCA grad ``da`` and the second-half weight grads;
+  and returns ``dz``, the SCA grad ``da`` and the second-half weight grads
+  (in bf16 on the tensor cores, ``csrc/nafblock_p1_mma.cuh``, with the
+  pixel tile chosen by :func:`p1_tile`; in fp32 by FMA kernels);
 - the ``[N, C]`` SCA backward (:func:`sca_backward`), plain torch as in
   the JAX ``_vjp_bwd``;
 - K4 (:func:`call_p2`): recomputes LN1/conv1/depthwise from ``x`` and
@@ -264,15 +267,23 @@ def _check_cuda(x: torch.Tensor, p: Params, names) -> None:
                              f"input on {x.device}")
 
 
-def _kernel_args(p: Params, names, cdt: torch.dtype) -> list:
-    """fp32 contiguous parameters, matrices rounded to ``cdt``; kept alive
-    by the caller until the launch is enqueued."""
+def _kernel_args(p: Params, names, cdt: torch.dtype,
+                 matrices: torch.dtype = torch.float32) -> list:
+    """Contiguous, 16-byte aligned parameters, kept alive by the caller
+    until the launch is enqueued: vectors fp32; matrices rounded to ``cdt``
+    and handed over as ``matrices`` (fp32, or bf16 for a kernel that feeds
+    them to the tensor cores as they are). A parameter that already is
+    what the kernel takes is passed on untouched."""
     out = []
     for k in names:
-        t = p[k].detach()
-        if k in _MATRICES:
-            t = t.to(cdt)
-        t = t.float().contiguous()
+        t = p[k]
+        if k in _MATRICES and t.dtype != cdt:
+            t = t.detach().to(cdt)
+        want = matrices if k in _MATRICES else torch.float32
+        if t.dtype != want:
+            t = t.detach().to(want)
+        if not t.is_contiguous():
+            t = t.contiguous()
         if t.data_ptr() % 16:
             t = t.clone()
         out.append(t)
@@ -378,6 +389,100 @@ def _split(flat: torch.Tensor, layout) -> Params:
     return out
 
 
+# Geometry of the bf16 K3 (csrc/nafblock_p1_mma.cuh): pixel tiles of 32, 16
+# or 8; bf16 operand rows padded by 8 elements above 8 pixels; a ring of
+# three weight slabs of 128 x 32 bf16 values or, up to 64 channels, the
+# three matrices themselves (rows padded by 8) with 13C + 4F fp32 vectors
+# and partials; a block may use 227 KB less 2 KB of static scratch. The tile
+# and the grid are chosen here and handed to the kernel, which only checks
+# them. An H100 has 132 SMs of 228 KB shared memory (1 KB of it reserved
+# for each block); the kernel's registers allow two blocks on an SM, three
+# with resident weights. chip_smoke.py holds p1_smem_bytes against the
+# kernel's own sum and p1_blocks_per_sm against the occupancy the CUDA
+# runtime reports for the built kernel.
+P1_TILES = (32, 16, 8)
+P1_SMEM_LIMIT = 232448 - 2048
+P1_SLAB_BYTES = 3 * 128 * 32 * 2
+P1_RESIDENT_MAX = 64
+SM_COUNT = 132
+SM_SMEM = 233472
+P1_BLOCKS_BY_REGISTERS = {False: 2, True: 3}  # ring / resident weights
+# A tile's time grows as overhead + pixels: the weight slabs a block walks
+# do not depend on its pixels. Fitted on an H100 to k3_mma_kernel at every
+# tile that fits (the table is in PERF.md; at C=128 on 96x96, five waves
+# either way: 0.184 ms with 32 pixels, 0.151 ms with 16).
+P1_TILE_OVERHEAD = 72
+
+
+def p1_smem_bytes(c: int, f: int, tile: int) -> int:
+    """Dynamic shared memory of the bf16 K3 with ``tile`` pixels per block:
+    bf16 ``v|h2, wv -> dq`` (``max(C + F, 2F)`` rows) and ``ds -> dp`` (C
+    rows), fp32 ``z``, ``pth`` (C rows each) and ``q`` (2F rows), and the
+    weight slabs or the resident weights."""
+    ldb = tile if tile == 8 else tile + 8
+    weights = P1_SLAB_BYTES
+    if c <= P1_RESIDENT_MAX and f <= P1_RESIDENT_MAX:
+        weights = (((c + 2 * f) * (c + 8) + c * (f + 8)) * 2
+                   + (13 * c + 4 * f) * 4)
+    return ((max(c + f, 2 * f) + c) * ldb * 2 + (2 * c + 2 * f) * tile * 4
+            + weights)
+
+
+def p1_blocks_per_sm(c: int, f: int, tile: int) -> int:
+    """Blocks of the bf16 K3 that share an SM: as many as its registers
+    and its shared memory (dynamic, 2 KB static, 1 KB reserved) allow."""
+    by_regs = P1_BLOCKS_BY_REGISTERS[max(c, f) <= P1_RESIDENT_MAX]
+    return min(by_regs, SM_SMEM // (p1_smem_bytes(c, f, tile) + 2048 + 1024))
+
+
+def p1_grid(n: int, c: int, f: int, s: int, tile: int) -> int:
+    """Blocks per image of the bf16 K3, each walking the image's tiles in
+    strides: one round of blocks over the card, no more than there are
+    tiles."""
+    per_image = SM_COUNT * p1_blocks_per_sm(c, f, tile) // n
+    return max(1, min(per_image, -(-s // tile)))
+
+
+def p1_tile(n: int, c: int, f: int, s: int) -> int:
+    """Pixels per block of the bf16 K3 on ``[N, C, S]``: of the tiles that
+    fit in shared memory, the one with the least ``waves * (overhead +
+    pixels)``, where a wave is one round of blocks over the card
+    (:func:`p1_blocks_per_sm` on each SM); the wider tile on a tie. While
+    everything fits in one wave that is the narrowest tile, so a small
+    image still spreads over the SMs. 0 when no tile fits or ``C``, ``F``
+    are no multiples of 16 (the depth of one tensor-core step)."""
+    if c % 16 or f % 16:
+        return 0
+    best, best_cost = 0, None
+    for t in P1_TILES:
+        if p1_smem_bytes(c, f, t) > P1_SMEM_LIMIT:
+            continue
+        per_wave = SM_COUNT * p1_blocks_per_sm(c, f, t)
+        waves = -(-(n * -(-s // t)) // per_wave)
+        cost = waves * (P1_TILE_OVERHEAD + t)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = t, cost
+    return best
+
+
+def rounded_matrices(p: Params, dt: torch.dtype) -> Params:
+    """``p`` with its matrices rounded to bf16 for a block that runs in
+    bf16 (``p`` itself otherwise): the four kernels of one forward and
+    backward then share one rounding of each matrix, and K3 gets its bf16
+    operands without a conversion of its own."""
+    if dt != torch.bfloat16:
+        return p
+    return {k: t.detach().to(torch.bfloat16) if k in _MATRICES else t
+            for k, t in p.items()}
+
+
+def p1_operands(p: Params, cdt: torch.dtype) -> list:
+    """K3's ten parameters as its kernels take them: W3, W4, W5 rounded to
+    ``cdt`` and handed over in ``cdt`` (bf16 matrices go to the tensor
+    cores as they are; fp32 ones to the FMA kernels), vectors fp32."""
+    return _kernel_args(p, _B_PARAMS, cdt, matrices=cdt)
+
+
 def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
             att: torch.Tensor, p: Params, eps: float = 1e-6):
     """K3 on ``x, g, dout: [N, C, H*W]``, ``att: [N, C]`` -> ``(dz, da,
@@ -394,11 +499,19 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
     _check_cuda(x, p, _B_PARAMS)
     lib = _build.load("nafblock_bwd")
     bf16 = int(x.dtype == torch.bfloat16)
-    ws_bytes = lib.nafblk_p1_workspace(n, c, f, s, bf16)
+    tile = p1_tile(n, c, f, s) if bf16 else 0
+    grid = p1_grid(n, c, f, s, tile) if tile else 0
+    if bf16 and tile == 0:
+        raise ValueError(
+            f"K3 in bf16 needs C and F to be multiples of 16 and "
+            f"{p1_smem_bytes(c, f, P1_TILES[-1])} bytes of shared memory for "
+            f"a tile of {P1_TILES[-1]} pixels (22C + 3 slabs; the limit is "
+            f"{P1_SMEM_LIMIT}); got C={c}, F={f}")
+    ws_bytes = lib.nafblk_p1_workspace(n, c, f, s, bf16, tile, grid)
     if ws_bytes < 0:
-        raise ValueError(f"K3 keeps (4C+3F) x 8 fp32 values per block in "
-                         f"shared memory; C={c}, F={f} does not fit")
-    args = _kernel_args(p, _B_PARAMS, _compute_dtype(x))
+        raise ValueError(f"K3 in fp32 keeps (4C+3F) x 8 fp32 values per "
+                         f"block in shared memory; C={c}, F={f} does not fit")
+    args = p1_operands(p, _compute_dtype(x))
     att = att.detach().float().contiguous()
     dz = torch.empty_like(dout)
     da = torch.empty((n, c), device=x.device, dtype=torch.float32)
@@ -408,12 +521,11 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
     grads = torch.empty(c * c + 3 * f * c + 6 * c + 2 * f,
                         device=x.device, dtype=torch.float32)
     ws = torch.empty(ws_bytes, device=x.device, dtype=torch.uint8)
-    with torch.cuda.device(x.device):
-        rc = lib.nafblk_p1(x.data_ptr(), g.data_ptr(), dout.data_ptr(),
-                           att.data_ptr(), *[t.data_ptr() for t in args],
-                           dz.data_ptr(), da.data_ptr(), grads.data_ptr(),
-                           ws.data_ptr(), n, c, f, s, float(eps), bf16,
-                           _stream(x))
+    rc = _build.launch(x, lib.nafblk_p1, x.data_ptr(), g.data_ptr(),
+                       dout.data_ptr(), att.data_ptr(),
+                       *[t.data_ptr() for t in args], dz.data_ptr(),
+                       da.data_ptr(), grads.data_ptr(), ws.data_ptr(), n, c,
+                       f, s, float(eps), bf16, tile, grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_p1 launch failed: CUDA error {rc}")
     call_p1.launches += 1
@@ -478,33 +590,40 @@ class NAFBlockFunction(torch.autograd.Function):
     """One NAFBlock with the fused forward (K1 -> SCA -> K2) and the fused
     backward (K3 -> SCA backward -> K4): the counterpart of the JAX
     ``fused_nafblock`` custom VJP. Saves ``(x, g, m, att)`` as the JAX
-    ``_vjp_fwd`` does, and returns ``dx`` and a grad for each packed view.
+    ``_vjp_fwd`` does (and, in bf16, the four matrices as rounded once for
+    all four kernels), and returns ``dx`` and a grad for each packed view.
 
     ``apply(x, hw, eps, *params)`` with ``x: [N, C, H*W]`` and ``params``
     the 18 views in :data:`PARAM_ORDER`."""
 
     @staticmethod
     def forward(ctx, x, hw, eps, *params):
-        p = dict(zip(PARAM_ORDER, params))
+        given = dict(zip(PARAM_ORDER, params))
+        p = rounded_matrices(given, x.dtype)
         area = hw[0] * hw[1]
         g, sums = call_a(x, p, hw, eps)
         att = sca_attention(sums, p, area)
         out = call_b(x, g, att, p, eps)
-        ctx.save_for_backward(x, g, sums / float(area), att, *params)
+        # the rounded matrices go to the backward beside the parameters
+        rounded = [] if p is given else [p[k] for k in _MATRICES]
+        ctx.save_for_backward(x, g, sums / float(area), att, *params,
+                              *rounded)
         ctx.hw, ctx.eps = hw, eps
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x, g, m, att, *params = ctx.saved_tensors
-        p = dict(zip(PARAM_ORDER, params))
+        params, rounded = params[:len(PARAM_ORDER)], params[len(PARAM_ORDER):]
+        given = dict(zip(PARAM_ORDER, params))
+        p = {**given, **dict(zip(_MATRICES, rounded))}
         hw = ctx.hw
         dz, da, grads = call_p1(x, g, dout.contiguous(), att, p, ctx.eps)
         dwsca, dbsca, dgc = sca_backward(da, m, p, hw[0] * hw[1])
         dx, first = call_p2(x, dz, dgc, att, p, hw, ctx.eps)
         grads.update(first, Wsca=dwsca, bsca=dbsca)
         return (dx, None, None,
-                *[grads[k].to(p[k].dtype) for k in PARAM_ORDER])
+                *[grads[k].to(given[k].dtype) for k in PARAM_ORDER])
 
 
 def nafblock_fwd(x: torch.Tensor, p: Params, hw: Tuple[int, int],
