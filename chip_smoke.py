@@ -64,11 +64,13 @@ Every kernel row carries two times: ``ms``, CUDA events around the
 wrapper (host time included), and ``device_ms``, the kernel's own device
 kernels read by ``torch.profiler`` ("not measured" where the profiler
 shows no device time or keeps losing records), with the split by device
-kernel. K3 is called twice at every shape and must give the same bits, and
-its wrapper's tile arithmetic is held against the built kernel's shared
-memory and occupancy. After the timed steps of every training path one
-more step runs under the profiler: the device's busy time and its idle
-share of the step.
+kernel (K3, K4 and K6 print it). K3, K4 and K6 are called twice at every
+shape and must give the same bits; the tile arithmetic of the K3 and K4
+wrappers is held against the built kernels' shared memory and occupancy,
+and K6's blocks per SM against the built kernel's occupancy; K4 in bf16
+must refuse C=8. After the timed steps of every training path one more
+step runs under the profiler: the device's busy time and its idle share of
+the step.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line ``{"kernels": [...]}`` and the card line before the last line, and
@@ -438,6 +440,7 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
     widths = [(BATCH, c, s, s, n, "train") for c, s, n in TRAIN_PATH]
     widths += [(BATCH, *WIDE, WIDE[1], 0, "w64"),
                (BATCH, *RAGGED, RAGGED[1], 0, "ragged"), NAFSSR_BLOCK]
+    k4_refuses_c8()
     for n, c, side, wide, nblk, path in widths:
         hw = side * wide
         shw = (side, wide)
@@ -461,11 +464,22 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                   and per_sm == ops.p1_blocks_per_sm(c, c, tile),
                   f"K3 C={c} tile {tile}: ops/nafblock.py counts {smem} bytes "
                   f"and {ops.p1_blocks_per_sm(c, c, tile)} blocks per SM")
+        for tile in ops.P1_TILES if c % 16 == 0 else ():
+            smem = ops.p2_smem_bytes(c, tile)
+            if smem > ops.P1_SMEM_LIMIT:
+                continue
+            per_sm = lib.nafblk_p2_mma_blocks_per_sm(c, tile)
+            print(f"  K4 bf16 C={c:4d} tile {tile:2d}: {smem} bytes of shared "
+                  f"memory, {per_sm} blocks per SM")
+            check(lib.nafblk_p2_mma_smem(c, tile) == smem
+                  and per_sm == ops.p2_blocks_per_sm(c, tile),
+                  f"K4 C={c} tile {tile}: ops/nafblock.py counts {smem} bytes "
+                  f"and {ops.p2_blocks_per_sm(c, tile)} blocks per SM")
         x32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         d32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
             x, dout = x32.to(dt), d32.to(dt)
-            # K3 gets its matrices as NAFBlockFunction hands them over
+            # K3 and K4 get their matrices as NAFBlockFunction hands them over
             pk = ops.rounded_matrices(p, dt)
             checks = {}
             with torch.no_grad():
@@ -479,14 +493,18 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                 dz_2, da_2, gk_2 = ops.call_p1(x, g, dout, att, pk)
                 dz, da, gp = ops.plain_p1(x, g, dout, att, p)
                 dwsca, dbsca, dgc = ops.sca_backward(da, m, p, hw)
-                dx_k, g1k = ops.call_p2(x, dz, dgc, att, p, shw)
+                dx_k, g1k = ops.call_p2(x, dz, dgc, att, pk, shw)
+                dx_2, g1k_2 = ops.call_p2(x, dz, dgc, att, pk, shw)
                 dx, g1p = ops.plain_p2(x, dz, dgc, att, p, shw)
             torch.cuda.synchronize()
-            # no float atomics in K3: a second call gives the same bits
+            # no float atomics in K3 or K4: a second call gives the same bits
             check(torch.equal(dz_k, dz_2) and torch.equal(da_k, da_2)
                   and all(torch.equal(gk[k], gk_2[k]) for k in gk),
                   f"K3 C={c} {dt}: two calls differ")
-            del dz_2, da_2, gk_2
+            check(torch.equal(dx_k, dx_2)
+                  and all(torch.equal(g1k[k], g1k_2[k]) for k in g1k),
+                  f"K4 C={c} {dt}: two calls differ")
+            del dz_2, da_2, gk_2, dx_2, g1k_2
             checks["nafblk_a"] = err(g_k, g)
             checks["nafblk_b"] = err(out_k, out_p)
             checks["nafblk_p1"] = err(dz_k, dz)
@@ -517,7 +535,7 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                         lambda: ops.call_p1(x, g, dout, att, pk),
                         lambda: ops.plain_p1(x, g, dout, att, p)),
                     "nafblk_p2": timed(
-                        lambda: ops.call_p2(x, dz, dgc, att, p, shw),
+                        lambda: ops.call_p2(x, dz, dgc, att, pk, shw),
                         lambda: ops.plain_p2(x, dz, dgc, att, p, shw)),
                 }
             for k, times in t.items():
@@ -525,7 +543,30 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                        n, shw)
             show_split(f"K3 {str(dt)[6:]} N={n} C={c} {side}x{wide}",
                        t["nafblk_p1"][2])
+            show_split(f"K4 {str(dt)[6:]} N={n} C={c} {side}x{wide}",
+                       t["nafblk_p2"][2])
         del blk, x32, d32
+
+
+def k4_refuses_c8() -> None:
+    """K4 in bf16 takes C that is a multiple of 16 (one tensor-core step):
+    a C=8 block raises before any launch."""
+    blk = NAFBlock(8).cuda()
+    p = ops.rounded_matrices(blk.packed(), torch.bfloat16)
+    x = torch.zeros((1, 8, 64), device="cuda", dtype=torch.bfloat16)
+    nc = torch.zeros((1, 8), device="cuda")
+    before = ops.call_p2.launches
+    try:
+        ops.call_p2(x, x, nc, nc, p, (8, 8))
+    except ValueError as e:
+        print(f"  K4 bf16 C=8 raises: {e}")
+    else:
+        raise AssertionError("K4 in bf16 took C=8")
+    check(ops.call_p2.launches == before, "K4 launched at C=8")
+    dw = _build.load("nafblock_bwd").nafblk_p2_dw_blocks_per_sm()
+    print(f"  K4 bf16 depthwise kernel: {dw} blocks per SM")
+    check(dw == ops.P2_DW_BLOCKS_PER_SM, f"K4 depthwise kernel: {dw} blocks "
+          f"per SM, ops/nafblock.py counts {ops.P2_DW_BLOCKS_PER_SM}")
 
 
 def serve_mix(net, what: str, **per_forward: int) -> dict:
@@ -856,8 +897,21 @@ def report_row(kind, rows, shape, dt, count, path, e, t_k, t_p, split, t_lib,
 
 
 def ln_phase(gen: torch.Generator, rows: dict) -> None:
+    lib = _build.load("layernorm")
     for n, c, h, w, count, path in LN_SHAPES:
         shape = (n, c, h, w)
+        # K6's grid is one round of blocks over the card only if the built
+        # kernel places at least ln_bwd_blocks_per_sm blocks on an SM
+        tile = ln.ln_bwd_tile(n, c, h * w)
+        want = ln.ln_bwd_blocks_per_sm(c, tile)
+        for bf in (0, 1):
+            per_sm = lib.ln_bwd_blocks_per_sm(c, tile, bf)
+            grid = ln.ln_bwd_grid(n, c, h * w, tile)
+            print(f"  K6 C={c:4d} tile {tile:2d} grid {n}x{grid} "
+                  f"{'bf16' if bf else 'fp32'}: {per_sm} blocks per SM "
+                  f"(ops/layernorm.py counts {want})")
+            check(per_sm >= want, f"K6 C={c} tile {tile}: {per_sm} blocks per "
+                  f"SM, fewer than the {want} of ops/layernorm.py")
         x32 = torch.randn((n, c, h * w), generator=gen, device="cuda") * 2 \
             + 0.5
         g32 = torch.randn((n, c, h * w), generator=gen, device="cuda")
@@ -868,8 +922,14 @@ def ln_phase(gen: torch.Generator, rows: dict) -> None:
             y_k, xhat_k, rstd_k = ln.call_ln_fwd(x, wt, bt)
             y_p, xhat_p, rstd_p = ln.plain_ln_fwd(x, wt, bt)
             gx_k, gw_k, gb_k = ln.call_ln_bwd(g, xhat_p, rstd_p, wt)
+            gx_2, gw_2, gb_2 = ln.call_ln_bwd(g, xhat_p, rstd_p, wt)
             gx_p, gw_p, gb_p = ln.plain_ln_bwd(g, xhat_p, rstd_p, wt)
             torch.cuda.synchronize()
+            # no float atomics in K6: a second call gives the same bits
+            check(torch.equal(gx_k, gx_2) and torch.equal(gw_k, gw_2)
+                  and torch.equal(gb_k, gb_2),
+                  f"K6 C={c} {h}x{w} {dt}: two calls differ")
+            del gx_2, gw_2, gb_2
             checks = {"ln_fwd": err(y_k, y_p)}
             dims = f"{h}x{w} N={n}"
             show(checks, c, dims, dt)
@@ -904,6 +964,7 @@ def ln_phase(gen: torch.Generator, rows: dict) -> None:
                        checks["ln_fwd"][0], *t5)
             report_row("ln_bwd", rows, shape, dt, count, path,
                        checks["ln_bwd"][0], *t6)
+            show_split(f"K6 {str(dt)[6:]} N={n} C={c} {h}x{w}", t6[2])
             del x_cl, g_cl, y_lib
         del x32, g32
 

@@ -36,13 +36,28 @@
 //   grads gw = sum over pixels of g xhat, gb = sum over pixels of g.
 //   Bound: bytes. It reads g, xhat and rstd and writes gx:
 //   (2 s + 4) N C S + 4 N S bytes, plus the partials.
-//   Design: the same pixel-per-thread mapping for gx (two passes over the
-//   column). gw and gb are sums over every pixel, and blocks on this card
-//   run in no order: each block reduces its 256 pixels per channel (warp
-//   shuffles, then shared memory across the 8 warps) and writes one fp32
-//   row of partials [2, blocks, C]; sum_rows adds the rows in a fixed order.
-//   No float atomics: the same inputs give the same bits.
-//
+//   Design: K5's mapping. A block owns tiles of PX neighbouring pixels of
+//   one image (PX = 32, 16 or 8) and its 256 threads form 256 / PX groups
+//   that share the C channels: lane = pixel, group q takes channels
+//   q, q + 256 / PX, ... (at most CPT of them). A group reads one
+//   contiguous PX-pixel segment of a channel. A thread keeps its CPT
+//   values of g w and xhat in registers (all its loads in flight at once),
+//   the two per-pixel means are reduced across the groups by shuffles
+//   inside a warp and then across the 8 warps through shared memory, and
+//   gx is written once. The wrapper picks PX so that CPT <= 16 up to
+//   C = 512 (ops/layernorm.py:ln_bwd_tile).
+//   gw and gb: a thread adds g xhat and g of its channels and pixel into
+//   registers over every tile its block walks; the grid is one round of
+//   blocks over the card (ops/layernorm.py:ln_bwd_grid), each walking its
+//   image's tiles in a fixed stride order. At the end a group sums its PX
+//   lanes (shuffles) and the block writes its one row of partials
+//   [2, rows, C]; sum_rows_split adds the at most a few hundred rows in a
+//   fixed order. No float atomics: the same inputs give the same bits.
+//   Up to 8 channels a thread (C <= 64 at 32 pixels, where a block walks
+//   many tiles) the next tile's loads are issued before this tile's
+//   reduction; __launch_bounds__ holds the registers to what
+//   ops/layernorm.py:LN_BWD_BLOCKS_BY_CHANNELS counts on an SM.
+
 // Kernels run on the caller's stream and allocate nothing. Every entry
 // point returns cudaGetLastError() of its launches (0 = success).
 
@@ -126,76 +141,204 @@ cudaError_t run_ln_fwd(const void* x, const float* w, const float* b, void* y,
 }
 
 // ---------------------------------------------------------------------------
-// K6: grid (ceil(S / kThreads), N), block kThreads; part is [2, blocks, C]
-// with blocks = gridDim.x * gridDim.y (gw partials, then gb partials)
+// K6: grid (BX, N), block kThreads. Block (bx, n) walks the pixel tiles bx,
+// bx + BX, ... of image n, PX pixels each; each thread takes at most CPT
+// channels. part is [2, N * BX, C] (gw partials, then gb partials).
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ln_bwd_kernel(
-    const T* __restrict__ g, const float* __restrict__ xhat,
-    const float* __restrict__ rstd, const float* __restrict__ w,
-    T* __restrict__ gx, float* __restrict__ part, int C, long long S) {
+// Blocks of K6 that share an SM, by channels a thread: the register
+// budget the compiler gets (ops/layernorm.py:LN_BWD_BLOCKS_BY_CHANNELS).
+__host__ __device__ constexpr int ln_bwd_min_blocks(int cpt) {
+  return cpt <= 4 ? 4 : cpt <= 8 ? 3 : cpt <= 16 ? 2 : 1;
+}
+
+template <typename T, int PX, int CPT>
+__global__ void __launch_bounds__(kThreads, ln_bwd_min_blocks(CPT))
+    ln_bwd_kernel(const T* __restrict__ g, const float* __restrict__ xhat,
+                  const float* __restrict__ rstd, const float* __restrict__ w,
+                  T* __restrict__ gx, float* __restrict__ part, int C,
+                  long long S) {
+  constexpr int G = kThreads / PX;
   constexpr int kWarps = kThreads / 32;
-  __shared__ float red_s[2][kWarps][32];
+  // up to 8 channels a thread the next tile's loads are issued before this
+  // tile's reduction (a block walks many tiles there: C <= 64)
+  constexpr bool kPrefetch = CPT <= 8;
+  // the per-pixel sums of each warp, twice: a tile writes one buffer while
+  // a slow thread may still read the other tile's (one barrier a tile)
+  __shared__ float red_s[2][2][kWarps][PX];
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const long long s = (long long)blockIdx.x * kThreads + tid;
-  const bool live = s < S;
+  const int lane = threadIdx.x % PX;
+  const int grp = threadIdx.x / PX;
+  const int warp = threadIdx.x / 32;
   const int n = blockIdx.y;
-  const long long base = (long long)n * C * S + (live ? s : 0);
+  const long long tiles = (S + PX - 1) / PX;
+  const T* gn = g + (long long)n * C * S;
+  const float* xn = xhat + (long long)n * C * S;
+  const float* rn = rstd + (long long)n * S;
+  T* gxn = gx + (long long)n * C * S;
 
-  float m1 = 0.f, m2 = 0.f, r = 0.f;
-  if (live) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const long long o = base + (long long)c * S;
-      const float gw_ = to_f<T>(g[o]) * w[c];
-      s1 += gw_;
-      s2 = fmaf(gw_, xhat[o], s2);
+  float wv[CPT], aw[CPT], ab[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int c = k * G + grp;
+    wv[k] = c < C ? w[c] : 0.f;
+    aw[k] = 0.f;
+    ab[k] = 0.f;
+  }
+  // g, xhat and rstd of the thread's channels and pixel in tile t (0
+  // beyond the image)
+  auto load = [&](long long t, float (&gv)[CPT], float (&xh)[CPT], float& r) {
+    const long long s = t * PX + lane;
+    const bool live = s < S;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int c = k * G + grp;
+      const bool ok = live && c < C;
+      const long long o = (long long)c * S + s;
+      gv[k] = ok ? to_f<T>(gn[o]) : 0.f;
+      xh[k] = ok ? xn[o] : 0.f;
     }
-    m1 = s1 / C;
-    m2 = s2 / C;
-    r = rstd[(long long)n * S + s];
+    r = live ? rn[s] : 0.f;
+  };
+
+  float gv[CPT], xh[CPT], r = 0.f;
+  if (kPrefetch && (long long)blockIdx.x < tiles) load(blockIdx.x, gv, xh, r);
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    if (!kPrefetch) load(tile, gv, xh, r);
+    float gnx[kPrefetch ? CPT : 1], xnx[kPrefetch ? CPT : 1], rnx = 0.f;
+    if constexpr (kPrefetch) {
+      if (tile + gridDim.x < tiles) load(tile + gridDim.x, gnx, xnx, rnx);
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      aw[k] = fmaf(gv[k], xh[k], aw[k]);
+      ab[k] += gv[k];
+      gv[k] *= wv[k];  // g w from here on
+      s1 += gv[k];
+      s2 = fmaf(gv[k], xh[k], s2);
+    }
+    // the groups of one warp, then the warps in order
+#pragma unroll
+    for (int o = PX; o < 32; o <<= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if ((threadIdx.x & 31) < PX) {
+      red_s[buf][0][warp][lane] = s1;
+      red_s[buf][1][warp][lane] = s2;
+    }
+    __syncthreads();
+    s1 = 0.f;
+    s2 = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) {
+      s1 += red_s[buf][0][q][lane];
+      s2 += red_s[buf][1][q][lane];
+    }
+    buf ^= 1;
+    const long long s = tile * PX + lane;
+    if (s < S) {
+      const float m1 = s1 / C, m2 = s2 / C;
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        const int c = k * G + grp;
+        if (c < C)
+          gxn[(long long)c * S + s] =
+              from_f<T>((gv[k] - m1 - xh[k] * m2) * r);
+      }
+    }
+    if constexpr (kPrefetch) {
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        gv[k] = gnx[k];
+        xh[k] = xnx[k];
+      }
+      r = rnx;
+    }
   }
 
-  const long long blocks = (long long)gridDim.x * gridDim.y;
-  const long long blk = (long long)n * gridDim.x + blockIdx.x;
-  float* pw = part + blk * C;
-  float* pb = part + (blocks + blk) * C;
-
-  // 32 channels at a time: lane j of each warp keeps the warp's sums of
-  // channel c0 + j, then the first two warps add the 8 warps in order
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    float keep_w = 0.f, keep_b = 0.f;
-    for (int j = 0; j < 32 && c0 + j < C; ++j) {
-      const int c = c0 + j;
-      float gv = 0.f, xh = 0.f;
-      if (live) {
-        const long long o = base + (long long)c * S;
-        gv = to_f<T>(g[o]);
-        xh = xhat[o];
-        const float gxh = gv * w[c];
-        gx[o] = from_f<T>((gxh - m1 - xh * m2) * r);
-      }
-      const float sw = warp_sum(gv * xh);
-      const float sb = warp_sum(gv);
-      if (lane == j) {
-        keep_w = sw;
-        keep_b = sb;
-      }
-    }
-    red_s[0][warp][lane] = keep_w;
-    red_s[1][warp][lane] = keep_b;
-    __syncthreads();
-    if (tid < 64) {
-      const int which = tid >> 5;
-      float acc = 0.f;
+  // the block's row of partials: each group sums its PX lanes
+  const long long row = (long long)n * gridDim.x + blockIdx.x;
+  const long long rows = (long long)gridDim.x * gridDim.y;
+  float* pw = part + row * C;
+  float* pb = part + (rows + row) * C;
 #pragma unroll
-      for (int q = 0; q < kWarps; ++q) acc += red_s[which][q][lane];
-      if (c0 + lane < C) (which ? pb : pw)[c0 + lane] = acc;
+  for (int k = 0; k < CPT; ++k) {
+    const int c = k * G + grp;
+    const float sw = group_sum<PX>(aw[k]);
+    const float sb = group_sum<PX>(ab[k]);
+    if (lane == 0 && c < C) {
+      pw[c] = sw;
+      pb[c] = sb;
     }
-    __syncthreads();
+  }
+}
+
+// Channels per thread of K6: C spread over 256 / PX groups, rounded up to
+// a power of two of at least 4 (0: more than 32).
+int ln_bwd_cpt(int C, int px) {
+  const int per = (C + kThreads / px - 1) / (kThreads / px);
+  for (int cpt = 4; cpt <= 32; cpt *= 2)
+    if (per <= cpt) return cpt;
+  return 0;
+}
+
+template <typename T, int PX, int CPT>
+cudaError_t launch_ln_bwd_as(const void* g, const float* xhat,
+                             const float* rstd, const float* w, void* gx,
+                             float* part, int N, int C, long long S, int bx,
+                             cudaStream_t st) {
+  ln_bwd_kernel<T, PX, CPT><<<dim3((unsigned)bx, (unsigned)N), kThreads, 0,
+                              st>>>(static_cast<const T*>(g), xhat, rstd, w,
+                                    static_cast<T*>(gx), part, C, S);
+  return cudaGetLastError();
+}
+
+// The instance of K6 for (PX, CPT) and what it gives: the launch, or the
+// blocks the CUDA runtime places on one SM (occ != nullptr).
+template <typename T, int PX>
+cudaError_t ln_bwd_px(const void* g, const float* xhat, const float* rstd,
+                      const float* w, void* gx, float* part, int N, int C,
+                      long long S, int bx, cudaStream_t st, int* occ) {
+  auto run = [&](auto kernel, auto launch) -> cudaError_t {
+    if (occ)
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel,
+                                                           kThreads, 0);
+    return launch(g, xhat, rstd, w, gx, part, N, C, S, bx, st);
+  };
+  switch (ln_bwd_cpt(C, PX)) {
+    case 4:
+      return run(ln_bwd_kernel<T, PX, 4>, launch_ln_bwd_as<T, PX, 4>);
+    case 8:
+      return run(ln_bwd_kernel<T, PX, 8>, launch_ln_bwd_as<T, PX, 8>);
+    case 16:
+      return run(ln_bwd_kernel<T, PX, 16>, launch_ln_bwd_as<T, PX, 16>);
+    case 32:
+      return run(ln_bwd_kernel<T, PX, 32>, launch_ln_bwd_as<T, PX, 32>);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t ln_bwd_any(const void* g, const float* xhat, const float* rstd,
+                       const float* w, void* gx, float* part, int N, int C,
+                       long long S, int px, int bx, cudaStream_t st,
+                       int* occ) {
+  switch (px) {
+    case 32:
+      return ln_bwd_px<T, 32>(g, xhat, rstd, w, gx, part, N, C, S, bx, st,
+                              occ);
+    case 16:
+      return ln_bwd_px<T, 16>(g, xhat, rstd, w, gx, part, N, C, S, bx, st,
+                              occ);
+    case 8:
+      return ln_bwd_px<T, 8>(g, xhat, rstd, w, gx, part, N, C, S, bx, st,
+                             occ);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -203,9 +346,17 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(
 
 extern "C" {
 
-// Blocks K6 writes partials for: the rows of its [2, blocks, C] workspace.
-int ln_bwd_blocks(int N, long long S) {
-  return N * (int)((S + nafblk::kThreads - 1) / nafblk::kThreads);
+// Blocks of K6 (pixel tile px, C channels; bf16 g when is_bf16) that the
+// CUDA runtime places on one SM (-1: the tile or C is not taken).
+int ln_bwd_blocks_per_sm(int C, int px, int is_bf16) {
+  int occ = -1;
+  cudaError_t e =
+      is_bf16 ? ln_bwd_any<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr,
+                                          nullptr, nullptr, 1, C, 1, px, 1,
+                                          nullptr, &occ)
+              : ln_bwd_any<float>(nullptr, nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, 1, C, 1, px, 1, nullptr, &occ);
+  return e == cudaSuccess ? occ : -1;
 }
 
 // px: pixels per block, 32, 16 or 8 (ops/layernorm.py:ln_fwd_tile)
@@ -219,23 +370,23 @@ int ln_fwd(const void* x, const float* w, const float* b, void* y, float* xhat,
   return (int)run_ln_fwd<float>(x, w, b, y, xhat, rstd, N, C, S, eps, px, st);
 }
 
-// part: fp32 [2, ln_bwd_blocks(N, S), C]; gwb: fp32 [2, C] (gw, then gb)
+// part: fp32 [2, N * bx, C]; gwb: fp32 [2, C] (gw, then gb). px: pixels
+// per tile, 32, 16 or 8, with at most 32 channels a thread; bx: blocks per
+// image, 1 <= bx <= ceil(S / px) (ops/layernorm.py:ln_bwd_tile,
+// ln_bwd_grid).
 int ln_bwd(const void* g, const float* xhat, const float* rstd, const float* w,
            void* gx, float* part, float* gwb, int N, int C, long long S,
-           int is_bf16, void* stream) {
+           int is_bf16, int px, int bx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)((S + kThreads - 1) / kThreads), (unsigned)N);
-  if (is_bf16) {
-    ln_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)g, xhat, rstd, w, (__nv_bfloat16*)gx, part, C,
-        S);
-  } else {
-    ln_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)g, xhat, rstd, w, (float*)gx, part, C, S);
-  }
-  cudaError_t e = cudaGetLastError();
+  if ((px != 8 && px != 16 && px != 32) || bx < 1 || bx > (S + px - 1) / px)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      is_bf16 ? ln_bwd_any<__nv_bfloat16>(g, xhat, rstd, w, gx, part, N, C, S,
+                                          px, bx, st, nullptr)
+              : ln_bwd_any<float>(g, xhat, rstd, w, gx, part, N, C, S, px, bx,
+                                  st, nullptr);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_sum_rows(part, gwb, 2, ln_bwd_blocks(N, S), C, st);
+  return (int)launch_sum_rows_split(part, gwb, 2, N * bx, C, st);
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 //
 // Layout as in nafblock_fwd.cu: activations contiguous NCHW viewed as
 // [N, C, H*W]; vectors fp32 [C]; matrices row-major [Cout, Cin], already
-// rounded to the compute type: fp32 for the fp32 kernels and for K4, bf16
-// for K3 in bf16. Every weight gradient is fp32.
+// rounded to the compute type: fp32 for the fp32 kernels, bf16 for the bf16
+// ones (which feed them to the tensor cores). Every weight gradient is
+// fp32.
 //
 // K3 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_p1 (pallas_call in _call_p1).
@@ -80,17 +81,38 @@
 //   TPU kernel omits bk there; see ROADMAP.md, queue 3).
 //   Bound: reads x and dz and writes dx (3 * C * HW elements per image);
 //   ~14 * C^2 FLOPs per pixel (conv1 recompute 4 C^2, W3^T 2 C^2, W1^T
-//   4 C^2, dW1 4 C^2) plus ~108 C for the depthwise parts. fp32 FMAs here.
-//   Design: the halo. dt at a pixel needs du one pixel out, du needs u, so
-//   t, and hence x, two pixels out, and dz one pixel out. k4a_kernel tiles
-//   the image in 2-D like K1: a 16 x 16 halo tile (one thread per pixel)
-//   around 12 x 12 output pixels, 16 gate channels per block. Each thread
-//   recomputes LN1 and the conv1 rows j, C + j of its pixel and the gate
-//   grad dg[j] from the C channels of dz; t sits in shared memory with 0
-//   outside the image (zero SAME padding of the conv1 output, not b1), and
-//   so does du, with dg = 0 outside the image. The tile's own pixels (each
-//   image pixel belongs to exactly one tile) give dt, the tap grads, dbk
-//   and db1; dt goes to the workspace in the compute type (the operand
+//   4 C^2, dW1 4 C^2) plus ~108 C for the depthwise parts: operations on
+//   the bf16 tensor cores from C ~ 128, bytes below.
+//
+//   In bf16 (nafblock_p2_mma.cuh) the products run on the tensor cores as
+//   K3's do (tile_gemm / tile_gemm_resident, wgrad_mma_kernel), and the
+//   work is split where the depthwise stencil's halo is, so each product
+//   is computed once per pixel:
+//   - k4_front_kernel: pixel tiles with every channel (the tile and grid
+//     of ops/nafblock.py:p2_tile, p2_grid): LN1, h, t = W1 h + b1 (fp32
+//     out), dg = (W3^T bf16(beta dz)) att + dgc (fp32 out), mu and rstd;
+//   - k4_dw_kernel: 2-D tiles x channel pairs on the CUDA cores, bound by
+//     bytes: u, du, dt (bf16 out) and the tap grads, dbk, db1 in registers
+//     over the block's tiles;
+//   - k4_back_kernel: pixel tiles: dh = W1^T dt, xhat from the saved
+//     statistics, dw1n / db1n by quad shuffles, LN1 backward, dx;
+//   - dW1 = dt h^T by wgrad_mma_kernel; sum_rows adds each kernel's
+//     per-block partial rows in a fixed order (no float atomics).
+//   Up to C = 64 W1 and W3 stay in shared memory for all the tiles of a
+//   block. The round trip of t, dg, h and dt through HBM is ~36 C bytes a
+//   pixel: the price of computing the products once.
+//
+//   In fp32 the FMA kernels of the first port stay (TF32 would break the
+//   1e-4 tolerance). The halo: dt at a pixel needs du one pixel out, du
+//   needs u, so t, and hence x, two pixels out, and dz one pixel out.
+//   k4a_kernel tiles the image in 2-D like K1: a 16 x 16 halo tile (one
+//   thread per pixel) around 12 x 12 output pixels, 16 gate channels per
+//   block. Each thread recomputes LN1 and the conv1 rows j, C + j of its
+//   pixel and the gate grad dg[j] from the C channels of dz; t sits in
+//   shared memory with 0 outside the image (zero SAME padding of the conv1
+//   output, not b1), and so does du, with dg = 0 outside the image. The
+//   tile's own pixels (each image pixel belongs to exactly one tile) give
+//   dt, the tap grads, dbk and db1; dt goes to the workspace (the operand
 //   both of dW1 and of W1^T dt). k4b_kernel then owns P pixels and all
 //   channels, as K2: LN1 again, dh = W1^T dt, LN1's backward, dx. dW1 is a
 //   wgrad_kernel product of (dt, h).
@@ -105,6 +127,7 @@
 
 #include "nafblock_common.cuh"
 #include "nafblock_p1_mma.cuh"
+#include "nafblock_p2_mma.cuh"
 
 namespace {
 
@@ -746,7 +769,7 @@ cudaError_t run_p1_mma(const P1Args& a, int P, int BX, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// K4a: LN1 -> conv1 -> dw3x3 recompute, gate grad, depthwise adjoint.
+// K4a (fp32): LN1 -> conv1 -> dw3x3 recompute, gate grad, depthwise adjoint.
 // grid (tiles, ceil(C / kBGate), N), block kThreads (16 x 16 halo tile).
 // Per-tile partials of 11 * 2C floats: index k * 2C + j for tap k < 9
 // (dkdw[j, k]), k = 9 (dbk[j]) and k = 10 (db1[j]).
@@ -763,15 +786,14 @@ constexpr size_t k4a_smem_bytes() {
          sizeof(float);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) k4a_kernel(
-    const T* __restrict__ x, const T* __restrict__ dz,
+    const float* __restrict__ x, const float* __restrict__ dz,
     const float* __restrict__ dgc, const float* __restrict__ att,
     const float* __restrict__ w1n, const float* __restrict__ b1n,
     const float* __restrict__ W1, const float* __restrict__ b1,
     const float* __restrict__ kdw, const float* __restrict__ bk,
     const float* __restrict__ W3, const float* __restrict__ beta,
-    T* __restrict__ dt_o, float* __restrict__ part, int C, int H, int W,
+    float* __restrict__ dt_o, float* __restrict__ part, int C, int H, int W,
     int tiles_x, float eps) {
   constexpr int KO = kBGate;
   extern __shared__ float smem[];
@@ -789,8 +811,8 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
   const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
   const long long HW = (long long)H * W;
   const long long pix = inside ? (long long)gr * W + gc : 0;
-  const T* xn = x + (long long)n * C * HW + pix;
-  const T* dzn = dz + (long long)n * C * HW + pix;
+  const float* xn = x + (long long)n * C * HW + pix;
+  const float* dzn = dz + (long long)n * C * HW + pix;
 
   float acc[2 * KO], dv[KO];
 #pragma unroll
@@ -800,10 +822,10 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
 
   if (inside) {
     // LN1 statistics (shifted one pass, as K1)
-    const float k0 = to_f<T>(xn[0]);
+    const float k0 = xn[0];
     float s1 = 0.f, s2 = 0.f;
     for (int c = 0; c < C; ++c) {
-      const float d = to_f<T>(xn[(long long)c * HW]) - k0;
+      const float d = xn[(long long)c * HW] - k0;
       s1 += d;
       s2 = fmaf(d, d, s2);
     }
@@ -816,8 +838,8 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
       float h[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float xv = to_f<T>(xn[(long long)(c + q) * HW]);
-        h[q] = to_cdt<T>(fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]));
+        const float xv = xn[(long long)(c + q) * HW];
+        h[q] = fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]);
       }
 #pragma unroll
       for (int r = 0; r < KO; ++r) {
@@ -832,7 +854,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
     }
     // local gate grad dv[j] = sum_c W3[c, j] * round(beta[c] * dz[c])
     for (int c = 0; c < C; ++c) {
-      const float pr = to_cdt<T>(beta[c] * to_f<T>(dzn[(long long)c * HW]));
+      const float pr = beta[c] * dzn[(long long)c * HW];
       const float* row = W3 + (long long)c * C + j0;
 #pragma unroll
       for (int r = 0; r < KO; r += 4) {
@@ -889,7 +911,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
   const bool own = inside && hr >= 2 && hr < 2 + kBT && hc >= 2 &&
                    hc < 2 + kBT;
   const int warp = tid / 32, lane = tid % 32;
-  T* dtn = dt_o + (long long)n * 2 * C * HW + pix;
+  float* dtn = dt_o + (long long)n * 2 * C * HW + pix;
 #pragma unroll 1
   for (int r2 = 0; r2 < 2 * KO; ++r2) {
     const int jl = j0 + (r2 % KO);
@@ -920,7 +942,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
       red_s[(warp * kBRed + 9) * 2 * KO + r2] = s_bk;
       red_s[(warp * kBRed + 10) * 2 * KO + r2] = s_b1;
     }
-    if (ok) dtn[(long long)jg * HW] = from_f<T>(dt);
+    if (ok) dtn[(long long)jg * HW] = dt;
   }
   __syncthreads();
   float* pt = part + ((long long)n * gridDim.x + tile) * kBRed * 2 * C;
@@ -937,7 +959,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K4b: LN1 backward and dx.  grid (ceil(HW / P), N), block kThreads.
+// K4b (fp32): LN1 backward and dx.  grid (ceil(HW / P), N), block kThreads.
 // Per-block partials [dw1n C | db1n C].
 // ---------------------------------------------------------------------------
 
@@ -947,13 +969,13 @@ int p2_pixels(int C) {
   return 0;
 }
 
-template <typename T, int KO, int P>
+template <int KO, int P>
 __global__ void __launch_bounds__(kThreads) k4b_kernel(
-    const T* __restrict__ x, const T* __restrict__ dz,
-    const T* __restrict__ dt, const float* __restrict__ w1n,
+    const float* __restrict__ x, const float* __restrict__ dz,
+    const float* __restrict__ dt, const float* __restrict__ w1n,
     const float* __restrict__ b1n, const float* __restrict__ W1,
-    T* __restrict__ dx_out, T* __restrict__ h_o, float* __restrict__ vpart,
-    int C, long long HW, float eps) {
+    float* __restrict__ dx_out, float* __restrict__ h_o,
+    float* __restrict__ vpart, int C, long long HW, float eps) {
   constexpr int G = kThreads / P;
   extern __shared__ float smem[];
   float* t_s = smem;            // [2C] dt (compute type)
@@ -973,9 +995,9 @@ __global__ void __launch_bounds__(kThreads) k4b_kernel(
   const int it_c = (C + G * KO - 1) / (G * KO);
 
   for (int c = grp; c < C; c += G)
-    x_s[c * P + lane] = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
+    x_s[c * P + lane] = valid ? x[base + (long long)c * HW] : 0.f;
   for (int j = grp; j < 2 * C; j += G)
-    t_s[j * P + lane] = valid ? to_f<T>(dt[base2 + (long long)j * HW]) : 0.f;
+    t_s[j * P + lane] = valid ? dt[base2 + (long long)j * HW] : 0.f;
   __syncthreads();
 
   float mu, rstd;
@@ -984,7 +1006,7 @@ __global__ void __launch_bounds__(kThreads) k4b_kernel(
     const float xh = (x_s[c * P + lane] - mu) * rstd;
     x_s[c * P + lane] = xh;
     if (valid)
-      h_o[base + (long long)c * HW] = from_f<T>(fmaf(xh, w1n[c], b1n[c]));
+      h_o[base + (long long)c * HW] = fmaf(xh, w1n[c], b1n[c]);
   }
   __syncthreads();
 
@@ -1022,8 +1044,8 @@ __global__ void __launch_bounds__(kThreads) k4b_kernel(
     for (int c = grp; c < C; c += G) {
       const float gxh = h_s[c * P + lane] * w1n[c];
       const float dx = (gxh - mean_g - x_s[c * P + lane] * mean_gx) * rstd +
-                       to_f<T>(dz[base + (long long)c * HW]);
-      dx_out[base + (long long)c * HW] = from_f<T>(dx);
+                       dz[base + (long long)c * HW];
+      dx_out[base + (long long)c * HW] = dx;
     }
   }
 }
@@ -1057,29 +1079,29 @@ struct P2Args {
   float eps;
 };
 
-template <typename T, int KO, int P>
+template <int KO, int P>
 cudaError_t launch_k4b(const P2Args& a, const P2Work& w, cudaStream_t s) {
   const size_t smem = (size_t)4 * a.C * P * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      k4b_kernel<T, KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k4b_kernel<KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const long long HW = (long long)a.H * a.W;
   const unsigned blocks = (unsigned)((HW + P - 1) / P);
-  k4b_kernel<T, KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.dz),
-      static_cast<const T*>(w.dt), static_cast<const float*>(a.w1n),
+  k4b_kernel<KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.dz),
+      static_cast<const float*>(w.dt), static_cast<const float*>(a.w1n),
       static_cast<const float*>(a.b1n), static_cast<const float*>(a.W1),
-      static_cast<T*>(a.dx), static_cast<T*>(w.h), w.part_b, a.C, HW, a.eps);
+      static_cast<float*>(a.dx), static_cast<float*>(w.h), w.part_b, a.C, HW,
+      a.eps);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t run_p2(const P2Args& a, cudaStream_t s) {
   const int P = p2_pixels(a.C);
   if (P == 0) return cudaErrorInvalidValue;
   Carver cv{static_cast<char*>(a.ws)};
-  const P2Work w = carve_p2(cv, a.N, a.C, a.H, a.W, P, sizeof(T));
+  const P2Work w = carve_p2(cv, a.N, a.C, a.H, a.W, P, sizeof(float));
   const int C = a.C, N = a.N;
   const long long HW = (long long)a.H * a.W;
   float* grads = static_cast<float*>(a.grads);
@@ -1089,39 +1111,213 @@ cudaError_t run_p2(const P2Args& a, cudaStream_t s) {
 
   const size_t smem_a = k4a_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      k4a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k4a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_a);
   if (err != cudaSuccess) return err;
   const int tiles_x = (a.W + kBT - 1) / kBT;
   const int tiles = p2_tiles(a.H, a.W);
   const dim3 grid_a((unsigned)tiles, (unsigned)((C + kBGate - 1) / kBGate),
                     (unsigned)N);
-  k4a_kernel<T><<<grid_a, kThreads, smem_a, s>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.dz),
+  k4a_kernel<<<grid_a, kThreads, smem_a, s>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.dz),
       static_cast<const float*>(a.dgc), static_cast<const float*>(a.att),
       static_cast<const float*>(a.w1n), static_cast<const float*>(a.b1n),
       static_cast<const float*>(a.W1), static_cast<const float*>(a.b1),
       static_cast<const float*>(a.kdw), static_cast<const float*>(a.bk),
       static_cast<const float*>(a.W3), static_cast<const float*>(a.beta),
-      static_cast<T*>(w.dt), w.part_a, C, a.H, a.W, tiles_x, a.eps);
+      static_cast<float*>(w.dt), w.part_a, C, a.H, a.W, tiles_x, a.eps);
   if ((err = cudaGetLastError())) return err;
   if ((err = launch_sum_rows(w.part_a, vec_a, 1, N * tiles,
                              (long long)kBRed * 2 * C, s)))
     return err;
 
   if (P == 32)
-    err = C <= 64 ? launch_k4b<T, 8, 32>(a, w, s)
-                  : launch_k4b<T, 16, 32>(a, w, s);
+    err = C <= 64 ? launch_k4b<8, 32>(a, w, s)
+                  : launch_k4b<16, 32>(a, w, s);
   else if (P == 16)
-    err = launch_k4b<T, 16, 16>(a, w, s);
+    err = launch_k4b<16, 16>(a, w, s);
   else
-    err = launch_k4b<T, 16, 8>(a, w, s);
+    err = launch_k4b<16, 8>(a, w, s);
   if (err != cudaSuccess) return err;
   const int blocks_b = (int)((HW + P - 1) / P);
   if ((err = launch_sum_rows(w.part_b, vec_b, 1, N * blocks_b, 2 * C, s)))
     return err;
-  return wgrad<T>(static_cast<const T*>(w.dt), static_cast<const T*>(w.h),
-                  2 * C, C, N, HW, w.wpart, dW1, s);
+  return wgrad<float>(static_cast<const float*>(w.dt),
+                      static_cast<const float*>(w.h), 2 * C, C, N, HW,
+                      w.wpart, dW1, s);
+}
+
+
+// ---------------------------------------------------------------------------
+// K4 in bf16: k4_front_kernel -> k4_dw_kernel -> k4_back_kernel ->
+// wgrad_mma_kernel (nafblock_p2_mma.cuh), each followed by sum_rows where
+// it leaves partial rows. a.W1, a.W3 are bf16 here. The wrapper chooses the
+// pixel tile P, the blocks per image BX of the pixel-tile kernels and DX of
+// the depthwise kernel (ops/nafblock.py:p2_tile, p2_grid, p2_dw_grid);
+// here they are only checked.
+// ---------------------------------------------------------------------------
+
+bool p2_mma_ok(int C, int H, int W, int P, int BX, int DX) {
+  const long long HW = (long long)H * W;
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && C > 0 &&
+         BX >= 1 && BX <= (HW + P - 1) / P && DX >= 1 &&
+         DX <= dw_tiles(H, W) &&
+         (long long)k4_front_smem(C, P) <= kSmemLimit &&
+         (long long)k4_back_smem(C, P) <= kSmemLimit;
+}
+
+struct P2MmaWork {
+  bf16 *h, *dt;           // operand streams [N, rows, HWp]
+  float *t, *dg;          // [N, 2C, HWp], [N, C, HWp]
+  float *mu, *rstd;       // [N, HW]
+  float *dwpart, *bpart, *wpart;
+  long long HWp, L;  // padded pixels per image; pixels per wgrad chunk
+  int tiles, S;      // pixel tiles per image; wgrad chunks per image
+};
+
+P2MmaWork carve_p2_mma(Carver& cv, int N, int C, int H, int W, int P, int BX,
+                       int DX) {
+  P2MmaWork w;
+  const long long HW = (long long)H * W;
+  w.HWp = (HW + 7) / 8 * 8;
+  w.tiles = (int)((HW + P - 1) / P);
+  const long long wtiles = wgrad_tiles(2 * C, C);
+  long long S = (kGBlocks + wtiles * N - 1) / (wtiles * N);
+  const long long max_s = (w.HWp + kGK - 1) / kGK;
+  if (S > max_s) S = max_s;
+  w.L = ((w.HWp + S - 1) / S + kGK - 1) / kGK * kGK;
+  w.S = (int)((w.HWp + w.L - 1) / w.L);
+  const size_t px = (size_t)N * w.HWp;
+  w.h = cv.take<bf16>(px * C);
+  w.dt = cv.take<bf16>(px * 2 * C);
+  w.t = cv.take<float>(px * 2 * C);
+  w.dg = cv.take<float>(px * C);
+  w.mu = cv.take<float>((size_t)N * HW);
+  w.rstd = cv.take<float>((size_t)N * HW);
+  w.dwpart = cv.take<float>((size_t)N * DX * kDwRed * C);
+  w.bpart = cv.take<float>((size_t)N * BX * 2 * C);
+  w.wpart = cv.take<float>((size_t)N * w.S * 2 * C * C);
+  return w;
+}
+
+cudaError_t launch_k4(const void* kernel, dim3 grid, size_t smem,
+                      const K4Mma& k, cudaStream_t s) {
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  void* args[] = {const_cast<K4Mma*>(&k)};
+  return cudaLaunchKernel(kernel, grid, dim3(kThreads), args, smem, s);
+}
+
+// The front and back kernels of a tile: P and resident weights as template
+// arguments, chosen from the run-time values.
+struct K4Kernels {
+  const void *front, *back;
+};
+
+template <int P>
+K4Kernels k4_kernels_p(int C) {
+  if (p2_resident(C))
+    return {(const void*)k4_front_kernel<P, true>,
+            (const void*)k4_back_kernel<P, true>};
+  return {(const void*)k4_front_kernel<P, false>,
+          (const void*)k4_back_kernel<P, false>};
+}
+
+K4Kernels k4_kernels(int C, int P) {
+  return P == 32 ? k4_kernels_p<32>(C)
+                 : P == 16 ? k4_kernels_p<16>(C) : k4_kernels_p<8>(C);
+}
+
+// Blocks of a kernel that the CUDA runtime places on one SM (-1: failed).
+int occupancy(const void* kernel, size_t smem) {
+  int blocks = 0;
+  if (smem > 0 && cudaFuncSetAttribute(
+                      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      (int)smem) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+cudaError_t run_p2_mma(const P2Args& a, int P, int BX, int DX,
+                       cudaStream_t s) {
+  const int C = a.C, N = a.N;
+  if (!p2_mma_ok(C, a.H, a.W, P, BX, DX) || !aligned16(a.W1) ||
+      !aligned16(a.W3))
+    return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const P2MmaWork w = carve_p2_mma(cv, N, C, a.H, a.W, P, BX, DX);
+
+  K4Mma k;
+  k.x = static_cast<const bf16*>(a.x);
+  k.dz = static_cast<const bf16*>(a.dz);
+  k.dgc = static_cast<const float*>(a.dgc);
+  k.att = static_cast<const float*>(a.att);
+  k.w1n = static_cast<const float*>(a.w1n);
+  k.b1n = static_cast<const float*>(a.b1n);
+  k.b1 = static_cast<const float*>(a.b1);
+  k.kdw = static_cast<const float*>(a.kdw);
+  k.bk = static_cast<const float*>(a.bk);
+  k.beta = static_cast<const float*>(a.beta);
+  k.W1 = static_cast<const bf16*>(a.W1);
+  k.W3 = static_cast<const bf16*>(a.W3);
+  k.dx = static_cast<bf16*>(a.dx);
+  k.h_o = w.h;
+  k.dt_o = w.dt;
+  k.t_o = w.t;
+  k.dg_o = w.dg;
+  k.mu_o = w.mu;
+  k.rstd_o = w.rstd;
+  k.dwpart = w.dwpart;
+  k.bpart = w.bpart;
+  k.C = C;
+  k.H = a.H;
+  k.W = a.W;
+  k.HW = (long long)a.H * a.W;
+  k.HWp = w.HWp;
+  k.tiles = w.tiles;
+  k.vec = k.HW % 8 == 0 && aligned16(a.x) && aligned16(a.dz);
+  k.eps = a.eps;
+
+  float* grads = static_cast<float*>(a.grads);
+  float* vec_d = grads + (size_t)2 * C * C;       // [11][2C]
+  float* vec_b = vec_d + (size_t)kBRed * 2 * C;   // [dw1n C | db1n C]
+  const K4Kernels ker = k4_kernels(C, P);
+  const dim3 grid((unsigned)BX, (unsigned)N);
+  cudaError_t err;
+  if ((err = launch_k4(ker.front, grid, k4_front_smem(C, P), k, s)))
+    return err;
+  if ((err = launch_k4((const void*)k4_dw_kernel,
+                       dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0, k,
+                       s)))
+    return err;
+  if ((err = launch_sum_rows(w.dwpart, vec_d, 1, N * DX,
+                             (long long)kDwRed * C, s)))
+    return err;
+  if ((err = launch_k4(ker.back, grid, k4_back_smem(C, P), k, s)))
+    return err;
+  if ((err = launch_sum_rows_split(w.bpart, vec_b, 1, N * BX, 2 * C, s)))
+    return err;
+
+  // dW1 = dt h^T: the one product of wgrad_mma_kernel (the other two
+  // products start past the last block)
+  WgradMma g;
+  const int wtiles = wgrad_tiles(2 * C, C);
+  g.prod[0] = {w.dt, w.h, 2 * C, C, 0, 0};
+  g.prod[1] = g.prod[2] = {w.dt, w.h, 2 * C, C, 0, wtiles};
+  g.part = w.wpart;
+  g.V = (long long)2 * C * C;
+  g.HWp = w.HWp;
+  g.L = w.L;
+  wgrad_mma_kernel<<<dim3((unsigned)wtiles, (unsigned)w.S, (unsigned)N),
+                     kThreads, 0, s>>>(g);
+  if ((err = cudaGetLastError())) return err;
+  return launch_sum_rows(w.wpart, grads, 1, N * w.S, g.V, s);
 }
 
 }  // namespace
@@ -1185,31 +1381,64 @@ int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
   return (int)run_p1(a, s);
 }
 
-// K4 pixels per block of its second kernel (0: does not fit).
-int nafblk_p2_pixels(int C) { return p2_pixels(C); }
+// Dynamic shared memory (bytes) of the bf16 K4's two pixel-tile kernels
+// with a tile of P pixels: the larger of the two.
+long long nafblk_p2_mma_smem(int C, int P) {
+  const size_t f = k4_front_smem(C, P), b = k4_back_smem(C, P);
+  return (long long)(f > b ? f : b);
+}
 
-// Workspace bytes nafblk_p2 needs.
-long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16) {
-  const int P = p2_pixels(C);
-  if (P == 0) return -1;
+// Blocks of the bf16 K4's pixel-tile kernels with a tile of P pixels that
+// share one SM of the current device, as the CUDA runtime counts them from
+// the built kernels: the fewer of the two (-1: the tile is not taken or a
+// call failed).
+int nafblk_p2_mma_blocks_per_sm(int C, int P) {
+  if (!p2_mma_ok(C, 1, P, P, 1, 1)) return -1;
+  const K4Kernels ker = k4_kernels(C, P);
+  const int f = occupancy(ker.front, k4_front_smem(C, P));
+  const int b = occupancy(ker.back, k4_back_smem(C, P));
+  return f < b ? f : b;
+}
+
+// Blocks of the bf16 K4's depthwise kernel that share one SM.
+int nafblk_p2_dw_blocks_per_sm() {
+  return occupancy((const void*)k4_dw_kernel, 0);
+}
+
+// Workspace bytes nafblk_p2 needs (-1: the shape or geometry is not taken).
+// tile, grid, dw_grid: the bf16 kernels' pixels per tile (8, 16 or 32),
+// blocks per image of the pixel-tile kernels and of the depthwise kernel;
+// unused in fp32.
+long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16,
+                              int tile, int grid, int dw_grid) {
   Carver cv{nullptr};
-  carve_p2(cv, N, C, H, W, P, is_bf16 ? 2 : 4);
+  if (is_bf16) {
+    if (!p2_mma_ok(C, H, W, tile, grid, dw_grid)) return -1;
+    carve_p2_mma(cv, N, C, H, W, tile, grid, dw_grid);
+  } else {
+    const int P = p2_pixels(C);
+    if (P == 0) return -1;
+    carve_p2(cv, N, C, H, W, P, sizeof(float));
+  }
   return (long long)cv.off;
 }
 
 // K4. x, dz, dx: [N, C, H*W] (fp32, or bf16 when is_bf16); dgc, att:
-// [N, C] fp32; grads: fp32 [dW1 2C*C | 11 x 2C: dkdw^T (9 rows), dbk, db1 |
-// dw1n C | db1n C]; ws: workspace. Requires C % 4 == 0.
+// [N, C] fp32; W1, W3: fp32, or bf16 when is_bf16; the vectors fp32;
+// grads: fp32 [dW1 2C*C | 11 x 2C: dkdw^T (9 rows), dbk, db1 | dw1n C |
+// db1n C]; ws: workspace. fp32 requires C % 4 == 0; bf16 requires
+// C % 16 == 0 and the geometry nafblk_p2_workspace takes.
 int nafblk_p2(const void* x, const void* dz, const void* dgc, const void* att,
               const void* w1n, const void* b1n, const void* W1, const void* b1,
               const void* kdw, const void* bk, const void* W3,
               const void* beta, void* dx, void* grads, void* ws, int N, int C,
-              int H, int W, float eps, int is_bf16, void* stream) {
+              int H, int W, float eps, int is_bf16, int tile, int grid,
+              int dw_grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const P2Args a{x, dz, dgc, att, w1n, b1n, W1, b1, kdw, bk, W3, beta,
                  dx, grads, ws, N, C, H, W, eps};
-  if (is_bf16) return (int)run_p2<__nv_bfloat16>(a, s);
-  return (int)run_p2<float>(a, s);
+  if (is_bf16) return (int)run_p2_mma(a, tile, grid, dw_grid, s);
+  return (int)run_p2(a, s);
 }
 
 }  // extern "C"

@@ -175,4 +175,41 @@ inline cudaError_t launch_sum_rows(const float* part, float* out, int O,
   return cudaGetLastError();
 }
 
+// The same sums for few columns and many rows (a few hundred partial rows
+// of a few hundred values): a block of 1024 threads takes 32 columns, its
+// 32 warps the rows r = w, w + 32, ... each in order, and the 32 warp sums
+// are added in order. Another fixed order than sum_rows', so as
+// deterministic.
+constexpr int kSplitWarps = 32;
+
+__global__ void __launch_bounds__(32 * kSplitWarps) sum_rows_split(
+    const float* __restrict__ part, float* __restrict__ out, int R,
+    long long V) {
+  __shared__ float red_s[kSplitWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long v = (long long)blockIdx.x * 32 + lane;
+  const int o = blockIdx.y;
+  float s = 0.f;
+  if (v < V) {
+    const float* p = part + (long long)o * R * V + v;
+#pragma unroll 8
+    for (int r = warp; r < R; r += kSplitWarps) s += p[(long long)r * V];
+  }
+  red_s[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && v < V) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSplitWarps; ++q) t += red_s[q][lane];
+    out[(long long)o * V + v] = t;
+  }
+}
+
+inline cudaError_t launch_sum_rows_split(const float* part, float* out, int O,
+                                         int R, long long V, cudaStream_t s) {
+  const dim3 grid((unsigned)((V + 31) / 32), (unsigned)O);
+  sum_rows_split<<<grid, 32 * kSplitWarps, 0, s>>>(part, out, R, V);
+  return cudaGetLastError();
+}
+
 }  // namespace nafblk

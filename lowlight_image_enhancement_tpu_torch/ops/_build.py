@@ -43,14 +43,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "nafblk_p1_mma_blocks_per_sm": (_I, [_I, _I, _I]),
         "nafblk_p1_workspace": (_L, [_I, _I, _I, _L, _I, _I, _I]),
         "nafblk_p1": (_I, [_P] * 18 + [_I, _I, _I, _L, _F, _I, _I, _I, _P]),
-        "nafblk_p2_pixels": (_I, [_I]),
-        "nafblk_p2_workspace": (_L, [_I, _I, _I, _I, _I]),
-        "nafblk_p2": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _I, _P]),
+        "nafblk_p2_mma_smem": (_L, [_I, _I]),
+        "nafblk_p2_mma_blocks_per_sm": (_I, [_I, _I]),
+        "nafblk_p2_dw_blocks_per_sm": (_I, []),
+        "nafblk_p2_workspace": (_L, [_I] * 8),
+        "nafblk_p2": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _I, _I, _I, _I,
+                                       _P]),
     },
     "layernorm": {
-        "ln_bwd_blocks": (_I, [_I, _L]),
+        "ln_bwd_blocks_per_sm": (_I, [_I, _I, _I]),
         "ln_fwd": (_I, [_P] * 6 + [_I, _I, _L, _F, _I, _I, _P]),
-        "ln_bwd": (_I, [_P] * 7 + [_I, _I, _L, _I, _P]),
+        "ln_bwd": (_I, [_P] * 7 + [_I, _I, _L, _I, _I, _I, _P]),
     },
     "pool": {
         "relu_pool_fwd": (_I, [_P, _P, _L, _I, _I, _I, _P]),

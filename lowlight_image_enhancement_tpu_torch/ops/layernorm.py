@@ -9,7 +9,9 @@ affine weight/bias per channel, result in the input's dtype.
 - :func:`layer_norm_2d` is the eager forward under autograd, the reference
   the fused NAFBlock kernels are held against (``NAFBlock.forward_eager``).
 - :func:`call_ln_fwd` (K5) and :func:`call_ln_bwd` (K6) work on the flat
-  view ``[N, C, H*W]``; :class:`LayerNorm2dFunction` joins them under
+  view ``[N, C, H*W]``, with the pixel tile and grid chosen here
+  (:func:`ln_fwd_tile`; :func:`ln_bwd_tile`, :func:`ln_bwd_grid`);
+  :class:`LayerNorm2dFunction` joins them under
   autograd, saving ``(xhat, rstd, weight)`` with ``xhat`` in fp32 as the
   TPU kernels do (the JAX jnp version rounds ``xhat`` to the activation
   dtype, so in bf16 its backward differs from this one).
@@ -125,8 +127,9 @@ def _residual(t: torch.Tensor, shape, like: torch.Tensor, name: str) -> None:
                          f"{like.device}")
 
 
-# blocks K5 aims for: two for each of the 132 SMs of an H100
-LN_FWD_BLOCKS = 264
+# SMs of an H100; blocks K5 aims for: two for each
+SM_COUNT = 132
+LN_FWD_BLOCKS = 2 * SM_COUNT
 
 
 def ln_fwd_tile(n: int, s: int) -> int:
@@ -167,6 +170,51 @@ def call_ln_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 call_ln_fwd.launches = 0
 
 
+# K6 (csrc/layernorm.cu:ln_bwd_kernel) keeps a thread's channels in
+# registers: C over the 256 / tile thread groups, rounded up to 4, 8, 16 or
+# 32 channels a thread. Up to this many channel-pixels a block (16 channels
+# a thread) the tile may be wide; above it K6 takes 8 pixels.
+LN_BWD_CHANNEL_PIXELS = 4096
+# Blocks of K6 that share an SM, by channels a thread (its registers):
+# chip_smoke.py holds the built kernel to at least these.
+LN_BWD_BLOCKS_BY_CHANNELS = {4: 4, 8: 3, 16: 2, 32: 1}
+
+
+def ln_bwd_channels(c: int, tile: int) -> int:
+    """Channels a thread of K6 takes (the kernel's register arrays): ``C``
+    over ``256 / tile`` groups, rounded up to 4, 8, 16 or 32; 0 above 32."""
+    per = -(-c // (256 // tile))
+    return next((k for k in (4, 8, 16, 32) if per <= k), 0)
+
+
+def ln_bwd_tile(n: int, c: int, s: int) -> int:
+    """Pixels per tile of K6 on ``[N, C, S]``: the widest of 32 and 16 that
+    keeps ``C * tile`` within :data:`LN_BWD_CHANNEL_PIXELS` and still gives
+    ``LN_FWD_BLOCKS`` tiles, else 8."""
+    for px in (32, 16):
+        if (c * px <= LN_BWD_CHANNEL_PIXELS
+                and n * -(-s // px) >= LN_FWD_BLOCKS):
+            return px
+    return 8
+
+
+def ln_bwd_blocks_per_sm(c: int, tile: int) -> int:
+    """Blocks of K6 that share an SM (:data:`LN_BWD_BLOCKS_BY_CHANNELS`)."""
+    return LN_BWD_BLOCKS_BY_CHANNELS[ln_bwd_channels(c, tile)]
+
+
+def one_round(n: int, s: int, tile: int, per_sm: int) -> int:
+    """Blocks per image of a kernel whose blocks walk an image's tiles of
+    ``tile`` pixels in strides: one round of ``per_sm`` blocks on each SM
+    over the card, no more than there are tiles."""
+    return max(1, min(SM_COUNT * per_sm // n, -(-s // tile)))
+
+
+def ln_bwd_grid(n: int, c: int, s: int, tile: int) -> int:
+    """Blocks per image of K6 (:func:`one_round`)."""
+    return one_round(n, s, tile, ln_bwd_blocks_per_sm(c, tile))
+
+
 def call_ln_bwd(g: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
                 w: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -179,17 +227,16 @@ def call_ln_bwd(g: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
     _residual(xhat, (n, c, s), g, "xhat")
     _residual(rstd, (n, s), g, "rstd")
     wf = _vector(w, g, "weight")
+    tile = ln_bwd_tile(n, c, s)
+    grid = ln_bwd_grid(n, c, s, tile)
     gx = torch.empty_like(g)
     gwb = torch.empty((2, c), device=g.device, dtype=torch.float32)
+    part = torch.empty((2, n * grid, c), device=g.device, dtype=torch.float32)
     lib = _build.load("layernorm")
-    part = torch.empty((2, lib.ln_bwd_blocks(n, s), c), device=g.device,
-                       dtype=torch.float32)
-    with torch.cuda.device(g.device):
-        rc = lib.ln_bwd(g.data_ptr(), xhat.data_ptr(), rstd.data_ptr(),
-                        wf.data_ptr(), gx.data_ptr(), part.data_ptr(),
-                        gwb.data_ptr(), n, c, s,
-                        int(g.dtype == torch.bfloat16),
-                        _build.current_stream(g))
+    rc = _build.launch(g, lib.ln_bwd, g.data_ptr(), xhat.data_ptr(),
+                       rstd.data_ptr(), wf.data_ptr(), gx.data_ptr(),
+                       part.data_ptr(), gwb.data_ptr(), n, c, s,
+                       int(g.dtype == torch.bfloat16), tile, grid)
     if rc != 0:
         raise RuntimeError(f"ln_bwd launch failed: CUDA error {rc}")
     call_ln_bwd.launches += 1

@@ -1,5 +1,6 @@
 """Fused NAFBlock: kernels K1/K2 (``csrc/nafblock_fwd.cu``), K3/K4
-(``csrc/nafblock_bwd.cu``, ``csrc/nafblock_p1_mma.cuh``) and their plain
+(``csrc/nafblock_bwd.cu``, ``csrc/nafblock_p1_mma.cuh``,
+``csrc/nafblock_p2_mma.cuh``) and their plain
 PyTorch versions.
 
 Counterpart of ``lowlight_image_enhancement_tpu/ops/pallas/nafblock.py``.
@@ -24,7 +25,9 @@ and its backward (:class:`NAFBlockFunction`, the counterpart of the JAX
 - the ``[N, C]`` SCA backward (:func:`sca_backward`), plain torch as in
   the JAX ``_vjp_bwd``;
 - K4 (:func:`call_p2`): recomputes LN1/conv1/depthwise from ``x`` and
-  returns ``dx`` and the first-half weight grads.
+  returns ``dx`` and the first-half weight grads (in bf16 on the tensor
+  cores, ``csrc/nafblock_p2_mma.cuh``, with the pixel tile chosen by
+  :func:`p2_tile`; in fp32 by FMA kernels).
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
@@ -46,6 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from lowlight_image_enhancement_tpu_torch.ops import _build
+from lowlight_image_enhancement_tpu_torch.ops.layernorm import (
+    SM_COUNT,
+    one_round,
+)
 from lowlight_image_enhancement_tpu_torch.ops.layernorm import (
     ln_input_grad as _ln_bwd,
 )
@@ -404,7 +411,6 @@ P1_TILES = (32, 16, 8)
 P1_SMEM_LIMIT = 232448 - 2048
 P1_SLAB_BYTES = 3 * 128 * 32 * 2
 P1_RESIDENT_MAX = 64
-SM_COUNT = 132
 SM_SMEM = 233472
 P1_BLOCKS_BY_REGISTERS = {False: 2, True: 3}  # ring / resident weights
 # A tile's time grows as overhead + pixels: the weight slabs a block walks
@@ -435,34 +441,37 @@ def p1_blocks_per_sm(c: int, f: int, tile: int) -> int:
     return min(by_regs, SM_SMEM // (p1_smem_bytes(c, f, tile) + 2048 + 1024))
 
 
-def p1_grid(n: int, c: int, f: int, s: int, tile: int) -> int:
-    """Blocks per image of the bf16 K3, each walking the image's tiles in
-    strides: one round of blocks over the card, no more than there are
-    tiles."""
-    per_image = SM_COUNT * p1_blocks_per_sm(c, f, tile) // n
-    return max(1, min(per_image, -(-s // tile)))
-
-
-def p1_tile(n: int, c: int, f: int, s: int) -> int:
-    """Pixels per block of the bf16 K3 on ``[N, C, S]``: of the tiles that
-    fit in shared memory, the one with the least ``waves * (overhead +
-    pixels)``, where a wave is one round of blocks over the card
-    (:func:`p1_blocks_per_sm` on each SM); the wider tile on a tie. While
+def _least_waves_tile(n: int, s: int, smem, per_sm) -> int:
+    """Of the tiles whose ``smem(tile)`` fits, the one with the least
+    ``waves * (overhead + pixels)``, where a wave is one round of
+    ``per_sm(tile)`` blocks on each SM; the wider tile on a tie. While
     everything fits in one wave that is the narrowest tile, so a small
-    image still spreads over the SMs. 0 when no tile fits or ``C``, ``F``
-    are no multiples of 16 (the depth of one tensor-core step)."""
-    if c % 16 or f % 16:
-        return 0
+    image still spreads over the SMs. 0 when no tile fits."""
     best, best_cost = 0, None
     for t in P1_TILES:
-        if p1_smem_bytes(c, f, t) > P1_SMEM_LIMIT:
+        if smem(t) > P1_SMEM_LIMIT:
             continue
-        per_wave = SM_COUNT * p1_blocks_per_sm(c, f, t)
-        waves = -(-(n * -(-s // t)) // per_wave)
+        waves = -(-(n * -(-s // t)) // (SM_COUNT * per_sm(t)))
         cost = waves * (P1_TILE_OVERHEAD + t)
         if best_cost is None or cost < best_cost:
             best, best_cost = t, cost
     return best
+
+
+def p1_grid(n: int, c: int, f: int, s: int, tile: int) -> int:
+    """Blocks per image of the bf16 K3 (``layernorm.one_round``)."""
+    return one_round(n, s, tile, p1_blocks_per_sm(c, f, tile))
+
+
+def p1_tile(n: int, c: int, f: int, s: int) -> int:
+    """Pixels per block of the bf16 K3 on ``[N, C, S]``
+    (:func:`_least_waves_tile` over :func:`p1_smem_bytes` and
+    :func:`p1_blocks_per_sm`). 0 when no tile fits or ``C``, ``F`` are no
+    multiples of 16 (the depth of one tensor-core step)."""
+    if c % 16 or f % 16:
+        return 0
+    return _least_waves_tile(n, s, lambda t: p1_smem_bytes(c, f, t),
+                             lambda t: p1_blocks_per_sm(c, f, t))
 
 
 def rounded_matrices(p: Params, dt: torch.dtype) -> Params:
@@ -535,11 +544,78 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
 call_p1.launches = 0
 
 
+# Geometry of the bf16 K4 (csrc/nafblock_p2_mma.cuh): its two pixel-tile
+# kernels take the tiles of K3 (32, 16 or 8 pixels, bf16 rows padded by 8
+# above 8 pixels) and keep, beside the tile, W1 and W3 (rows padded by 8)
+# in shared memory up to 64 channels, else the ring of three weight slabs.
+#   front: x fp32 [C][tile], h then beta*dz bf16 [C][rows], W1 + W3
+#   back:  dt bf16 [2C][rows], xhat and dh fp32 [C][tile] each, W1
+# The depthwise kernel takes 2-D tiles of 32 x 32 pixels and one channel
+# pair a block. chip_smoke.py holds p2_smem_bytes against the kernels' own
+# sums and p2_blocks_per_sm / P2_DW_BLOCKS_PER_SM against the occupancy
+# the CUDA runtime reports for the built kernels.
+P2_RESIDENT_MAX = 64
+# Blocks of the pixel-tile kernels that their registers allow on an SM, by
+# (resident weights, tile), as the CUDA runtime counts them for the built
+# kernels on an H100 (the fewer of front and back)
+P2_BLOCKS_BY_REGISTERS = {(False, 32): 2, (False, 16): 2, (False, 8): 3,
+                          (True, 32): 3, (True, 16): 3, (True, 8): 4}
+P2_DW_TILE = (32, 32)
+P2_DW_BLOCKS_PER_SM = 3
+
+
+def p2_smem_bytes(c: int, tile: int) -> int:
+    """Dynamic shared memory of the bf16 K4's pixel-tile kernels with
+    ``tile`` pixels: the larger of the front and the back kernel's."""
+    ldb = tile if tile == 8 else tile + 8
+    resident = c <= P2_RESIDENT_MAX
+    front_w = 3 * c * (c + 8) * 2 if resident else P1_SLAB_BYTES
+    back_w = 2 * c * (c + 8) * 2 if resident else P1_SLAB_BYTES
+    front = c * tile * 4 + c * ldb * 2 + front_w
+    back = 2 * c * ldb * 2 + 2 * c * tile * 4 + back_w
+    return max(front, back)
+
+
+def p2_blocks_per_sm(c: int, tile: int) -> int:
+    """Blocks of the bf16 K4's pixel-tile kernels that share an SM: as many
+    as their registers and shared memory (dynamic, 2 KB static, 1 KB
+    reserved) allow."""
+    by_regs = P2_BLOCKS_BY_REGISTERS[c <= P2_RESIDENT_MAX, tile]
+    return min(by_regs, SM_SMEM // (p2_smem_bytes(c, tile) + 2048 + 1024))
+
+
+def p2_tile(n: int, c: int, s: int) -> int:
+    """Pixels per tile of the bf16 K4 on ``[N, C, S]``, chosen as K3's
+    (:func:`_least_waves_tile` over :func:`p2_smem_bytes` and
+    :func:`p2_blocks_per_sm`). 0 when no tile fits or ``C`` is no
+    multiple of 16."""
+    if c % 16:
+        return 0
+    return _least_waves_tile(n, s, lambda t: p2_smem_bytes(c, t),
+                             lambda t: p2_blocks_per_sm(c, t))
+
+
+def p2_grid(n: int, c: int, s: int, tile: int) -> int:
+    """Blocks per image of the bf16 K4's pixel-tile kernels
+    (``layernorm.one_round``)."""
+    return one_round(n, s, tile, p2_blocks_per_sm(c, tile))
+
+
+def p2_dw_grid(n: int, c: int, h: int, w: int) -> int:
+    """Blocks per (image, channel pair) of the bf16 K4's depthwise kernel,
+    each walking that pair's 2-D tiles in strides: one round of blocks
+    over the card, no more than there are tiles."""
+    tiles = -(-h // P2_DW_TILE[0]) * -(-w // P2_DW_TILE[1])
+    return max(1, min(tiles, SM_COUNT * P2_DW_BLOCKS_PER_SM // (n * c)))
+
+
 def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
             att: torch.Tensor, p: Params, hw: Tuple[int, int],
             eps: float = 1e-6):
     """K4 on ``x, dz: [N, C, H*W]``, ``dgc, att: [N, C]`` -> ``(dx,
-    grads)``; plain version on CPU."""
+    grads)``; plain version on CPU. In bf16 W1 and W3 go to the tensor
+    cores as bf16 (as :class:`NAFBlockFunction` hands them over, with no
+    conversion)."""
     if not x.is_cuda:
         return plain_p2(x, dz, dgc, att, p, hw, eps)
     n, c, s = x.shape
@@ -553,22 +629,32 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
     _check_cuda(x, p, _P2_PARAMS)
     lib = _build.load("nafblock_bwd")
     bf16 = int(x.dtype == torch.bfloat16)
-    ws_bytes = lib.nafblk_p2_workspace(n, c, h, w, bf16)
+    tile = p2_tile(n, c, s) if bf16 else 0
+    if bf16 and tile == 0:
+        raise ValueError(
+            f"K4 in bf16 needs C to be a multiple of 16 and "
+            f"{p2_smem_bytes(c, P1_TILES[-1])} bytes of shared memory for a "
+            f"tile of {P1_TILES[-1]} pixels (the limit is {P1_SMEM_LIMIT}); "
+            f"got C={c}")
+    grid = p2_grid(n, c, s, tile) if tile else 0
+    dw_grid = p2_dw_grid(n, c, h, w) if tile else 0
+    ws_bytes = lib.nafblk_p2_workspace(n, c, h, w, bf16, tile, grid, dw_grid)
     if ws_bytes < 0:
         raise ValueError(f"K4 keeps 4C x 8 fp32 values per block in shared "
                          f"memory; C={c} does not fit")
-    args = _kernel_args(p, _P2_PARAMS, _compute_dtype(x))
+    cdt = _compute_dtype(x)
+    args = _kernel_args(p, _P2_PARAMS, cdt, matrices=cdt)
     dgc = dgc.detach().float().contiguous()
     att = att.detach().float().contiguous()
     dx = torch.empty_like(dz)
     grads = torch.empty(2 * c * c + 24 * c, device=x.device,
                         dtype=torch.float32)
     ws = torch.empty(ws_bytes, device=x.device, dtype=torch.uint8)
-    with torch.cuda.device(x.device):
-        rc = lib.nafblk_p2(x.data_ptr(), dz.data_ptr(), dgc.data_ptr(),
-                           att.data_ptr(), *[t.data_ptr() for t in args],
-                           dx.data_ptr(), grads.data_ptr(), ws.data_ptr(),
-                           n, c, h, w, float(eps), bf16, _stream(x))
+    rc = _build.launch(x, lib.nafblk_p2, x.data_ptr(), dz.data_ptr(),
+                       dgc.data_ptr(), att.data_ptr(),
+                       *[t.data_ptr() for t in args], dx.data_ptr(),
+                       grads.data_ptr(), ws.data_ptr(), n, c, h, w,
+                       float(eps), bf16, tile, grid, dw_grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_p2 launch failed: CUDA error {rc}")
     call_p2.launches += 1
