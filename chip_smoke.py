@@ -13,7 +13,12 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    the card, at every width of a 512x512, N=2 forward (C=32@512^2 ...
    C=512@32^2) and at the width-64 configuration's C=1024@32^2, in fp32
    and bf16, and times kernel and plain version (CUDA events, median
-   after warm-up) beside the bound from bytes and FLOPs;
+   after warm-up) beside the bound from bytes and FLOPs. In bf16 (the
+   tensor-core route) K1's two stages are held apart -- its fp32 ``t``
+   against ``plain_a_front`` and its g and sums against ``plain_a_dw`` of
+   that ``t`` -- here and at every shape of the backward phase; the FMA
+   route runs at a bf16 C=24 (no multiple of 16), and a ``dw_expand=1``
+   block must run unfused on the card;
 4. backward kernel phase: the same for K1, K2, K3 (``nafblk_p1``), K4
    (``nafblk_p2``) and the whole block backward (``NAFBlockFunction`` vs
    the plain backward) at every width of a 384x384, N=2 training crop
@@ -25,14 +30,17 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    full depth: 36 NAFBlocks) in bf16 with seeded random weights answers 8
    mixed-size requests (one through the tiled path); checks shapes,
    finiteness, that every NAFBlock forward went through K1+K2 (launch
-   counts), and one request against the model's eager (plain) path;
+   counts) on the tensor-core route (the device kernels of one request
+   under the profiler), and one request against the model's eager
+   (plain) path;
 6. training phase: the train step of ``configs/sid_newbp_mono_selfcontained
    .yml`` (``NewBPNAFNet`` in bf16, ``HybridLossPlus`` with the random
    bf16 VGG19 trunk, AdamW + clip 0.01 on the cosine schedule) on one
    seeded synthetic 2x3x384x384 batch: 1 warm-up and 3 timed steps;
-   checks finite logs, 36 launches of each of K1-K4 per step, a falling
-   loss, fp32 gradients through the kernels against the eager block path,
-   and one eval forward;
+   checks finite logs, 36 launches of each of K1-K4 per step, K1/K2 on
+   the tensor-core route in the traced step, a falling loss, fp32
+   gradients through the kernels against the eager block path, and one
+   eval forward;
 7. LayerNorm and pool kernel phase: holds K5 (``ln_fwd``), K6 (``ln_bwd``),
    K7 (``relu_pool_fwd``) and K8 (``pool_bwd``, with and without the relu)
    against their plain versions in fp32 and bf16: the LN kernels at the
@@ -64,8 +72,8 @@ Every kernel row carries two times: ``ms``, CUDA events around the
 wrapper (host time included), and ``device_ms``, the kernel's own device
 kernels read by ``torch.profiler`` ("not measured" where the profiler
 shows no device time or keeps losing records), with the split by device
-kernel (K3, K4 and K6 print it). K3, K4 and K6 are called twice at every
-shape and must give the same bits; the tile arithmetic of the K3 and K4
+kernel (K1-K4 and K6 print it). K1-K4 and K6 are called twice at every
+shape and must give the same bits; the tile arithmetic of the K1-K4
 wrappers is held against the built kernels' shared memory and occupancy,
 and K6's blocks per SM against the built kernel's occupancy; K4 in bf16
 must refuse C=8. After the timed steps of every training path one more
@@ -394,46 +402,146 @@ def show(checks, c, side, dt):
         check(rel <= tol, f"{name} C={c} {dt}: rel {rel} > {tol}")
 
 
+def hold_forward_geometry(c: int) -> None:
+    """The K1/K2 wrappers' tile arithmetic against the built kernels:
+    shared memory as the kernels sum it at every tile that fits, and the
+    blocks-per-SM tables (which the CPU tests of the geometry read; the
+    wrappers on CUDA ask the built kernels) against the runtime's count,
+    K1's depthwise kernel's too."""
+    if c % 16:
+        return
+    lib = _build.load("nafblock_fwd")
+    for tile in ops.P1_TILES:
+        for what, smem, per_sm, built, runtime in (
+                ("K1 front", ops.k1_smem_bytes(c, tile),
+                 ops.k1_blocks_per_sm(c, tile), lib.nafblk_a_mma_smem(c, tile),
+                 lib.nafblk_a_mma_blocks_per_sm(c, tile)),
+                ("K2", ops.k2_smem_bytes(c, c, tile),
+                 ops.k2_blocks_per_sm(c, c, tile),
+                 lib.nafblk_b_mma_smem(c, c, tile),
+                 lib.nafblk_b_mma_blocks_per_sm(c, c, tile))):
+            if smem > ops.P1_SMEM_LIMIT:
+                continue
+            print(f"  {what} bf16 C={c:4d} tile {tile:2d}: {smem} bytes of "
+                  f"shared memory, {runtime} blocks per SM")
+            check(built == smem and runtime == per_sm,
+                  f"{what} C={c} tile {tile}: ops/nafblock.py counts {smem} "
+                  f"bytes and {per_sm} blocks per SM, the built kernel "
+                  f"{built} and {runtime}")
+    dw = lib.nafblk_a_dw_blocks_per_sm()
+    check(dw == ops.K1_DW_BLOCKS_PER_SM, f"K1 depthwise kernel: {dw} blocks "
+          f"per SM, ops/nafblock.py counts {ops.K1_DW_BLOCKS_PER_SM}")
+
+
+def forward_checks(x, p, pk, hw, dt) -> tuple:
+    """K1 and K2 on ``x`` against their plain versions: ``(checks, g,
+    sums, att)`` with ``g, sums`` the plain K1's and ``att`` the SCA
+    attention from them (K2's input). ``pk`` holds the matrices as
+    NAFBlockFunction hands them over. On the tensor-core route K1's two
+    stages are held apart (the depthwise stage on the kernel's own ``t``);
+    every kernel is called twice and must give equal bits."""
+    n, c, s = x.shape
+    mma = ops.k1_geometry(dt, n, c, *hw)[0] > 0
+    with torch.no_grad():
+        out_k1 = ops.call_a(x, pk, hw, return_t=mma)
+        g_2, sums_2 = ops.call_a(x, pk, hw)
+        g, sums = ops.plain_a(x, p, hw)
+        att = ops.sca_attention(sums, p, s)
+        out_k = ops.call_b(x, g, att, pk)
+        out_2 = ops.call_b(x, g, att, pk)
+        out_p = ops.plain_b(x, g, att, p)
+        if mma:
+            t_p = ops.plain_a_front(x, p)
+            g_d, sums_d = ops.plain_a_dw(out_k1[2], p, hw, dt)
+    torch.cuda.synchronize()
+    g_k, sums_k = out_k1[:2]
+    # no float atomics in K1 or K2: a second call gives the same bits
+    check(torch.equal(g_k, g_2) and torch.equal(sums_k, sums_2),
+          f"K1 C={c} {hw} {dt}: two calls differ")
+    check(torch.equal(out_k, out_2), f"K2 C={c} {hw} {dt}: two calls differ")
+    # the SCA means against max|mean| of the reference's own
+    checks = {"nafblk_a": err(g_k, g), "sca_mean": err(sums_k / s, sums / s)}
+    if mma:
+        checks["a.front t"] = err(out_k1[2], t_p)
+        checks["a.dw g"] = err(g_k, g_d)
+        checks["a.dw mean"] = err(sums_k / s, sums_d / s)
+    checks["nafblk_b"] = err(out_k, out_p)
+    return checks, g, sums, att
+
+
 def forward_phase(gen: torch.Generator, rows: dict) -> None:
     widths = [(c, s, n, "serve") for c, s, n in MAIN_PATH]
     widths.append((*WIDE, 0, "w64"))
     for c, side, nblk, path in widths:
         hw = side * side
+        shw = (side, side)
+        hold_forward_geometry(c)
         blk = NAFBlock(c).cuda()
         randomize_(blk, gen, 1.0)
         p = blk.packed()
         x32 = torch.randn((BATCH, c, hw), generator=gen, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
             x = x32.to(dt)
+            pk = ops.rounded_matrices(p, dt)
+            checks, g_p, _, att = forward_checks(x, p, pk, shw, dt)
             with torch.no_grad():
-                g_k, sums_k = ops.call_a(x, p, (side, side))
-                g_p, sums_p = ops.plain_a(x, p, (side, side))
-                att = ops.sca_attention(sums_p, p, hw)
-                out_k = ops.call_b(x, g_p, att, p)
-                out_p = ops.plain_b(x, g_p, att, p)
-                blk_k = ops.nafblock_fwd(x, p, (side, side))
-                blk_p = ops.nafblock_fwd_reference(x, p, (side, side))
+                blk_k = ops.nafblock_fwd(x, p, shw)
+                blk_p = ops.nafblock_fwd_reference(x, p, shw)
             torch.cuda.synchronize()
-            gmax = g_p.float().abs().max().item()
-            checks = {
-                "nafblk_a": err(g_k, g_p),
-                "sca_mean": err(sums_k / hw, sums_p / hw, scale=gmax),
-                "nafblk_b": err(out_k, out_p),
-                "block": err(blk_k, blk_p),
-            }
+            checks["block"] = err(blk_k, blk_p)
             show(checks, c, side, dt)
             with torch.no_grad():
                 t = {
-                    "nafblk_a": timed(
-                        lambda: ops.call_a(x, p, (side, side)),
-                        lambda: ops.plain_a(x, p, (side, side))),
-                    "nafblk_b": timed(
-                        lambda: ops.call_b(x, g_p, att, p),
-                        lambda: ops.plain_b(x, g_p, att, p)),
+                    "nafblk_a": timed(lambda: ops.call_a(x, pk, shw),
+                                      lambda: ops.plain_a(x, p, shw)),
+                    "nafblk_b": timed(lambda: ops.call_b(x, g_p, att, pk),
+                                      lambda: ops.plain_b(x, g_p, att, p)),
                 }
             for k, times in t.items():
                 report(k, rows, c, side, dt, nblk, checks[k][0], *times, path)
+            show_split(f"K1 {str(dt)[6:]} N={BATCH} C={c} {side}x{side}",
+                       t["nafblk_a"][2])
+            show_split(f"K2 {str(dt)[6:]} N={BATCH} C={c} {side}x{side}",
+                       t["nafblk_b"][2])
         del blk, x32
+    fma_route_in_bf16(gen)
+    dw_expand_block_runs_unfused(gen)
+
+
+def fma_route_in_bf16(gen: torch.Generator) -> None:
+    """K1 and K2 in bf16 at a C that is no multiple of 16 take the FMA
+    kernels of the first port, and agree with their plain versions."""
+    n, c, side = BATCH, 24, 64
+    check(ops.k1_geometry(torch.bfloat16, n, c, side, side) == (0, 0, 0)
+          and ops.k2_geometry(torch.bfloat16, n, c, c, side * side) == (0, 0),
+          "bf16 C=24 must take the FMA route")
+    blk = NAFBlock(c).cuda()
+    randomize_(blk, gen, 1.0)
+    p = blk.packed()
+    x = torch.randn((n, c, side * side), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    checks, *_ = forward_checks(x, p, ops.rounded_matrices(p, torch.bfloat16),
+                                (side, side), torch.bfloat16)
+    show(checks, c, f"{side}x{side} FMA route", torch.bfloat16)
+
+
+def dw_expand_block_runs_unfused(gen: torch.Generator) -> None:
+    """A block with dw_expand=1, which the JAX package leaves unfused, runs
+    its module graph on the card: no K1/K2 launch, the eager output."""
+    blk = NAFBlock(32, dw_expand=1).cuda()
+    randomize_(blk, gen, 1.0)
+    x = torch.randn((BATCH, 32, 64, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    reset_launches()
+    with torch.no_grad():
+        y = blk(x)
+        y_eager = blk.forward_eager(x)
+    torch.cuda.synchronize()
+    expect_launches(launches(), "dw_expand=1 block")
+    check(torch.equal(y, y_eager) and bool(torch.isfinite(y).all()),
+          "dw_expand=1 block: output is not the eager path's")
+    print(f"  NAFBlock(32, dw_expand=1) bf16 {tuple(x.shape)}: the module "
+          f"graph, no K1/K2 launch")
 
 
 def backward_phase(gen: torch.Generator, rows: dict) -> None:
@@ -475,20 +583,17 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                   and per_sm == ops.p2_blocks_per_sm(c, tile),
                   f"K4 C={c} tile {tile}: ops/nafblock.py counts {smem} bytes "
                   f"and {ops.p2_blocks_per_sm(c, tile)} blocks per SM")
+        hold_forward_geometry(c)
         x32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         d32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
             x, dout = x32.to(dt), d32.to(dt)
-            # K3 and K4 get their matrices as NAFBlockFunction hands them over
+            # the kernels get their matrices as NAFBlockFunction hands them
+            # over
             pk = ops.rounded_matrices(p, dt)
-            checks = {}
+            checks, g, sums, att = forward_checks(x, p, pk, shw, dt)
+            m = sums / hw
             with torch.no_grad():
-                g_k, _ = ops.call_a(x, p, shw)
-                g, sums = ops.plain_a(x, p, shw)
-                att = ops.sca_attention(sums, p, hw)
-                m = sums / hw
-                out_k = ops.call_b(x, g, att, p)
-                out_p = ops.plain_b(x, g, att, p)
                 dz_k, da_k, gk = ops.call_p1(x, g, dout, att, pk)
                 dz_2, da_2, gk_2 = ops.call_p1(x, g, dout, att, pk)
                 dz, da, gp = ops.plain_p1(x, g, dout, att, p)
@@ -505,8 +610,6 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                   and all(torch.equal(g1k[k], g1k_2[k]) for k in g1k),
                   f"K4 C={c} {dt}: two calls differ")
             del dz_2, da_2, gk_2, dx_2, g1k_2
-            checks["nafblk_a"] = err(g_k, g)
-            checks["nafblk_b"] = err(out_k, out_p)
             checks["nafblk_p1"] = err(dz_k, dz)
             checks["p1.da"] = err(da_k, da)
             checks.update({f"p1.d{k}": err(gk[k], gp[k]) for k in gp})
@@ -527,9 +630,9 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
             show(checks, c, f"{side}x{wide} N={n}", dt)
             with torch.no_grad():
                 t = {
-                    "nafblk_a": timed(lambda: ops.call_a(x, p, shw),
+                    "nafblk_a": timed(lambda: ops.call_a(x, pk, shw),
                                       lambda: ops.plain_a(x, p, shw)),
-                    "nafblk_b": timed(lambda: ops.call_b(x, g, att, p),
+                    "nafblk_b": timed(lambda: ops.call_b(x, g, att, pk),
                                       lambda: ops.plain_b(x, g, att, p)),
                     "nafblk_p1": timed(
                         lambda: ops.call_p1(x, g, dout, att, pk),
@@ -541,8 +644,10 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
             for k, times in t.items():
                 report(k, rows, c, side, dt, nblk, checks[k][0], *times, path,
                        n, shw)
-            show_split(f"K3 {str(dt)[6:]} N={n} C={c} {side}x{wide}",
-                       t["nafblk_p1"][2])
+            for tag, k in (("K1", "nafblk_a"), ("K2", "nafblk_b"),
+                           ("K3", "nafblk_p1")):
+                show_split(f"{tag} {str(dt)[6:]} N={n} C={c} {side}x{wide}",
+                           t[k][2])
             show_split(f"K4 {str(dt)[6:]} N={n} C={c} {side}x{wide}",
                        t["nafblk_p2"][2])
         del blk, x32, d32
@@ -619,7 +724,27 @@ def served_err(what: str, dt: torch.dtype, got, ref) -> float:
     return worst
 
 
+# the device kernels of K1 and K2 on the bf16 tensor-core route, and of
+# the FMA route that a bf16 block of the main paths must not take
+K12_TENSOR_CORES = ("nafblk::k1_front_kernel", "nafblk::k1_dw_kernel",
+                    "nafblk::k2_mma_kernel")
+K12_FMA = ("k1_kernel", "k2_kernel")
+
+
+def expect_tensor_core_route(names, what: str) -> None:
+    """The bf16 NAFBlocks ran K1 and K2 on the tensor cores: every device
+    kernel of that route is among ``names``, none of the FMA route's."""
+    missing = [k for k in K12_TENSOR_CORES if k not in names]
+    fma = [k for k in K12_FMA if k in names]
+    check(not missing and not fma, f"{what}: K1/K2 device kernels "
+          f"{missing} missing, FMA kernels {fma} ran")
+    print(f"{what}: K1/K2 ran as {', '.join(K12_TENSOR_CORES)}; none of "
+          f"{', '.join(K12_FMA)}")
+
+
 def serving_phase(gen: torch.Generator) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
     net = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
                          device="cuda")
     check(len(net.blocks()) == 36, "NewBPNAFNet must hold 36 NAFBlocks")
@@ -627,6 +752,12 @@ def serving_phase(gen: torch.Generator) -> dict:
     res = serve_mix(net, "NewBPNAFNet", nafblk_a=36, nafblk_b=36)
     server, images = res.pop("server"), res.pop("images")
     del res["outputs"]
+    # one served request under the profiler: the device kernels it ran
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        server.predict(images[:1])
+        torch.cuda.synchronize()
+    expect_tensor_core_route(device_records(prof.key_averages()),
+                             "NewBPNAFNet served 512x512 request")
 
     # the same request on the model's plain (eager) path on the card
     probe = [images[SERVE_SHAPES.index((256, 384))]]
@@ -753,7 +884,7 @@ def traced_step(what: str, step, state, batch, untraced_ms: float) -> dict:
         print(f"{what} traced step: the profiler shows no device time")
         return {"device_busy_ms": "not measured",
                 "device_idle_share": "not measured", "device_top": {},
-                "kernel_records": [recorded, launched]}
+                "device_kernels": [], "kernel_records": [recorded, launched]}
     totals = {k: t / 1e3 for k, (_, t) in records.items()}
     busy = sum(totals.values())
     top = dict(sorted(totals.items(), key=lambda kv: -kv[1])[:12])
@@ -765,6 +896,7 @@ def traced_step(what: str, step, state, batch, untraced_ms: float) -> dict:
           + ", ".join(f"{k} {v:.2f}" for k, v in top.items()))
     return {"device_busy_ms": busy,
             "device_idle_share": 1 - busy / untraced_ms, "device_top": top,
+            "device_kernels": sorted(records),
             "kernel_records": [recorded, launched]}
 
 
@@ -818,6 +950,7 @@ def training_phase() -> dict:
     batch = flagship_batch()
     four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
     res = run_steps("NewBPNAFNet", step, state, batch, **four)
+    expect_tensor_core_route(res["device_kernels"], "NewBPNAFNet traced step")
 
     # fp32 gradients through the kernels vs the eager block path
     amp_dt = net.dtype

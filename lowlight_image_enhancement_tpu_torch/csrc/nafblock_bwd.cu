@@ -133,24 +133,6 @@ namespace {
 
 using namespace nafblk;
 
-// Dynamic shared memory a block may use beside a 2 KB static buffer.
-constexpr long long kSmemLimit = 232448 - 2048;
-
-// ---------------------------------------------------------------------------
-// Workspace carving (the same walk sizes and splits the workspace)
-// ---------------------------------------------------------------------------
-
-struct Carver {
-  char* base;
-  size_t off = 0;
-  template <typename U> U* take(size_t count) {
-    off = (off + 255) & ~size_t(255);
-    U* p = base ? reinterpret_cast<U*>(base + off) : nullptr;
-    off += count * sizeof(U);
-    return p;
-  }
-};
-
 // ---------------------------------------------------------------------------
 // Weight-gradient products: out[i, j] = sum over n, p of A[n, i, p] B[n, j, p]
 // ---------------------------------------------------------------------------
@@ -691,10 +673,6 @@ int k3_mma_occupancy(int C, int F) {
                         : k3_mma_occupancy_as<P, false>(smem);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 cudaError_t run_p1_mma(const P1Args& a, int P, int BX, cudaStream_t s) {
   const int C = a.C, F = a.F, N = a.N;
   if (!p1_mma_ok(C, F, a.HW, P, BX) || !aligned16(a.W3) || !aligned16(a.W4) ||
@@ -1200,17 +1178,6 @@ P2MmaWork carve_p2_mma(Carver& cv, int N, int C, int H, int W, int P, int BX,
   return w;
 }
 
-cudaError_t launch_k4(const void* kernel, dim3 grid, size_t smem,
-                      const K4Mma& k, cudaStream_t s) {
-  if (smem > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  void* args[] = {const_cast<K4Mma*>(&k)};
-  return cudaLaunchKernel(kernel, grid, dim3(kThreads), args, smem, s);
-}
-
 // The front and back kernels of a tile: P and resident weights as template
 // arguments, chosen from the run-time values.
 struct K4Kernels {
@@ -1229,19 +1196,6 @@ K4Kernels k4_kernels_p(int C) {
 K4Kernels k4_kernels(int C, int P) {
   return P == 32 ? k4_kernels_p<32>(C)
                  : P == 16 ? k4_kernels_p<16>(C) : k4_kernels_p<8>(C);
-}
-
-// Blocks of a kernel that the CUDA runtime places on one SM (-1: failed).
-int occupancy(const void* kernel, size_t smem) {
-  int blocks = 0;
-  if (smem > 0 && cudaFuncSetAttribute(
-                      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                      (int)smem) != cudaSuccess)
-    return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
-                                                    smem) != cudaSuccess)
-    return -1;
-  return blocks;
 }
 
 cudaError_t run_p2_mma(const P2Args& a, int P, int BX, int DX,
@@ -1290,16 +1244,16 @@ cudaError_t run_p2_mma(const P2Args& a, int P, int BX, int DX,
   const K4Kernels ker = k4_kernels(C, P);
   const dim3 grid((unsigned)BX, (unsigned)N);
   cudaError_t err;
-  if ((err = launch_k4(ker.front, grid, k4_front_smem(C, P), k, s)))
+  if ((err = launch_kernel(ker.front, grid, k4_front_smem(C, P), k, s)))
     return err;
-  if ((err = launch_k4((const void*)k4_dw_kernel,
-                       dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0, k,
-                       s)))
+  if ((err = launch_kernel((const void*)k4_dw_kernel,
+                           dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0,
+                           k, s)))
     return err;
   if ((err = launch_sum_rows(w.dwpart, vec_d, 1, N * DX,
                              (long long)kDwRed * C, s)))
     return err;
-  if ((err = launch_k4(ker.back, grid, k4_back_smem(C, P), k, s)))
+  if ((err = launch_kernel(ker.back, grid, k4_back_smem(C, P), k, s)))
     return err;
   if ((err = launch_sum_rows_split(w.bpart, vec_b, 1, N * BX, 2 * C, s)))
     return err;

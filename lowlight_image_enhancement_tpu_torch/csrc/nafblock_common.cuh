@@ -1,7 +1,9 @@
-// Device helpers shared by the fused NAFBlock kernels (nafblock_fwd.cu,
+// Helpers shared by the fused NAFBlock kernels (nafblock_fwd.cu,
 // nafblock_bwd.cu): type conversion, rounding of matrix-product operands
-// to the compute type, warp/group sums and the two weight-times-smem row
-// products the per-pixel kernels are built from.
+// to the compute type, warp/group sums, the two weight-times-smem row
+// products the per-pixel kernels are built from, the fixed-order row sums,
+// and on the host the shared-memory limit, workspace carving and the
+// runtime's occupancy count.
 //
 // Per-pixel kernels keep activations in shared memory as [channels][P]
 // (P pixels of one image, channel-major), one pixel per lane of a P-lane
@@ -12,9 +14,58 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace nafblk {
 
 constexpr int kThreads = 256;
+
+// Dynamic shared memory a block may use beside a 2 KB static buffer.
+constexpr long long kSmemLimit = 232448 - 2048;
+
+// Workspace carving: the same walk sizes and splits a workspace.
+struct Carver {
+  char* base;
+  size_t off = 0;
+  template <typename U> U* take(size_t count) {
+    off = (off + 255) & ~size_t(255);
+    U* p = base ? reinterpret_cast<U*>(base + off) : nullptr;
+    off += count * sizeof(U);
+    return p;
+  }
+};
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Launches kernel(k) on grid x kThreads threads with smem bytes of dynamic
+// shared memory, the kernel's limit raised to them first: every kernel
+// that takes its arguments as one struct.
+template <typename Args>
+inline cudaError_t launch_kernel(const void* kernel, dim3 grid, size_t smem,
+                                 const Args& k, cudaStream_t s) {
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  void* args[] = {const_cast<Args*>(&k)};
+  return cudaLaunchKernel(kernel, grid, dim3(kThreads), args, smem, s);
+}
+
+// Blocks of a kernel that the CUDA runtime places on one SM (-1: failed).
+inline int occupancy(const void* kernel, size_t smem) {
+  int blocks = 0;
+  if (smem > 0 && cudaFuncSetAttribute(
+                      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      (int)smem) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }

@@ -1,9 +1,10 @@
 // Fused NAFBlock forward for Hopper (sm_90a): kernels K1 (nafblk_a) and K2
 // (nafblk_b), bound to Python through a plain C interface (ctypes).
 //
-// Layout: activations are contiguous NCHW viewed as [N, C, H*W]; weights are
-// fp32, already rounded to the compute type (bf16 when activations are
-// bf16), matrices row-major [Cout, Cin]; vectors are [C].
+// Layout: activations are contiguous NCHW viewed as [N, C, H*W]; vectors
+// are fp32 [C]; matrices row-major [Cout, Cin], already rounded to the
+// compute type: bf16 for the tensor-core route, fp32 (holding bf16 values
+// when the activations are bf16) for the FMA route.
 //
 // K1 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_a (pallas_call in _call_a).
@@ -12,49 +13,63 @@
 //   the per-(n, c) spatial sums of g (fp32, taken before g is rounded to
 //   the activation type) for the SCA mean.
 //   Bound: moves ~2*C*HW activation elements per image and does ~4*C^2*HW
-//   FLOPs, so it is memory-bound at C <= 256 in bf16 on the tensor cores;
-//   this version multiplies with fp32 FMAs (no tensor cores), which makes
-//   it bound by operations at the wider stages.
-//   Design: one block owns a 16x16 halo tile (14x14 output pixels, one
-//   thread per halo pixel) and 16 gate channels. Each thread recomputes
-//   LN1 and the 32 conv1 rows it needs for its halo pixel (rows j and C+j
-//   of the gate pair) straight from x, so the 2C-wide intermediate t never
-//   touches device memory; t lives in shared memory for the depthwise taps.
-//   Halo pixels outside the image hold t = 0 (not conv1(0) = b1), as the
-//   TPU kernel's row-validity mask does. The SCA sums are written as
-//   per-tile partials [N, tiles, C] and reduced in a fixed order by a
-//   second tiny kernel (sum_rows): deterministic, no atomics.
+//   FLOPs: in bf16 on the tensor cores bytes bound it up to C = 256,
+//   operations from C = 512.
 //
 // K2 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_b (pallas_call in _call_b).
 //   g * att -> conv3 C->C -> z = x + beta * . -> LN2 -> conv4 C->2F ->
 //   gate -> conv5 F->C -> out = z + gamma * .
 //   Bound: moves ~3*C*HW activation elements and does ~8*C^2*HW FLOPs (at
-//   F = C); memory-bound at C <= 256 on the tensor cores, bound by
-//   operations on the fp32 FMA path used here.
-//   Design: one block owns P consecutive pixels and all channels. z (fp32),
-//   the conv3/conv4 input and the gate product stay in shared memory
-//   ((2C + F) * P * 4 bytes), so each activation element is read once and
-//   the output written once. P = 32 up to C = F = 512 (192 KB); wider
-//   blocks (the width-64 configuration's C = 1024 middle stack) take
-//   P = 16, 192 KB again. Groups of P lanes split the output channels; a
-//   lane owns one pixel, so shared-memory reads are conflict-free and
-//   weight reads are uniform across a group (broadcast).
+//   F = C): in bf16 on the tensor cores bytes bound it up to C = 128,
+//   operations from C = 256.
+//
+// Two routes; the wrapper (ops/nafblock.py) chooses by dtype and shape and
+// passes tile = 0 for the FMA route:
+//
+// - Tensor cores (bf16 with C and F multiples of 16; nafblock_fwd_mma.cuh).
+//   Every product is mma.sync m16n8k16 with fp32 accumulators, as in K3/K4.
+//   K1 is split where the depthwise halo is, as K4 is, so each product is
+//   computed once per pixel: k1_front_kernel (pixel tiles, every channel:
+//   LN1, h, t = W1 h + b1 as fp32 into the caller's t), k1_dw_kernel (2-D
+//   tiles x channel pairs: the depthwise step, the gate, the partial sums
+//   of g), then sum_rows. The price is the round trip of t through HBM:
+//   16 C bytes a pixel against the 4 C of x and g. K2 is one kernel,
+//   k2_mma_kernel, with z, q in fp32 and the product operands in bf16 in
+//   shared memory. The wrapper chooses the pixel tiles and the grids
+//   (ops/nafblock.py: k1_geometry, k2_geometry) so that one round of
+//   blocks fills the card; here they are only checked.
+//
+// - FMA (fp32, and bf16 with C % 16 != 0; the first port's kernels, C % 4
+//   == 0). k1_kernel: one block owns a 16x16 halo tile (14x14 output
+//   pixels, one thread per halo pixel) and 16 gate channels, and each
+//   thread recomputes LN1 and the 32 conv1 rows it needs for its halo
+//   pixel straight from x (every block of 16 gate channels repeats them),
+//   so t lives in shared memory only; halo pixels outside the image hold
+//   t = 0 (not b1), as the TPU kernel's row-validity mask does; per-tile
+//   partials of the sums are added by sum_rows. k2_kernel: one block owns
+//   P consecutive pixels and all channels; z (fp32), the conv3/conv4
+//   input and the gate product stay in shared memory ((2C + F) * P * 4
+//   bytes: P = 32 up to C = F = 512, P = 16 at C = F = 1024); groups of P
+//   lanes split the output channels, a lane owns one pixel. fp32 stays
+//   here because TF32 would break the 1e-4 tolerance.
 //
 // Numerics follow the TPU kernels: LN statistics and all elementwise math
 // in fp32; matrix-product operands rounded to the compute type with fp32
 // accumulation (bf16 x bf16 products are exact in fp32).
 //
-// Kernels run on the caller's stream and allocate nothing. Every entry
-// point returns cudaGetLastError() of its launches (0 = success).
+// Kernels run on the caller's stream and allocate nothing: the caller
+// passes a workspace of nafblk_a_workspace() bytes to K1. Every entry point
+// returns cudaGetLastError() of its launches (0 = success).
 
 #include "nafblock_common.cuh"
+#include "nafblock_fwd_mma.cuh"
 
 namespace {
 
 using namespace nafblk;
 
-// K1 tiling
+// K1 tiling (FMA route)
 constexpr int kHaloH = 16;
 constexpr int kHaloW = 16;
 constexpr int kTileH = kHaloH - 2;
@@ -62,8 +77,8 @@ constexpr int kTileW = kHaloW - 2;
 constexpr int kGateChunk = 16;  // gate channels per K1 block
 
 // ---------------------------------------------------------------------------
-// K1: LN1 -> conv1 -> depthwise 3x3 -> SimpleGate (+ SCA partial sums)
-// grid (tiles, ceil(C / kGateChunk), N), block kThreads
+// K1 (FMA route): LN1 -> conv1 -> depthwise 3x3 -> SimpleGate (+ SCA
+// partial sums). grid (tiles, ceil(C / kGateChunk), N), block kThreads
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -175,8 +190,9 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: SCA scale -> conv3 -> residual -> LN2 -> conv4 -> gate -> conv5 ->
-//     residual.  grid (ceil(HW / P), N), block kThreads, dynamic smem.
+// K2 (FMA route): SCA scale -> conv3 -> residual -> LN2 -> conv4 -> gate
+//     -> conv5 -> residual.  grid (ceil(HW / P), N), block kThreads,
+//     dynamic smem.
 //     P = 32 pixels per block (one per lane of a warp) while (2C + F) * 32
 //     fp32 values fit in shared memory (C <= 512 at F = C), else P = 16
 //     (two 16-lane groups per warp; C = F = 1024 needs 192 KB).
@@ -308,46 +324,225 @@ cudaError_t launch_k2_rows(const K2Args& a, int P, cudaStream_t s) {
   return launch_k2<T, 16, 32>(a, s);
 }
 
+// Number of FMA-route K1 spatial tiles for an H x W image (sizes its
+// partials).
+int a_tiles(int H, int W) {
+  return ((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW);
+}
+
+// ---------------------------------------------------------------------------
+// K1 in bf16: k1_front_kernel -> k1_dw_kernel -> sum_rows
+// ---------------------------------------------------------------------------
+
+bool a_mma_ok(int C, int H, int W, int P, int BX, int DX) {
+  const long long HW = (long long)H * W;
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && C > 0 &&
+         BX >= 1 && BX <= (HW + P - 1) / P && DX >= 1 &&
+         DX <= k1_dw_tiles(H, W) &&
+         (long long)k1_front_smem(C, P) <= kSmemLimit;
+}
+
+// The workspace of the bf16 K1: the depthwise blocks' partial sums
+// [N, DX, C]. t fp32 [N, 2C, HWp] (HWp = HW rounded up to 8, so rows stay
+// 16-byte aligned) is an argument of its own.
+long long t_row(long long HW) { return (HW + 7) / 8 * 8; }
+
+template <int P>
+const void* k1_front_p(int C) {
+  return k1_resident(C) ? (const void*)k1_front_kernel<P, true>
+                        : (const void*)k1_front_kernel<P, false>;
+}
+
+const void* k1_front(int C, int P) {
+  return P == 32 ? k1_front_p<32>(C)
+                 : P == 16 ? k1_front_p<16>(C) : k1_front_p<8>(C);
+}
+
+struct AArgs {
+  const void *x, *w1n, *b1n, *W1, *b1, *kdw, *bk;
+  void *g, *sums, *t, *ws;
+  int N, C, H, W;
+  float eps;
+};
+
+cudaError_t run_a_mma(const AArgs& a, int P, int BX, int DX, cudaStream_t s) {
+  const int C = a.C, N = a.N;
+  if (!a_mma_ok(C, a.H, a.W, P, BX, DX) || !aligned16(a.W1) ||
+      !aligned16(a.t))
+    return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const long long HW = (long long)a.H * a.W;
+  float* part = cv.take<float>((size_t)N * DX * C);
+  K1Mma k;
+  k.x = static_cast<const bf16*>(a.x);
+  k.w1n = static_cast<const float*>(a.w1n);
+  k.b1n = static_cast<const float*>(a.b1n);
+  k.b1 = static_cast<const float*>(a.b1);
+  k.kdw = static_cast<const float*>(a.kdw);
+  k.bk = static_cast<const float*>(a.bk);
+  k.W1 = static_cast<const bf16*>(a.W1);
+  k.g = static_cast<bf16*>(a.g);
+  k.t = static_cast<float*>(a.t);
+  k.part = part;
+  k.C = C;
+  k.H = a.H;
+  k.W = a.W;
+  k.HW = HW;
+  k.HWp = t_row(HW);
+  k.tiles = (int)((HW + P - 1) / P);
+  k.vec = HW % 8 == 0 && aligned16(a.x);
+  k.eps = a.eps;
+  cudaError_t err;
+  if ((err = launch_kernel(k1_front(C, P),
+                           dim3((unsigned)BX, (unsigned)N),
+                           k1_front_smem(C, P), k, s)))
+    return err;
+  if ((err = launch_kernel((const void*)k1_dw_kernel,
+                           dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0,
+                           k, s)))
+    return err;
+  // sums[n, c] = sum over d of part[n, d, c], in block order
+  return launch_sum_rows(part, static_cast<float*>(a.sums), N, DX, C, s);
+}
+
+// ---------------------------------------------------------------------------
+// K2 in bf16: k2_mma_kernel
+// ---------------------------------------------------------------------------
+
+bool b_mma_ok(int C, int F, long long HW, int P, int BX) {
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && F % 16 == 0 &&
+         C > 0 && F > 0 && BX >= 1 && BX <= (HW + P - 1) / P &&
+         (long long)k2_mma_smem(C, F, P) <= kSmemLimit;
+}
+
+template <int P>
+const void* k2_mma_p(int C, int F) {
+  return resident(C, F) ? (const void*)k2_mma_kernel<P, true>
+                        : (const void*)k2_mma_kernel<P, false>;
+}
+
+const void* k2_mma(int C, int F, int P) {
+  return P == 32 ? k2_mma_p<32>(C, F)
+                 : P == 16 ? k2_mma_p<16>(C, F) : k2_mma_p<8>(C, F);
+}
+
+cudaError_t run_b_mma(const K2Args& a, int P, int BX, cudaStream_t s) {
+  if (!b_mma_ok(a.C, a.F, a.HW, P, BX) || !aligned16(a.W3) ||
+      !aligned16(a.W4) || !aligned16(a.W5))
+    return cudaErrorInvalidValue;
+  K2Mma k;
+  k.x = static_cast<const bf16*>(a.x);
+  k.g = static_cast<const bf16*>(a.g);
+  k.att = static_cast<const float*>(a.att);
+  k.W3 = static_cast<const bf16*>(a.W3);
+  k.W4 = static_cast<const bf16*>(a.W4);
+  k.W5 = static_cast<const bf16*>(a.W5);
+  k.b3 = static_cast<const float*>(a.b3);
+  k.w2n = static_cast<const float*>(a.w2n);
+  k.b2n = static_cast<const float*>(a.b2n);
+  k.b4 = static_cast<const float*>(a.b4);
+  k.b5 = static_cast<const float*>(a.b5);
+  k.beta = static_cast<const float*>(a.beta);
+  k.gamma = static_cast<const float*>(a.gamma);
+  k.out = static_cast<bf16*>(a.out);
+  k.C = a.C;
+  k.F = a.F;
+  k.HW = a.HW;
+  k.tiles = (int)((a.HW + P - 1) / P);
+  k.vec = a.HW % 8 == 0 && aligned16(a.x) && aligned16(a.g) &&
+          aligned16(a.out);
+  k.eps = a.eps;
+  return launch_kernel(k2_mma(a.C, a.F, P),
+                       dim3((unsigned)BX, (unsigned)a.N),
+                       k2_mma_smem(a.C, a.F, P), k, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Number of K1 spatial tiles for an H x W image (sizes the partials).
-int nafblk_a_tiles(int H, int W) {
-  return ((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW);
+// Dynamic shared memory (bytes) of k1_front_kernel and k2_mma_kernel with a
+// tile of P pixels.
+long long nafblk_a_mma_smem(int C, int P) {
+  return (long long)k1_front_smem(C, P);
+}
+long long nafblk_b_mma_smem(int C, int F, int P) {
+  return (long long)k2_mma_smem(C, F, P);
 }
 
-// K1. x, g: [N, C, H*W] (fp32, or bf16 when is_bf16); part: [N, tiles, C]
-// fp32 scratch; sums: [N, C] fp32. Requires C % 4 == 0.
+// Blocks of k1_front_kernel, k1_dw_kernel and k2_mma_kernel that share one
+// SM of the current device, as the CUDA runtime counts them from the built
+// kernels' registers and shared memory (-1: the tile is not taken or a
+// call failed).
+int nafblk_a_mma_blocks_per_sm(int C, int P) {
+  if (!a_mma_ok(C, 1, P, P, 1, 1)) return -1;
+  return occupancy(k1_front(C, P), k1_front_smem(C, P));
+}
+int nafblk_a_dw_blocks_per_sm() {
+  return occupancy((const void*)k1_dw_kernel, 0);
+}
+int nafblk_b_mma_blocks_per_sm(int C, int F, int P) {
+  if (!b_mma_ok(C, F, P, P, 1)) return -1;
+  return occupancy(k2_mma(C, F, P), k2_mma_smem(C, F, P));
+}
+
+// Workspace bytes nafblk_a needs (-1: the shape or geometry is not taken).
+// tile, dw_grid: the bf16 route's pixels per tile (8, 16 or 32) and blocks
+// per (image, channel pair) of its depthwise kernel; tile = 0 is the FMA
+// route (its per-tile partial sums).
+long long nafblk_a_workspace(int N, int C, int H, int W, int tile, int grid,
+                             int dw_grid) {
+  Carver cv{nullptr};
+  if (tile) {
+    if (!a_mma_ok(C, H, W, tile, grid, dw_grid)) return -1;
+    cv.take<float>((size_t)N * dw_grid * C);
+  } else {
+    cv.take<float>((size_t)N * a_tiles(H, W) * C);
+  }
+  return (long long)cv.off;
+}
+
+// K1. x, g: [N, C, H*W]; sums: [N, C] fp32; ws: workspace. tile = 0: the
+// FMA route (x fp32, or bf16 when is_bf16; W1 fp32; C % 4 == 0; t unused);
+// tile > 0: the tensor-core route (x and W1 bf16, C % 16 == 0, the geometry
+// nafblk_a_workspace takes), which writes the front stage's output to t:
+// fp32 [N, 2C, H*W rounded up to 8].
 int nafblk_a(const void* x, const void* w1n, const void* b1n, const void* W1,
              const void* b1, const void* kdw, const void* bk, void* g,
-             void* part, void* sums, int N, int C, int H, int W, float eps,
-             int is_bf16, void* stream) {
+             void* sums, void* t, void* ws, int N, int C, int H, int W,
+             float eps, int is_bf16, int tile, int grid, int dw_grid,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile) {
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    const AArgs a{x, w1n, b1n, W1, b1, kdw, bk, g, sums, t, ws,
+                   N, C, H, W, eps};
+    return (int)run_a_mma(a, tile, grid, dw_grid, s);
+  }
   const int tiles_x = (W + kTileW - 1) / kTileW;
-  const int n_tiles = nafblk_a_tiles(H, W);
-  const dim3 grid((unsigned)n_tiles, (unsigned)((C + kGateChunk - 1) / kGateChunk),
-                  (unsigned)N);
+  const int n_tiles = a_tiles(H, W);
+  const dim3 grid3((unsigned)n_tiles,
+                   (unsigned)((C + kGateChunk - 1) / kGateChunk), (unsigned)N);
 #define K1_ARGS(T)                                                          \
   static_cast<const T*>(x), static_cast<const float*>(w1n),                \
       static_cast<const float*>(b1n), static_cast<const float*>(W1),       \
       static_cast<const float*>(b1), static_cast<const float*>(kdw),       \
       static_cast<const float*>(bk), static_cast<T*>(g),                   \
-      static_cast<float*>(part), C, H, W, tiles_x, eps
+      static_cast<float*>(ws), C, H, W, tiles_x, eps
   if (is_bf16)
-    k1_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(K1_ARGS(__nv_bfloat16));
+    k1_kernel<__nv_bfloat16><<<grid3, kThreads, 0, s>>>(K1_ARGS(__nv_bfloat16));
   else
-    k1_kernel<float><<<grid, kThreads, 0, s>>>(K1_ARGS(float));
+    k1_kernel<float><<<grid3, kThreads, 0, s>>>(K1_ARGS(float));
 #undef K1_ARGS
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // sums[n, c] = sum over tiles of part[n, tile, c], in tile order
-  return (int)launch_sum_rows(static_cast<const float*>(part),
+  return (int)launch_sum_rows(static_cast<const float*>(ws),
                               static_cast<float*>(sums), N, n_tiles, C, s);
 }
 
-// K2 pixels per block: 32 when (2C + F) * 32 fp32 values fit in the
-// dynamic shared memory a Hopper block may use beside K2's static 1 KB,
+// FMA-route K2 pixels per block: 32 when (2C + F) * 32 fp32 values fit in
+// the dynamic shared memory a Hopper block may use beside K2's static 1 KB,
 // else 16; 0 when even 16 do not fit.
 int nafblk_b_pixels(int C, int F) {
   const long long limit = 232448 - 1024;
@@ -357,17 +552,24 @@ int nafblk_b_pixels(int C, int F) {
 }
 
 // K2. x, g, out: [N, C, HW]; att: [N, C] fp32; W3 [C, C], W4 [2F, C],
-// W5 [C, F]. Requires C % 4 == 0, F % 4 == 0 and nafblk_b_pixels(C, F) > 0.
+// W5 [C, F]. tile = 0: the FMA route (x fp32, or bf16 when is_bf16;
+// matrices fp32; C % 4 == 0, F % 4 == 0 and nafblk_b_pixels(C, F) > 0);
+// tile > 0: the tensor-core route (x and matrices bf16, C % 16 == 0,
+// F % 16 == 0, a tile that fits and 1 <= grid <= the image's tiles).
 int nafblk_b(const void* x, const void* g, const void* att, const void* W3,
              const void* b3, const void* w2n, const void* b2n, const void* W4,
              const void* b4, const void* W5, const void* b5, const void* beta,
              const void* gamma, void* out, int N, int C, int F, long long HW,
-             float eps, int is_bf16, void* stream) {
+             float eps, int is_bf16, int tile, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int P = nafblk_b_pixels(C, F);
-  if (P == 0) return (int)cudaErrorInvalidValue;
   const K2Args a{x, g, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta, gamma,
                  out, N, C, F, HW, eps};
+  if (tile) {
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    return (int)run_b_mma(a, tile, grid, s);
+  }
+  const int P = nafblk_b_pixels(C, F);
+  if (P == 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) return (int)launch_k2_rows<__nv_bfloat16>(a, P, s);
   return (int)launch_k2_rows<float>(a, P, s);
 }

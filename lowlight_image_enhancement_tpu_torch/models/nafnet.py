@@ -5,12 +5,13 @@ Counterpart of ``lowlight_image_enhancement_tpu/models/nafnet.py``:
 - :class:`NAFBlock` -- LN -> 1x1 conv (C->2C) -> 3x3 depthwise ->
   SimpleGate -> SCA (global mean + 1x1) -> 1x1 conv, then LN -> 1x1 (C->2C)
   -> SimpleGate -> 1x1; residual scales ``beta``/``gamma`` zero-initialised.
-  With ``fused=True`` (the default) the block runs
+  With ``fused=True`` (the default) a block with ``dw_expand == 2`` runs
   :class:`...ops.nafblock.NAFBlockFunction`: kernels K1+K2 forward and
   K3+K4 backward on CUDA, their plain versions on CPU -- the counterpart
-  of the JAX ``fused_blocks=True``. With ``fused=False`` it runs the eager
-  module graph under autograd, the counterpart of the JAX unfused
-  ``NAFBlock``.
+  of the JAX ``fused_blocks=True``. With ``fused=False``, and for any
+  other ``dw_expand`` (which the JAX package leaves unfused too), it runs
+  the eager module graph under autograd, the counterpart of the JAX
+  unfused ``NAFBlock``.
 - :class:`UShapedNet` (shared with ``models/baseline.py``) and
   :class:`NAFNet` -- 3x3 intro, encoder stacks with 2x2 stride-2 downs,
   middle stack, decoder stacks with (1x1 no-bias conv + PixelShuffle(2))
@@ -103,10 +104,11 @@ class NAFBlock(nn.Module):
             self.beta, self.gamma)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and (self.dw_expand == 2 or x.is_cuda):
+        if self.fused and self.dw_expand == 2:
             # NAFBlockFunction with or without grad (forward K1+K2 only
-            # under no_grad); on CUDA a block K1 cannot take
-            # (dw_expand != 2) raises there
+            # under no_grad). A block with dw_expand != 2 runs the module
+            # graph on every device, as the JAX _fused_hw leaves it
+            # unfused (make_block_config gives no config for it).
             n, c, h, w = x.shape
             y = nafblock_fwd(x.contiguous().view(n, c, h * w), self.packed(),
                              (h, w), self.eps)

@@ -31,10 +31,15 @@ _L = ctypes.c_longlong
 # C signatures of every entry point, per source file
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "nafblock_fwd": {
-        "nafblk_a_tiles": (_I, [_I, _I]),
-        "nafblk_a": (_I, [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P]),
+        "nafblk_a_mma_smem": (_L, [_I, _I]),
+        "nafblk_b_mma_smem": (_L, [_I, _I, _I]),
+        "nafblk_a_mma_blocks_per_sm": (_I, [_I, _I]),
+        "nafblk_a_dw_blocks_per_sm": (_I, []),
+        "nafblk_b_mma_blocks_per_sm": (_I, [_I, _I, _I]),
+        "nafblk_a_workspace": (_L, [_I] * 7),
+        "nafblk_a": (_I, [_P] * 11 + [_I] * 4 + [_F] + [_I] * 4 + [_P]),
         "nafblk_b_pixels": (_I, [_I, _I]),
-        "nafblk_b": (_I, [_P] * 14 + [_I, _I, _I, _L, _F, _I, _P]),
+        "nafblk_b": (_I, [_P] * 14 + [_I, _I, _I, _L, _F, _I, _I, _I, _P]),
     },
     "nafblock_bwd": {
         "nafblk_p1_pixels": (_I, [_I, _I]),

@@ -1,6 +1,6 @@
-"""Fused NAFBlock: kernels K1/K2 (``csrc/nafblock_fwd.cu``), K3/K4
-(``csrc/nafblock_bwd.cu``, ``csrc/nafblock_p1_mma.cuh``,
-``csrc/nafblock_p2_mma.cuh``) and their plain
+"""Fused NAFBlock: kernels K1/K2 (``csrc/nafblock_fwd.cu``,
+``csrc/nafblock_fwd_mma.cuh``), K3/K4 (``csrc/nafblock_bwd.cu``,
+``csrc/nafblock_p1_mma.cuh``, ``csrc/nafblock_p2_mma.cuh``) and their plain
 PyTorch versions.
 
 Counterpart of ``lowlight_image_enhancement_tpu/ops/pallas/nafblock.py``.
@@ -19,15 +19,23 @@ and its backward (:class:`NAFBlockFunction`, the counterpart of the JAX
 ``fused_nafblock`` custom VJP):
 
 - K3 (:func:`call_p1`): recomputes the second half from ``(x, g, att)``
-  and returns ``dz``, the SCA grad ``da`` and the second-half weight grads
-  (in bf16 on the tensor cores, ``csrc/nafblock_p1_mma.cuh``, with the
-  pixel tile chosen by :func:`p1_tile`; in fp32 by FMA kernels);
+  and returns ``dz``, the SCA grad ``da`` and the second-half weight grads;
 - the ``[N, C]`` SCA backward (:func:`sca_backward`), plain torch as in
   the JAX ``_vjp_bwd``;
 - K4 (:func:`call_p2`): recomputes LN1/conv1/depthwise from ``x`` and
-  returns ``dx`` and the first-half weight grads (in bf16 on the tensor
-  cores, ``csrc/nafblock_p2_mma.cuh``, with the pixel tile chosen by
-  :func:`p2_tile`; in fp32 by FMA kernels).
+  returns ``dx`` and the first-half weight grads.
+
+Every kernel has two routes, chosen by dtype and shape, never on a
+failure:
+
+- bf16 with C (and F) a multiple of 16 runs on the tensor cores
+  (``mma.sync``): K1 as ``k1_front_kernel`` + ``k1_dw_kernel`` with the
+  tile and grids of :func:`k1_geometry`, K2 as ``k2_mma_kernel``
+  (:func:`k2_geometry`), K3 as ``k3_mma_kernel`` (:func:`p1_tile`), K4 as
+  its front, depthwise and back kernels (:func:`p2_tile`);
+- fp32 runs the FMA kernels (TF32 would break the 1e-4 tolerance), and so
+  do K1 and K2 in bf16 with C % 16 != 0 (C % 4 == 0); K3 and K4 in bf16
+  raise there.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
@@ -110,19 +118,34 @@ def _mm(w: torch.Tensor, a: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     return torch.matmul(w.to(cdt).float(), a.to(cdt).float())
 
 
-def plain_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
-            eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain K1: ``(g [N, C, S] in x.dtype, sums [N, C] fp32)``."""
-    n, c, s = x.shape
-    h, w = hw
-    cdt = _compute_dtype(x)
+def plain_a_front(x: torch.Tensor, p: Params,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Plain first stage of K1: ``t = W1 LN1(x) + b1``, fp32
+    ``[N, 2C, S]`` (the operands of the product rounded to x's compute
+    dtype)."""
     hn = _ln(x.float(), p["w1n"], p["b1n"], eps)
-    t = _mm(p["W1"], hn, cdt) + p["b1"].float()[:, None]
-    dw = t.shape[1]
+    return _mm(p["W1"], hn, _compute_dtype(x)) + p["b1"].float()[:, None]
+
+
+def plain_a_dw(t: torch.Tensor, p: Params, hw: Tuple[int, int],
+               dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain second stage of K1 on the fp32 ``t [N, 2C, S]``: ``u =
+    dw3x3(t) + bk`` (t zero outside the image), ``g = u1 * u2`` ->
+    ``(g [N, C, S] in dtype, sums [N, C] fp32)``, the sums taken before g
+    is rounded."""
+    n, dw, s = t.shape
+    h, w = hw
     u = F.conv2d(t.view(n, dw, h, w), p["kdw"].float().view(dw, 1, 3, 3),
                  p["bk"].float(), padding=1, groups=dw)
-    g = (u[:, :c] * u[:, c:]).reshape(n, c, s)
-    return g.to(x.dtype), g.sum(2)
+    g = (u[:, :dw // 2] * u[:, dw // 2:]).reshape(n, dw // 2, s)
+    return g.to(dtype), g.sum(2)
+
+
+def plain_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
+            eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K1: ``(g [N, C, S] in x.dtype, sums [N, C] fp32)``, its two
+    stages composed."""
+    return plain_a_dw(plain_a_front(x, p, eps), p, hw, x.dtype)
 
 
 def sca_attention(sums: torch.Tensor, p: Params, area: int) -> torch.Tensor:
@@ -267,7 +290,10 @@ def _check_cuda(x: torch.Tensor, p: Params, names) -> None:
     if not x.is_contiguous():
         raise ValueError("NAFBlock kernels need a contiguous [N, C, H*W] input")
     if x.shape[1] % 4:
-        raise ValueError(f"NAFBlock kernels need C % 4 == 0, got C={x.shape[1]}")
+        raise ValueError(
+            f"NAFBlock kernels need C % 4 == 0 (their FMA route, which fp32 "
+            f"takes; the bf16 tensor-core route needs C % 16 == 0), got "
+            f"C={x.shape[1]}")
     for k in names:
         if p[k].device != x.device:
             raise ValueError(f"parameter {k} is on {p[k].device}, "
@@ -297,9 +323,6 @@ def _kernel_args(p: Params, names, cdt: torch.dtype,
     return out
 
 
-_stream = _build.current_stream
-
-
 def _like_x(x: torch.Tensor, **named) -> None:
     for name, t in named.items():
         if (t.shape != x.shape or t.dtype != x.dtype or not t.is_contiguous()
@@ -313,11 +336,175 @@ _B_PARAMS = ("W3", "b3", "w2n", "b2n", "W4", "b4", "W5", "b5", "beta",
              "gamma")
 
 
+# Geometry of the bf16 K1 and K2 (csrc/nafblock_fwd_mma.cuh): the pixel
+# tiles of K3 (32, 16 or 8 pixels, bf16 rows padded by 8 above 8 pixels);
+# up to 64 channels the weights stay in shared memory (rows padded by 8),
+# else they pass through the ring of three weight slabs.
+#   K1 front: x fp32 [C][tile], h bf16 [C][rows], W1 [2C]
+#   K2: v, h2, wv bf16 [max(C, F)][rows], W3 + W4 + W5, z fp32 [C][tile],
+#   q fp32 [2F][tile]
+# Both have 1 KB of static shared memory. K1's depthwise kernel takes 2-D
+# tiles of 32 x 32 pixels and one channel pair a block. chip_smoke.py holds
+# k1_smem_bytes / k2_smem_bytes against the kernels' own sums.
+FWD_RESIDENT_MAX = 64
+FWD_STATIC_SMEM = 1024
+# Blocks of the pixel-tile kernels that their registers allow on an SM, by
+# (resident weights, tile), as the CUDA runtime counts them for the built
+# kernels on an H100. On CUDA the wrappers ask the built kernels instead
+# (built=True); these tables exist for the CPU tests of the geometry, which
+# have no built kernel, and chip_smoke.py holds them against the runtime.
+K1_BLOCKS_BY_REGISTERS = {(False, 32): 3, (False, 16): 4, (False, 8): 5,
+                          (True, 32): 3, (True, 16): 5, (True, 8): 5}
+K2_BLOCKS_BY_REGISTERS = {(False, 32): 3, (False, 16): 3, (False, 8): 3,
+                          (True, 32): 3, (True, 16): 4, (True, 8): 5}
+K1_DW_TILE = (32, 32)
+K1_DW_BLOCKS_PER_SM = 3
+
+
+def k1_smem_bytes(c: int, tile: int) -> int:
+    """Dynamic shared memory of the bf16 K1's front kernel with ``tile``
+    pixels."""
+    ldb = tile if tile == 8 else tile + 8
+    w = 2 * c * (c + 8) * 2 if c <= FWD_RESIDENT_MAX else P1_SLAB_BYTES
+    return c * tile * 4 + c * ldb * 2 + w
+
+
+def k2_smem_bytes(c: int, f: int, tile: int) -> int:
+    """Dynamic shared memory of the bf16 K2 with ``tile`` pixels."""
+    ldb = tile if tile == 8 else tile + 8
+    w = P1_SLAB_BYTES
+    if c <= FWD_RESIDENT_MAX and f <= FWD_RESIDENT_MAX:
+        w = ((c + 2 * f) * (c + 8) + c * (f + 8)) * 2
+    return max(c, f) * ldb * 2 + w + (c + 2 * f) * tile * 4
+
+
+def _built_per_sm(entry: str, *args: int) -> int:
+    """Blocks per SM of a built kernel of ``csrc/nafblock_fwd.cu`` as the
+    CUDA runtime counts them (entry point ``entry``), once per argument
+    tuple."""
+    if args not in _BUILT_PER_SM.setdefault(entry, {}):
+        per_sm = getattr(_build.load("nafblock_fwd"), entry)(*args)
+        if per_sm < 1:
+            raise RuntimeError(f"{entry}{args}: no block fits on an SM "
+                               f"({per_sm})")
+        _BUILT_PER_SM[entry][args] = per_sm
+    return _BUILT_PER_SM[entry][args]
+
+
+_BUILT_PER_SM: Dict[str, Dict[tuple, int]] = {}
+
+
+def k1_blocks_per_sm(c: int, tile: int, built: bool = False) -> int:
+    """Blocks of the bf16 K1's front kernel that share an SM: as many as
+    its registers and shared memory (dynamic, 1 KB static, 1 KB reserved)
+    allow; with ``built``, as the runtime counts them for the built
+    kernel."""
+    if built:
+        return _built_per_sm("nafblk_a_mma_blocks_per_sm", c, tile)
+    by_regs = K1_BLOCKS_BY_REGISTERS[c <= FWD_RESIDENT_MAX, tile]
+    return min(by_regs, SM_SMEM // (k1_smem_bytes(c, tile)
+                                    + FWD_STATIC_SMEM + 1024))
+
+
+def k2_blocks_per_sm(c: int, f: int, tile: int, built: bool = False) -> int:
+    """Blocks of the bf16 K2 that share an SM (as :func:`k1_blocks_per_sm`
+    counts them)."""
+    if built:
+        return _built_per_sm("nafblk_b_mma_blocks_per_sm", c, f, tile)
+    by_regs = K2_BLOCKS_BY_REGISTERS[
+        c <= FWD_RESIDENT_MAX and f <= FWD_RESIDENT_MAX, tile]
+    return min(by_regs, SM_SMEM // (k2_smem_bytes(c, f, tile)
+                                    + FWD_STATIC_SMEM + 1024))
+
+
+def k1_tile(n: int, c: int, s: int) -> int:
+    """Pixels per tile of the bf16 K1's front kernel on ``[N, C, S]``: the
+    widest tile that fits and still gives half the SMs a block, else the
+    narrowest that fits. A tile of this kernel is a short chain (LN1, one
+    product) whose fixed part a wide tile pays back, so fewer, wider
+    blocks beat a full round of narrow ones (``chip_smoke.py`` on an H100:
+    2.285 ms of device time per flagship step, against 2.500 with K2's
+    least-waves rule). 0 when no tile fits or ``C`` is no multiple of 16
+    (the depth of one tensor-core step)."""
+    if c % 16:
+        return 0
+    fits = [t for t in P1_TILES if k1_smem_bytes(c, t) <= P1_SMEM_LIMIT]
+    for t in fits:
+        if n * -(-s // t) >= SM_COUNT // 2:
+            return t
+    return fits[-1] if fits else 0
+
+
+def k2_tile(n: int, c: int, f: int, s: int, built: bool = False) -> int:
+    """Pixels per tile of the bf16 K2 on ``[N, C, S]``; 0 when no tile
+    fits or ``C``, ``F`` are no multiples of 16."""
+    if c % 16 or f % 16:
+        return 0
+    return _least_waves_tile(n, s, lambda t: k2_smem_bytes(c, f, t),
+                             lambda t: k2_blocks_per_sm(c, f, t, built))
+
+
+def k1_grid(n: int, c: int, s: int, tile: int, built: bool = False) -> int:
+    """Blocks per image of the bf16 K1's front kernel
+    (``layernorm.one_round``)."""
+    return one_round(n, s, tile, k1_blocks_per_sm(c, tile, built))
+
+
+def k1_dw_grid(n: int, c: int, h: int, w: int, built: bool = False) -> int:
+    """Blocks per (image, channel pair) of the bf16 K1's depthwise kernel
+    (:func:`_dw_grid`)."""
+    per_sm = (_built_per_sm("nafblk_a_dw_blocks_per_sm") if built
+              else K1_DW_BLOCKS_PER_SM)
+    return _dw_grid(n, c, h, w, K1_DW_TILE, per_sm)
+
+
+def k2_grid(n: int, c: int, f: int, s: int, tile: int,
+            built: bool = False) -> int:
+    """Blocks per image of the bf16 K2 (``layernorm.one_round``)."""
+    return one_round(n, s, tile, k2_blocks_per_sm(c, f, tile, built))
+
+
+def k1_geometry(dtype: torch.dtype, n: int, c: int, h: int, w: int,
+                built: bool = False) -> Tuple[int, int, int]:
+    """``(tile, grid, dw_grid)`` of K1's tensor-core route on a bf16
+    ``[N, C, H*W]`` input (:func:`k1_tile`, :func:`k1_grid`,
+    :func:`k1_dw_grid`). ``(0, 0, 0)`` chooses the FMA route: fp32, or a
+    C that is no multiple of 16 or too wide for any tile. ``built`` takes
+    the blocks per SM from the built kernels (the wrappers on CUDA), else
+    from this module's tables."""
+    tile = k1_tile(n, c, h * w) if dtype == torch.bfloat16 else 0
+    if not tile:
+        return 0, 0, 0
+    return (tile, k1_grid(n, c, h * w, tile, built),
+            k1_dw_grid(n, c, h, w, built))
+
+
+def k2_geometry(dtype: torch.dtype, n: int, c: int, f: int, s: int,
+                built: bool = False) -> Tuple[int, int]:
+    """``(tile, grid)`` of K2's tensor-core route on a bf16 ``[N, C, S]``
+    input (:func:`k2_tile`, :func:`k2_grid`); ``(0, 0)`` chooses the FMA
+    route (fp32, or C, F no multiples of 16, or too wide for any tile).
+    ``built`` as in :func:`k1_geometry`."""
+    tile = k2_tile(n, c, f, s, built) if dtype == torch.bfloat16 else 0
+    if not tile:
+        return 0, 0
+    return tile, k2_grid(n, c, f, s, tile, built)
+
+
 def call_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
-           eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on ``x: [N, C, H*W]`` -> ``(g, sums)``; plain version on CPU."""
+           eps: float = 1e-6, return_t: bool = False):
+    """K1 on ``x: [N, C, H*W]`` -> ``(g, sums)``; plain version on CPU.
+
+    On CUDA the route follows :func:`k1_geometry`: bf16 with C % 16 == 0
+    runs the tensor-core kernels (W1 in bf16, as :class:`NAFBlockFunction`
+    hands it over, goes to them with no conversion); fp32, and bf16 with
+    C % 16 != 0, run the FMA kernel (C % 4 == 0). ``return_t`` adds the
+    first stage's fp32 ``t [N, 2C, H*W]``, which only the tensor-core
+    route (and on CPU the plain version) computes apart."""
     if not x.is_cuda:
-        return plain_a(x, p, hw, eps)
+        t = plain_a_front(x, p, eps)
+        g, sums = plain_a_dw(t, p, hw, x.dtype)
+        return (g, sums, t) if return_t else (g, sums)
     n, c, s = x.shape
     h, w = hw
     if h * w != s:
@@ -326,21 +513,32 @@ def call_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
         raise ValueError(
             f"K1 needs dw_expand == 2 (W1 [2C, C]); got W1 {tuple(p['W1'].shape)}")
     _check_cuda(x, p, _A_PARAMS)
+    tile, grid, dw_grid = k1_geometry(x.dtype, n, c, h, w, built=True)
+    if return_t and not tile:
+        raise ValueError("the FMA route of K1 keeps t in shared memory")
     lib = _build.load()
-    args = _kernel_args(p, _A_PARAMS, _compute_dtype(x))
+    ws_bytes = lib.nafblk_a_workspace(n, c, h, w, tile, grid, dw_grid)
+    if ws_bytes < 0:
+        raise ValueError(f"K1 does not take C={c} on {h}x{w} with tile "
+                         f"{tile}, grids {grid}, {dw_grid}")
+    cdt = _compute_dtype(x)
+    args = _kernel_args(p, _A_PARAMS, cdt,
+                        matrices=cdt if tile else torch.float32)
     g = torch.empty_like(x)
-    part = torch.empty((n, lib.nafblk_a_tiles(h, w), c), device=x.device,
-                       dtype=torch.float32)
     sums = torch.empty((n, c), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        rc = lib.nafblk_a(x.data_ptr(), *[t.data_ptr() for t in args],
-                          g.data_ptr(), part.data_ptr(), sums.data_ptr(),
-                          n, c, h, w, float(eps),
-                          int(x.dtype == torch.bfloat16), _stream(x))
+    ws = torch.empty(ws_bytes, device=x.device, dtype=torch.uint8)
+    # the front stage's output, rows of H*W rounded up to 8 (16-byte rows)
+    t = (torch.empty((n, 2 * c, -(-s // 8) * 8), device=x.device,
+                     dtype=torch.float32) if tile else None)
+    rc = _build.launch(x, lib.nafblk_a, x.data_ptr(),
+                       *[a.data_ptr() for a in args], g.data_ptr(),
+                       sums.data_ptr(), t.data_ptr() if tile else None,
+                       ws.data_ptr(), n, c, h, w, float(eps),
+                       int(x.dtype == torch.bfloat16), tile, grid, dw_grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_a launch failed: CUDA error {rc}")
     call_a.launches += 1
-    return g, sums
+    return (g, sums, t[:, :, :s]) if return_t else (g, sums)
 
 
 call_a.launches = 0
@@ -348,29 +546,38 @@ call_a.launches = 0
 
 def call_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
            eps: float = 1e-6) -> torch.Tensor:
-    """K2 on ``x, g: [N, C, H*W]``, ``att: [N, C]``; plain version on CPU."""
+    """K2 on ``x, g: [N, C, H*W]``, ``att: [N, C]``; plain version on CPU.
+
+    On CUDA the route follows :func:`k2_geometry`: bf16 with C and F
+    multiples of 16 runs ``k2_mma_kernel`` (W3, W4, W5 in bf16, as
+    :class:`NAFBlockFunction` hands them over); fp32, and bf16 with C or F
+    no multiple of 16, run the FMA kernel (C, F multiples of 4 and
+    (2C + F) x 16 fp32 values in shared memory)."""
     if not x.is_cuda:
         return plain_b(x, g, att, p, eps)
     n, c, s = x.shape
     f = p["W5"].shape[1]
     _like_x(x, g=g)
-    if p["W4"].shape != (2 * f, c) or f % 4:
-        raise ValueError(f"K2 needs W4 [2F, C] with F % 4 == 0; got "
+    if p["W4"].shape != (2 * f, c) or p["W3"].shape != (c, c) or f % 4:
+        raise ValueError(f"K2 needs W3 [C, C] and W4 [2F, C] with F % 4 == 0; "
+                         f"got W3 {tuple(p['W3'].shape)}, "
                          f"W4 {tuple(p['W4'].shape)}")
     _check_cuda(x, p, _B_PARAMS)
+    tile, grid = k2_geometry(x.dtype, n, c, f, s, built=True)
     lib = _build.load()
-    if lib.nafblk_b_pixels(c, f) == 0:
+    if not tile and lib.nafblk_b_pixels(c, f) == 0:
         raise ValueError(
             f"K2 keeps (2C+F) x 16 fp32 values per block in shared memory; "
             f"C={c}, F={f} does not fit")
-    args = _kernel_args(p, _B_PARAMS, _compute_dtype(x))
+    cdt = _compute_dtype(x)
+    args = _kernel_args(p, _B_PARAMS, cdt,
+                        matrices=cdt if tile else torch.float32)
     att = att.detach().float().contiguous()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.nafblk_b(x.data_ptr(), g.data_ptr(), att.data_ptr(),
-                          *[t.data_ptr() for t in args], out.data_ptr(),
-                          n, c, f, s, float(eps),
-                          int(x.dtype == torch.bfloat16), _stream(x))
+    rc = _build.launch(x, lib.nafblk_b, x.data_ptr(), g.data_ptr(),
+                       att.data_ptr(), *[t.data_ptr() for t in args],
+                       out.data_ptr(), n, c, f, s, float(eps),
+                       int(x.dtype == torch.bfloat16), tile, grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_b launch failed: CUDA error {rc}")
     call_b.launches += 1
@@ -601,12 +808,18 @@ def p2_grid(n: int, c: int, s: int, tile: int) -> int:
     return one_round(n, s, tile, p2_blocks_per_sm(c, tile))
 
 
+def _dw_grid(n: int, c: int, h: int, w: int, tile, per_sm: int) -> int:
+    """Blocks per (image, channel pair) of a depthwise kernel whose blocks
+    each walk that pair's 2-D tiles in strides: one round of blocks over
+    the card, no more than there are tiles."""
+    tiles = -(-h // tile[0]) * -(-w // tile[1])
+    return max(1, min(tiles, SM_COUNT * per_sm // (n * c)))
+
+
 def p2_dw_grid(n: int, c: int, h: int, w: int) -> int:
-    """Blocks per (image, channel pair) of the bf16 K4's depthwise kernel,
-    each walking that pair's 2-D tiles in strides: one round of blocks
-    over the card, no more than there are tiles."""
-    tiles = -(-h // P2_DW_TILE[0]) * -(-w // P2_DW_TILE[1])
-    return max(1, min(tiles, SM_COUNT * P2_DW_BLOCKS_PER_SM // (n * c)))
+    """Blocks per (image, channel pair) of the bf16 K4's depthwise kernel
+    (:func:`_dw_grid`)."""
+    return _dw_grid(n, c, h, w, P2_DW_TILE, P2_DW_BLOCKS_PER_SM)
 
 
 def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
