@@ -26,6 +26,10 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles)
    and at NAFSSR's C=48 with 30x90 pixels and N=16, checking dz, da, dx
    and every weight grad;
+4b. narrow-channel phase: the same at C = 8, 24, 40 and 12 (no multiples
+   of 16: in bf16 all four kernels take the FMA route), F = C on 2xCx64^2
+   and 2xCx20^2 and F = 2C on 2xCx64^2, fp32 and bf16, with the route
+   that K3 and K4 took named by their device kernels;
 5. serving phase: ``RestorationServer`` on ``NewBPNAFNet`` (width 32,
    full depth: 36 NAFBlocks) in bf16 with seeded random weights answers 8
    mixed-size requests (one through the tiled path); checks shapes,
@@ -37,10 +41,16 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    .yml`` (``NewBPNAFNet`` in bf16, ``HybridLossPlus`` with the random
    bf16 VGG19 trunk, AdamW + clip 0.01 on the cosine schedule) on one
    seeded synthetic 2x3x384x384 batch: 1 warm-up and 3 timed steps;
-   checks finite logs, 36 launches of each of K1-K4 per step, K1/K2 on
-   the tensor-core route in the traced step, a falling loss, fp32
-   gradients through the kernels against the eager block path, and one
-   eval forward;
+   checks finite logs, 36 launches of each of K1-K4 per step, K1-K4 on
+   the tensor-core route in the traced step (their device kernels by
+   name), a falling loss, fp32 gradients through the kernels against the
+   eager block path, and one eval forward;
+6b. path D: ``network_g`` of ``configs/debug/sid_newbp_mono_debug.yml``
+   (width 8: blocks at C = 8, 16, 32) under the same train block in bf16,
+   one step after a warm-up on a seeded 2x3x128x128 batch: finite logs,
+   one launch of each of K1-K4 per block, and in its traced step both
+   routes (the C=8 blocks on the FMA kernels, the others on the tensor
+   cores);
 7. LayerNorm and pool kernel phase: holds K5 (``ln_fwd``), K6 (``ln_bwd``),
    K7 (``relu_pool_fwd``) and K8 (``pool_bwd``, with and without the relu)
    against their plain versions in fp32 and bf16: the LN kernels at the
@@ -48,7 +58,9 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    N=2) and of a served batch (C=32@512^2 ... C=512@32^2), at NAFSSR's
    C=48 with 30x90 pixels and N=16, at C=1024@32^2 and at a ragged
    C=64@20x20; the pool kernels (exact equality) at the four VGG19 pool
-   shapes, at an odd H and W, with ties and with NaNs in some windows;
+   shapes, at an odd H and W, with ties, with NaNs in some windows, at
+   W=50 and W=40 (K7's 2-element loads and 8-byte stores) and, for K7,
+   with x one element past a 16-byte boundary; K7's geometry printed;
    times each beside its plain version, its bound and the one library
    call that computes the same function;
 8. path P: the training step of 6. with the perceptual trunk's pools on
@@ -75,10 +87,10 @@ shows no device time or keeps losing records), with the split by device
 kernel (K1-K4 and K6 print it). K1-K4 and K6 are called twice at every
 shape and must give the same bits; the tile arithmetic of the K1-K4
 wrappers is held against the built kernels' shared memory and occupancy,
-and K6's blocks per SM against the built kernel's occupancy; K4 in bf16
-must refuse C=8. After the timed steps of every training path one more
-step runs under the profiler: the device's busy time and its idle share of
-the step.
+and K6's blocks per SM against the built kernel's occupancy, the FMA
+route's pixels per block of K3/K4 against the built library's. After the
+timed steps of every training path one more step runs under the profiler:
+the device's busy time and its idle share of the step.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line ``{"kernels": [...]}`` and the card line before the last line, and
@@ -175,7 +187,10 @@ POOL_SHAPES = [(BATCH, 64, 384, 384, 1, "vgg"),
                (BATCH, 128, 192, 192, 1, "vgg"),
                (BATCH, 256, 96, 96, 1, "vgg"), (BATCH, 512, 48, 48, 1, "vgg"),
                (BATCH, 64, 37, 51, 0, "odd"), (BATCH, 64, 96, 96, 0, "ties"),
-               (BATCH, 64, 96, 96, 0, "nan")]
+               (BATCH, 64, 96, 96, 0, "nan"),
+               # K7's edges: W % 8 != 0 (a 100-byte bf16 row pitch: 2-element
+               # loads), W % 16 == 8 (8-byte bf16 stores, a short last group)
+               (BATCH, 64, 50, 50, 0, "w50"), (BATCH, 64, 40, 40, 0, "w40")]
 PALLAS = "lowlight_image_enhancement_tpu/ops/pallas/"
 CSRC = "lowlight_image_enhancement_tpu_torch/csrc/"
 KERNELS = {
@@ -266,7 +281,8 @@ def device_records(averages) -> dict:
     """``{name: (records, microseconds in all)}`` of the device side of a
     ``torch.profiler`` window's ``key_averages()``: kernels, and copies
     and fills as ``Memcpy ...`` and ``Memset``. A kernel's name is its
-    identifier without namespace, template and argument lists."""
+    identifier without the anonymous namespace, template and argument
+    lists."""
     out: dict = {}
     for ev in averages:
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -276,7 +292,8 @@ def device_records(averages) -> dict:
             total = ev.self_cuda_time_total
         if total <= 0 or ev.count <= 0:
             continue
-        name = re.sub(r"<.*", "", ev.key.split("(anonymous namespace)::")[-1])
+        name = ev.key.replace("(anonymous namespace)::", "")
+        name = re.sub(r"<.*", "", name)
         name = re.sub(r"^void\s+", "", name.split("(")[0]).strip()
         count, t = out.get(name, (0, 0.0))
         out[name] = (count + ev.count, t + total)
@@ -346,24 +363,32 @@ def err(got: torch.Tensor, ref: torch.Tensor, scale=None):
     return e, e / max(s, 1e-30)
 
 
-def bound(kind: str, c: int, hw: int, dt: torch.dtype, n: int = BATCH):
+def bound(kind: str, c: int, hw: int, dt: torch.dtype, n: int = BATCH,
+          f: int = None):
     """Least time (ms) for one call's work: bytes (each input read once,
     each output written once) over the HBM rate vs the FLOPs of its
-    matrix products (F = C) over the operand type's peak."""
+    matrix products (FFN width 2F, F = C unless given) over the operand
+    type's peak."""
     s = torch.tensor([], dtype=dt).element_size()
+    f = c if f is None else f
     act = n * c * hw
     px = n * hw
     nc = 4 * n * c                            # one [N, C] fp32 array
+    mats = c * c + 3 * f * c                  # W3, W4 [2F, C], W5 [C, F]
+    vecs = 6 * c + 2 * f                      # b3, w2n, b2n, b5, beta,
+    # gamma; b4 [2F]
     if kind == "nafblk_a":     # x in, g out; W1, kdw, vectors; sums out
         nbytes = 2 * act * s + 4 * (2 * c * c + 18 * c + 6 * c) + nc
         flops = px * (4 * c * c + 36 * c)
     elif kind == "nafblk_b":   # x, g in, out; W3, W4, W5, vectors; att
-        nbytes = 3 * act * s + 4 * (4 * c * c + 8 * c) + nc
-        flops = px * 8 * c * c     # conv3 2C^2, conv4 4C^2, conv5 2C^2
+        nbytes = 3 * act * s + 4 * (mats + vecs) + nc
+        flops = px * (2 * c * c + 6 * f * c)   # conv3, conv4, conv5
     elif kind == "nafblk_p1":  # x, g, dout in, dz out; W3-W5, vectors;
-        # att in, da out; fp32 grads of W3-W5 and 8 vectors out
-        nbytes = 4 * act * s + 2 * 4 * (4 * c * c + 8 * c) + 2 * nc
-        flops = px * 24 * c * c  # 8 C^2 recompute, 8 input-side, 8 wgrad
+        # att in, da out; fp32 grads of W3-W5 and the vectors out
+        nbytes = 4 * act * s + 2 * 4 * (mats + vecs) + 2 * nc
+        # recompute, input-side products and weight grads, each
+        # 2 C^2 + 6 C F (24 C^2 in all at F = C)
+        flops = px * 3 * (2 * c * c + 6 * f * c)
     else:                      # x, dz in, dx out; dgc, att in; W1, W3,
         # kdw and 7 vectors in (3C^2 + 25C); fp32 grads of W1, the 11 x 2C
         # taps (kdw, bk, b1) and w1n, b1n out (2C^2 + 24C)
@@ -380,12 +405,13 @@ def fmt_device(dev) -> str:
 
 
 def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, split, path,
-           n=BATCH, hw=None):
+           n=BATCH, hw=None, f=None):
     h, w = hw or (side, side)
-    b_ms, b_by = bound(kind, c, h * w, dt, n)
+    b_ms, b_by = bound(kind, c, h * w, dt, n, f)
     dev = device_ms(split)
     rows.setdefault(kind, []).append(dict(
-        path=path, n=n, c=c, side=side, h=h, w=w, dtype=str(dt)[6:],
+        path=path, n=n, c=c, f=c if f is None else f, side=side, h=h, w=w,
+        dtype=str(dt)[6:],
         blocks=blocks, err=e, ms=t_k, device_ms=dev, device_split=split,
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by))
     print(f"  N={n:2d} C={c:4d} {h}x{w} {str(dt)[6:]:8s} {kind}: kernel "
@@ -544,11 +570,57 @@ def dw_expand_block_runs_unfused(gen: torch.Generator) -> None:
           f"graph, no K1/K2 launch")
 
 
+def backward_checks(x, dout, p, pk, shw, dt) -> tuple:
+    """K1-K4 on ``x`` and the whole block backward (NAFBlockFunction on
+    the card) against their plain versions: ``(checks, g, att, dz, dgc)``
+    with ``g, att, dz, dgc`` the plain versions' (the kernels' inputs).
+    ``pk`` holds the matrices as NAFBlockFunction hands them over. K3 and
+    K4 are called twice and must give equal bits."""
+    n, c, hw = x.shape
+    checks, g, sums, att = forward_checks(x, p, pk, shw, dt)
+    m = sums / hw
+    with torch.no_grad():
+        dz_k, da_k, gk = ops.call_p1(x, g, dout, att, pk)
+        dz_2, da_2, gk_2 = ops.call_p1(x, g, dout, att, pk)
+        dz, da, gp = ops.plain_p1(x, g, dout, att, p)
+        dwsca, dbsca, dgc = ops.sca_backward(da, m, p, hw)
+        dx_k, g1k = ops.call_p2(x, dz, dgc, att, pk, shw)
+        dx_2, g1k_2 = ops.call_p2(x, dz, dgc, att, pk, shw)
+        dx, g1p = ops.plain_p2(x, dz, dgc, att, p, shw)
+    torch.cuda.synchronize()
+    # no float atomics in K3 or K4: a second call gives the same bits
+    check(torch.equal(dz_k, dz_2) and torch.equal(da_k, da_2)
+          and all(torch.equal(gk[k], gk_2[k]) for k in gk),
+          f"K3 C={c} {shw} {dt}: two calls differ")
+    check(torch.equal(dx_k, dx_2)
+          and all(torch.equal(g1k[k], g1k_2[k]) for k in g1k),
+          f"K4 C={c} {shw} {dt}: two calls differ")
+    del dz_2, da_2, gk_2, dx_2, g1k_2
+    checks["nafblk_p1"] = err(dz_k, dz)
+    checks["p1.da"] = err(da_k, da)
+    checks.update({f"p1.d{k}": err(gk[k], gp[k]) for k in gp})
+    checks["nafblk_p2"] = err(dx_k, dx)
+    checks.update({f"p2.d{k}": err(g1k[k], g1p[k]) for k in g1p})
+    # the whole block backward: NAFBlockFunction on the card vs the
+    # plain backward (K3 -> SCA -> K4 plain versions)
+    xg = x.detach().requires_grad_(True)
+    views = [p[k] for k in ops.PARAM_ORDER]
+    got = torch.autograd.grad(ops.nafblock_fwd(xg, p, shw),
+                              [xg, *views], dout)
+    ref = {**gp, **g1p, "Wsca": dwsca, "bsca": dbsca}
+    torch.cuda.synchronize()
+    checks["block.dx"] = err(got[0], dx)
+    worst = max((err(gv, ref[k]) for k, gv in
+                 zip(ops.PARAM_ORDER, got[1:])), key=lambda e: e[1])
+    checks["block.dparams"] = worst
+    return checks, g, att, dz, dgc
+
+
 def backward_phase(gen: torch.Generator, rows: dict) -> None:
     widths = [(BATCH, c, s, s, n, "train") for c, s, n in TRAIN_PATH]
     widths += [(BATCH, *WIDE, WIDE[1], 0, "w64"),
                (BATCH, *RAGGED, RAGGED[1], 0, "ragged"), NAFSSR_BLOCK]
-    k4_refuses_c8()
+    hold_fma_geometry({(c, c) for _, c, *_ in widths})
     for n, c, side, wide, nblk, path in widths:
         hw = side * wide
         shw = (side, wide)
@@ -591,42 +663,8 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
             # the kernels get their matrices as NAFBlockFunction hands them
             # over
             pk = ops.rounded_matrices(p, dt)
-            checks, g, sums, att = forward_checks(x, p, pk, shw, dt)
-            m = sums / hw
-            with torch.no_grad():
-                dz_k, da_k, gk = ops.call_p1(x, g, dout, att, pk)
-                dz_2, da_2, gk_2 = ops.call_p1(x, g, dout, att, pk)
-                dz, da, gp = ops.plain_p1(x, g, dout, att, p)
-                dwsca, dbsca, dgc = ops.sca_backward(da, m, p, hw)
-                dx_k, g1k = ops.call_p2(x, dz, dgc, att, pk, shw)
-                dx_2, g1k_2 = ops.call_p2(x, dz, dgc, att, pk, shw)
-                dx, g1p = ops.plain_p2(x, dz, dgc, att, p, shw)
-            torch.cuda.synchronize()
-            # no float atomics in K3 or K4: a second call gives the same bits
-            check(torch.equal(dz_k, dz_2) and torch.equal(da_k, da_2)
-                  and all(torch.equal(gk[k], gk_2[k]) for k in gk),
-                  f"K3 C={c} {dt}: two calls differ")
-            check(torch.equal(dx_k, dx_2)
-                  and all(torch.equal(g1k[k], g1k_2[k]) for k in g1k),
-                  f"K4 C={c} {dt}: two calls differ")
-            del dz_2, da_2, gk_2, dx_2, g1k_2
-            checks["nafblk_p1"] = err(dz_k, dz)
-            checks["p1.da"] = err(da_k, da)
-            checks.update({f"p1.d{k}": err(gk[k], gp[k]) for k in gp})
-            checks["nafblk_p2"] = err(dx_k, dx)
-            checks.update({f"p2.d{k}": err(g1k[k], g1p[k]) for k in g1p})
-            # the whole block backward: NAFBlockFunction on the card vs the
-            # plain backward (K3 -> SCA -> K4 plain versions)
-            xg = x.detach().requires_grad_(True)
-            views = [p[k] for k in ops.PARAM_ORDER]
-            got = torch.autograd.grad(ops.nafblock_fwd(xg, p, shw),
-                                      [xg, *views], dout)
-            ref = {**gp, **g1p, "Wsca": dwsca, "bsca": dbsca}
-            torch.cuda.synchronize()
-            checks["block.dx"] = err(got[0], dx)
-            worst = max((err(gv, ref[k]) for k, gv in
-                         zip(ops.PARAM_ORDER, got[1:])), key=lambda e: e[1])
-            checks["block.dparams"] = worst
+            checks, g, att, dz, dgc = backward_checks(x, dout, p, pk, shw,
+                                                       dt)
             show(checks, c, f"{side}x{wide} N={n}", dt)
             with torch.no_grad():
                 t = {
@@ -653,25 +691,100 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
         del blk, x32, d32
 
 
-def k4_refuses_c8() -> None:
-    """K4 in bf16 takes C that is a multiple of 16 (one tensor-core step):
-    a C=8 block raises before any launch."""
-    blk = NAFBlock(8).cuda()
-    p = ops.rounded_matrices(blk.packed(), torch.bfloat16)
-    x = torch.zeros((1, 8, 64), device="cuda", dtype=torch.bfloat16)
-    nc = torch.zeros((1, 8), device="cuda")
-    before = ops.call_p2.launches
-    try:
-        ops.call_p2(x, x, nc, nc, p, (8, 8))
-    except ValueError as e:
-        print(f"  K4 bf16 C=8 raises: {e}")
-    else:
-        raise AssertionError("K4 in bf16 took C=8")
-    check(ops.call_p2.launches == before, "K4 launched at C=8")
-    dw = _build.load("nafblock_bwd").nafblk_p2_dw_blocks_per_sm()
+def hold_fma_geometry(widths) -> None:
+    """The FMA route's pixels per block of K3 and K4 (ops/nafblock.py:
+    ``p1_fma_pixels``, ``p2_fma_pixels``) against the built library's at
+    every ``(C, F)`` of ``widths``, and the bf16 K4 depthwise kernel's
+    blocks per SM against ops/nafblock.py's count."""
+    lib = _build.load("nafblock_bwd")
+    for c, f in widths:
+        got = (lib.nafblk_p1_pixels(c, f), lib.nafblk_p2_pixels(c))
+        want = (ops.p1_fma_pixels(c, f), ops.p2_fma_pixels(c))
+        check(got == want, f"FMA route C={c} F={f}: the built kernels take "
+              f"{got} pixels a block (K3, K4), ops/nafblock.py counts {want}")
+    dw = lib.nafblk_p2_dw_blocks_per_sm()
     print(f"  K4 bf16 depthwise kernel: {dw} blocks per SM")
     check(dw == ops.P2_DW_BLOCKS_PER_SM, f"K4 depthwise kernel: {dw} blocks "
           f"per SM, ops/nafblock.py counts {ops.P2_DW_BLOCKS_PER_SM}")
+
+
+# the device kernels of K3 and K4 on the tensor-core route and on the FMA
+# route
+K34_TENSOR_CORES = ("nafblk::k3_mma_kernel", "nafblk::k4_front_kernel",
+                    "nafblk::k4_dw_kernel", "nafblk::k4_back_kernel")
+K34_FMA = ("k3_kernel", "k4a_kernel", "k4b_kernel")
+# C that is no multiple of 16: in bf16 all four kernels take the FMA route
+NARROW_C = (8, 24, 40, 12)
+# a whole 64x64 image, and a side that is no multiple of K4's 12-pixel FMA
+# tile or of 8
+NARROW_SIDES = (64, 20)
+
+
+def show_route(what: str, split: dict, mma: bool, names) -> None:
+    """The route a kernel took, read from the device kernels of its timing
+    window (``split``): the route its geometry chose (``mma``: the
+    tensor-core kernels of ``names[0]``, else the FMA kernels of
+    ``names[1]``), and none of the other's. "not measured" where the
+    profiler kept losing records."""
+    if not split:
+        print(f"  {what}: route not measured (no complete profiler window)")
+        return
+    want, other = names if mma else names[::-1]
+    ran = [k for k in want if k in split]
+    wrong = [k for k in other if k in split]
+    check(len(ran) == len(want) and not wrong, f"{what}: expected the "
+          f"{'tensor-core' if mma else 'FMA'} route, ran {sorted(split)}")
+    print(f"  {what}: {'tensor-core' if mma else 'FMA'} route "
+          f"({', '.join(sorted(split))})")
+
+
+def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
+    """K1-K4 and the whole block backward at C that is no multiple of 16,
+    with the standard FFN (F = C) and a doubled one (F = 2C, at 64x64), on
+    a whole 64x64 image and a ragged 20x20, in bf16 (the FMA route of all
+    four kernels) and fp32, against their plain versions: 2^-6 / 1e-4 of
+    max|ref|, equal bits on two calls; K3's and K4's route named by their
+    device kernels and their times kept."""
+    cases = [(c, ffn, side) for c in NARROW_C for ffn in (2, 4)
+             for side in NARROW_SIDES if ffn == 2 or side == NARROW_SIDES[0]]
+    hold_fma_geometry({(c, c * ffn // 2) for c, ffn, _ in cases})
+    for c, ffn, side in cases:
+        f = c * ffn // 2
+        shw = (side, side)
+        blk = NAFBlock(c, ffn_expand=ffn).cuda()
+        randomize_(blk, gen, 1.0)
+        p = blk.packed()
+        x32 = torch.randn((BATCH, c, side * side), generator=gen,
+                          device="cuda")
+        d32 = torch.randn((BATCH, c, side * side), generator=gen,
+                          device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            x, dout = x32.to(dt), d32.to(dt)
+            pk = ops.rounded_matrices(p, dt)
+            checks, g, att, dz, dgc = backward_checks(x, dout, p, pk, shw,
+                                                       dt)
+            show(checks, c, f"{side}x{side} F={f}", dt)
+            with torch.no_grad():
+                t = {
+                    "nafblk_p1": timed(
+                        lambda: ops.call_p1(x, g, dout, att, pk),
+                        lambda: ops.plain_p1(x, g, dout, att, p)),
+                    "nafblk_p2": timed(
+                        lambda: ops.call_p2(x, dz, dgc, att, pk, shw),
+                        lambda: ops.plain_p2(x, dz, dgc, att, p, shw)),
+                }
+            for k, times in t.items():
+                report(k, rows, c, side, dt, 0, checks[k][0], *times,
+                       "narrow", BATCH, shw, f)
+            tag = f"{str(dt)[6:]} N={BATCH} C={c} F={f} {side}x{side}"
+            s = side * side
+            show_route(f"K3 {tag}", t["nafblk_p1"][2],
+                       ops.p1_geometry(dt, BATCH, c, f, s)[0] > 0,
+                       (K34_TENSOR_CORES[:1], K34_FMA[:1]))
+            show_route(f"K4 {tag}", t["nafblk_p2"][2],
+                       ops.p2_geometry(dt, BATCH, c, side, side)[0] > 0,
+                       (K34_TENSOR_CORES[1:], K34_FMA[1:]))
+        del blk, x32, d32
 
 
 def serve_mix(net, what: str, **per_forward: int) -> dict:
@@ -731,15 +844,22 @@ K12_TENSOR_CORES = ("nafblk::k1_front_kernel", "nafblk::k1_dw_kernel",
 K12_FMA = ("k1_kernel", "k2_kernel")
 
 
-def expect_tensor_core_route(names, what: str) -> None:
-    """The bf16 NAFBlocks ran K1 and K2 on the tensor cores: every device
-    kernel of that route is among ``names``, none of the FMA route's."""
-    missing = [k for k in K12_TENSOR_CORES if k not in names]
-    fma = [k for k in K12_FMA if k in names]
-    check(not missing and not fma, f"{what}: K1/K2 device kernels "
-          f"{missing} missing, FMA kernels {fma} ran")
-    print(f"{what}: K1/K2 ran as {', '.join(K12_TENSOR_CORES)}; none of "
-          f"{', '.join(K12_FMA)}")
+def expect_tensor_core_route(names, what: str, backward: bool = False,
+                             fma_too: bool = False) -> None:
+    """The bf16 NAFBlocks ran K1 and K2 (and with ``backward`` K3 and K4)
+    on the tensor cores: every device kernel of that route is among
+    ``names``, and none of the FMA route's -- or, with ``fma_too`` (a
+    network whose narrow blocks take the FMA route), every one of those
+    as well."""
+    mma = K12_TENSOR_CORES + (K34_TENSOR_CORES if backward else ())
+    fma = K12_FMA + (K34_FMA if backward else ())
+    missing = [k for k in mma + (fma if fma_too else ()) if k not in names]
+    wrong = [] if fma_too else [k for k in fma if k in names]
+    check(not missing and not wrong, f"{what}: device kernels {missing} "
+          f"missing, FMA kernels {wrong} ran")
+    print(f"{what}: ran {', '.join(mma)}"
+          + (f" and {', '.join(fma)}" if fma_too else
+             f"; none of {', '.join(fma)}"))
 
 
 def serving_phase(gen: torch.Generator) -> dict:
@@ -806,11 +926,11 @@ def recipe(config: Path, network_g: dict, res_scale: float,
     return net, loss, state, step
 
 
-def flagship_batch() -> dict:
+def flagship_batch(side: int = 384) -> dict:
     """One seeded synthetic batch of the flagship recipe's shape (2 x 384^2
-    crops): uniform ``gt``, exposure ratios 100 and 300."""
+    crops, or ``side``^2): uniform ``gt``, exposure ratios 100 and 300."""
     rng = np.random.default_rng(SEED)
-    gt = rng.uniform(0, 1, (BATCH, 3, 384, 384)).astype(np.float32)
+    gt = rng.uniform(0, 1, (BATCH, 3, side, side)).astype(np.float32)
     expo = np.array([100.0, 300.0], np.float32)
     lq = np.clip(gt / expo[:, None, None, None]
                  + rng.normal(0, 1e-3, gt.shape), 0, 1).astype(np.float32)
@@ -950,7 +1070,8 @@ def training_phase() -> dict:
     batch = flagship_batch()
     four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
     res = run_steps("NewBPNAFNet", step, state, batch, **four)
-    expect_tensor_core_route(res["device_kernels"], "NewBPNAFNet traced step")
+    expect_tensor_core_route(res["device_kernels"], "NewBPNAFNet traced step",
+                             backward=True)
 
     # fp32 gradients through the kernels vs the eager block path
     amp_dt = net.dtype
@@ -979,6 +1100,51 @@ def training_phase() -> dict:
     eval_forward("NewBPNAFNet", net, batch["lq"], batch["lq"].shape,
                  nafblk_a=36, nafblk_b=36)
     return res
+
+
+# the debug configuration: NewBPNAFNet at width 8 (blocks at C=8, 16, 32)
+DEBUG_CONFIG = TRAIN_CONFIG.parent / "debug" / "sid_newbp_mono_debug.yml"
+DEBUG_SIDE = 128
+
+
+def debug_path() -> dict:
+    """``network_g`` of the debug configuration under the flagship ``train``
+    block in bf16: one step on a seeded 2x3x128^2 batch (one launch of each
+    of K1-K4 per block: its C=8 blocks on the FMA route, the C=16 and C=32
+    blocks on the tensor cores), finite logs, then one traced step that
+    names both routes' device kernels."""
+    import yaml
+
+    with open(DEBUG_CONFIG) as fh:
+        network_g = yaml.safe_load(fh)["network_g"]
+    net, loss, state, step = recipe(TRAIN_CONFIG, network_g, 0.01)
+    widths = sorted(b.conv1.in_channels for b in net.blocks())
+    check(net.dtype == torch.bfloat16 and widths == [8, 8, 16, 16, 32],
+          f"debug network in bf16 with blocks at C=8, 8, 16, 16, 32; got "
+          f"{net.dtype}, {widths}")
+    batch = flagship_batch(DEBUG_SIDE)
+    per_step = {k: len(widths) for k in
+                ("nafblk_a", "nafblk_b", "nafblk_p1", "nafblk_p2")}
+    state, logs = step(state, batch)              # warm-up
+    assert_finite_logs(logs)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, logs = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launches()
+    assert_finite_logs(logs)
+    expect_launches(counts, "debug network bf16 training step", **per_step)
+    print(f"debug network bf16 training step ({BATCH}x3x{DEBUG_SIDE}^2): "
+          f"{ms:.1f} ms, launches {per_step}, "
+          + " ".join(f"{k}={float(v):.6g}" for k, v in logs.items()))
+    trace = traced_step("debug network", step, state, batch, ms)
+    if trace["device_kernels"]:
+        expect_tensor_core_route(trace["device_kernels"],
+                                 "debug network traced step", backward=True,
+                                 fma_too=True)
+    return {"launches": counts, "l_total": float(logs["l_total"]), **trace}
 
 
 # ---------------------------------------------------------------------------
@@ -1131,8 +1297,21 @@ def pool_phase(gen: torch.Generator, rows: dict) -> None:
         for dt in (torch.float32, torch.bfloat16):
             x, dy = x32.to(dt), d32.to(dt)
             tag = f"N={n} C={c:3d} {h}x{w} {kind} {str(dt)[6:]}"
+            geo = pool.pool_fwd_geometry_for(x)
+            per_sm = pool.pool_fwd_blocks_per_sm(dt, geo.lv, geo.sv,
+                                                 geo.bx * geo.by)
+            print(f"  {tag} K7 geometry: {geo._asdict()}, {per_sm} blocks "
+                  f"per SM")
             e7 = same(pool.call_relu_pool_fwd(x), pool.plain_relu_pool_fwd(x),
                       f"{tag} relu_pool_fwd")
+            # x one element past its storage's 16-byte boundary: narrower
+            # loads, the same result
+            xo = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:]
+            xo = xo.view(shape).copy_(x)
+            same(pool.call_relu_pool_fwd(xo), pool.plain_relu_pool_fwd(xo),
+                 f"{tag} relu_pool_fwd, x at an offset of one element "
+                 f"(lv={pool.pool_fwd_geometry_for(xo).lv})")
+            del xo
             e8 = max(same(pool.call_pool_bwd(x, dy, relu),
                           pool.plain_pool_bwd(x, dy, relu),
                           f"{tag} pool_bwd relu={relu}")
@@ -1385,8 +1564,11 @@ def main() -> int:
           forward_phase, gen, rows)
     phase("backward kernel phase (batch 2, 384x384 training widths)",
           backward_phase, gen, rows)
+    phase("narrow-channel phase (K1-K4 at C = 8, 24, 40, 12)",
+          narrow_channels_phase, gen, rows)
     serve = phase("serving phase", serving_phase, gen)
     train = phase("training phase", training_phase)
+    debug = phase("path D (the debug network in bf16)", debug_path)
     perc = phase("path P", perceptual_path)
     base = phase("path B", baseline_path)
     ssr = phase("path S", nafssr_path)
@@ -1469,7 +1651,11 @@ def main() -> int:
         "baseline_ms_per_step": base["ms_per_step"],
         "baseline_serve_wall_s": base["serve_wall_s"],
         "baseline_serve_err": base["serve_err"],
-        "nafssr_ms_per_step": ssr["ms_per_step"]}))
+        "nafssr_ms_per_step": ssr["ms_per_step"],
+        "debug_step": {"launches": debug["launches"],
+                       "l_total": debug["l_total"],
+                       "device_busy_ms": debug["device_busy_ms"],
+                       "kernel_records": debug["kernel_records"]}}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

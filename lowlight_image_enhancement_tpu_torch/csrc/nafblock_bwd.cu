@@ -3,9 +3,15 @@
 //
 // Layout as in nafblock_fwd.cu: activations contiguous NCHW viewed as
 // [N, C, H*W]; vectors fp32 [C]; matrices row-major [Cout, Cin], already
-// rounded to the compute type: fp32 for the fp32 kernels, bf16 for the bf16
-// ones (which feed them to the tensor cores). Every weight gradient is
-// fp32.
+// rounded to the compute type: bf16 for the tensor-core kernels (which feed
+// them to the tensor cores as they are), fp32 (holding bf16 values when the
+// activations are bf16) for the FMA kernels. Every weight gradient is fp32.
+//
+// Two routes per kernel, chosen by the wrapper from dtype and shape
+// (ops/nafblock.py:p1_geometry, p2_geometry) and passed as tile > 0 or
+// tile = 0: bf16 with C and F multiples of 16 (one tensor-core step) runs
+// the tensor-core kernels; fp32, and bf16 at any other C % 4 == 0, run the
+// FMA kernels of the first port, instantiated for the activation type.
 //
 // K3 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_p1 (pallas_call in _call_p1).
@@ -63,8 +69,10 @@
 //   the peak would do in 0.015 ms; the kernel is far from either rate,
 //   and wgmma's 64-row tiles would leave C = 32 and C = 48 half empty.
 //
-//   In fp32 the FMA kernels of the first port stay (TF32 would break the
-//   1e-4 tolerance): k3_kernel owns P pixels and all channels, like K2;
+//   The FMA route (fp32: TF32 would break the 1e-4 tolerance; bf16 at C or
+//   F no multiple of 16, whose bf16 operands round to bf16 where the
+//   tensor-core route rounds them): k3_kernel owns P pixels and all
+//   channels, like K2;
 //   v, z/xhat2, pth, ds/dp, q/dq and wv stay in shared memory ((4C + 3F)
 //   * P * 4 bytes: P = 32 up to C = F = 256, P = 16 at C = F = 512). It
 //   writes the two operands of each weight gradient to a workspace, and
@@ -102,9 +110,9 @@
 //   block. The round trip of t, dg, h and dt through HBM is ~36 C bytes a
 //   pixel: the price of computing the products once.
 //
-//   In fp32 the FMA kernels of the first port stay (TF32 would break the
-//   1e-4 tolerance). The halo: dt at a pixel needs du one pixel out, du
-//   needs u, so t, and hence x, two pixels out, and dz one pixel out.
+//   The FMA route (fp32, and bf16 at C no multiple of 16). The halo: dt
+//   at a pixel needs du one pixel out, du needs u, so t, and hence x, two
+//   pixels out, and dz one pixel out.
 //   k4a_kernel tiles the image in 2-D like K1: a 16 x 16 halo tile (one
 //   thread per pixel) around 12 x 12 output pixels, 16 gate channels per
 //   block. Each thread recomputes LN1 and the conv1 rows j, C + j of its
@@ -242,7 +250,10 @@ cudaError_t wgrad(const T* A, const T* B, int M, int Nc, int N, long long HW,
 }
 
 // ---------------------------------------------------------------------------
-// K3 in fp32.  grid (ceil(HW / P), N), block kThreads.
+// K3 on the FMA route (fp32; bf16 where C or F is no multiple of 16):
+// x, g, dout, dz and the operand streams in T, the matrices fp32 (holding
+// bf16 values in bf16), every product operand rounded to T.
+// grid (ceil(HW / P), N), block kThreads.
 // Per-block vector partials, V = 6C + 2F floats:
 //   [dgamma C | db5 C | db4 2F | dw2n C | db2n C | dbeta C | db3 C]
 // and the SCA grad partials da [N, blocks, C].
@@ -254,19 +265,18 @@ int p1_pixels(int C, int F) {
   return 0;
 }
 
-template <int KO, int P>
+template <typename T, int KO, int P>
 __global__ void __launch_bounds__(kThreads) k3_kernel(
-    const float* __restrict__ x, const float* __restrict__ g,
-    const float* __restrict__ dout, const float* __restrict__ att,
+    const T* __restrict__ x, const T* __restrict__ g,
+    const T* __restrict__ dout, const float* __restrict__ att,
     const float* __restrict__ W3, const float* __restrict__ b3,
     const float* __restrict__ w2n, const float* __restrict__ b2n,
     const float* __restrict__ W4, const float* __restrict__ b4,
     const float* __restrict__ W5, const float* __restrict__ b5,
     const float* __restrict__ beta, const float* __restrict__ gamma,
-    float* __restrict__ dz_out, float* __restrict__ v_o,
-    float* __restrict__ h2_o, float* __restrict__ wv_o,
-    float* __restrict__ ds_o, float* __restrict__ dq_o,
-    float* __restrict__ dp_o, float* __restrict__ vpart,
+    T* __restrict__ dz_out, T* __restrict__ v_o, T* __restrict__ h2_o,
+    T* __restrict__ wv_o, T* __restrict__ ds_o, T* __restrict__ dq_o,
+    T* __restrict__ dp_o, float* __restrict__ vpart,
     float* __restrict__ dapart, int C, int F, long long HW, float eps) {
   constexpr int G = kThreads / P;
   extern __shared__ float smem[];
@@ -296,12 +306,12 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
 
   // v = g * att (conv3 and dW3 operand), z = x
   for (int c = grp; c < C; c += G) {
-    const float xv = valid ? x[base + (long long)c * HW] : 0.f;
-    const float gv = valid ? g[base + (long long)c * HW] : 0.f;
-    const float v = gv * attn[c];
+    const float xv = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
+    const float gv = valid ? to_f<T>(g[base + (long long)c * HW]) : 0.f;
+    const float v = to_cdt<T>(gv * attn[c]);
     a_s[c * P + lane] = v;
     z_s[c * P + lane] = xv;
-    if (valid) v_o[base + (long long)c * HW] = v;
+    if (valid) v_o[base + (long long)c * HW] = from_f<T>(v);
   }
   __syncthreads();
 
@@ -328,10 +338,10 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
   ln_stats<P>(z_s, C, red_s, grp, lane, eps, mu, rstd);
   for (int c = grp; c < C; c += G) {
     const float xh = (z_s[c * P + lane] - mu) * rstd;
-    const float h2 = fmaf(xh, w2n[c], b2n[c]);
+    const float h2 = to_cdt<T>(fmaf(xh, w2n[c], b2n[c]));
     z_s[c * P + lane] = xh;
     a_s[c * P + lane] = h2;
-    if (valid) h2_o[base + (long long)c * HW] = h2;
+    if (valid) h2_o[base + (long long)c * HW] = from_f<T>(h2);
   }
   __syncthreads();
 
@@ -348,11 +358,11 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       if (j < F) {
         const float q1 = qa[r] + b4[j];
         const float q2 = qb[r] + b4[F + j];
-        const float wv = q1 * q2;
+        const float wv = to_cdt<T>(q1 * q2);
         q_s[j * P + lane] = q1;
         q_s[(F + j) * P + lane] = q2;
         w_s[j * P + lane] = wv;
-        if (valid) wv_o[baseF + (long long)j * HW] = wv;
+        if (valid) wv_o[baseF + (long long)j * HW] = from_f<T>(wv);
       }
     }
   }
@@ -370,14 +380,15 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       const int o = o0 + r;
       const bool ok = o < C;
       const float dov =
-          (ok && valid) ? dout[base + (long long)o * HW] : 0.f;
+          (ok && valid) ? to_f<T>(dout[base + (long long)o * HW]) : 0.f;
       const float sv = ok ? acc[r] + b5[o] : 0.f;
       const float ds = ok ? gamma[o] * dov : 0.f;
       const float sum_g = group_sum<P>(dov * sv);
       const float sum_b = group_sum<P>(ds);
       if (ok) {
-        d_s[o * P + lane] = ds;
-        if (valid) ds_o[base + (long long)o * HW] = ds;
+        const float dsr = to_cdt<T>(ds);
+        d_s[o * P + lane] = dsr;
+        if (valid) ds_o[base + (long long)o * HW] = from_f<T>(dsr);
         if (lane == 0) {
           vp[o] = sum_g;
           vp[C + o] = sum_b;
@@ -405,11 +416,12 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       const float s1 = group_sum<P>(dq1);
       const float s2 = group_sum<P>(dq2);
       if (ok) {
-        q_s[f * P + lane] = dq1;
-        q_s[(F + f) * P + lane] = dq2;
+        const float r1 = to_cdt<T>(dq1), r2 = to_cdt<T>(dq2);
+        q_s[f * P + lane] = r1;
+        q_s[(F + f) * P + lane] = r2;
         if (valid) {
-          dq_o[baseQ + (long long)f * HW] = dq1;
-          dq_o[baseQ + (long long)(F + f) * HW] = dq2;
+          dq_o[baseQ + (long long)f * HW] = from_f<T>(r1);
+          dq_o[baseQ + (long long)(F + f) * HW] = from_f<T>(r2);
         }
         if (lane == 0) {
           vp[2 * C + f] = s1;
@@ -458,7 +470,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     const bool ok = c < C;
     float dzv = 0.f, pth = 0.f, dp = 0.f;
     if (ok && valid) {
-      const float dov = dout[base + (long long)c * HW];
+      const float dov = to_f<T>(dout[base + (long long)c * HW]);
       const float gxh = a_s[c * P + lane] * w2n[c];
       dzv = dov + (gxh - mean_g - z_s[c * P + lane] * mean_gx) * rstd;
       pth = p_s[c * P + lane];
@@ -467,10 +479,11 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     const float s_beta = group_sum<P>(dzv * pth);
     const float s_b3 = group_sum<P>(dp);
     if (ok) {
-      d_s[c * P + lane] = dp;
+      const float dpr = to_cdt<T>(dp);
+      d_s[c * P + lane] = dpr;
       if (valid) {
-        dz_out[base + (long long)c * HW] = dzv;
-        dp_o[base + (long long)c * HW] = dp;
+        dz_out[base + (long long)c * HW] = from_f<T>(dzv);
+        dp_o[base + (long long)c * HW] = from_f<T>(dpr);
       }
       if (lane == 0) {
         vp[4 * C + 2 * F + c] = s_beta;
@@ -492,7 +505,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
       const int c = c0 + r;
       const bool ok = c < C;
       const float gv =
-          (ok && valid) ? g[base + (long long)c * HW] : 0.f;
+          (ok && valid) ? to_f<T>(g[base + (long long)c * HW]) : 0.f;
       const float s_a = group_sum<P>(acc[r] * gv);
       if (ok && lane == 0) dap[c] = s_a;
     }
@@ -500,19 +513,20 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
 }
 
 struct P1Work {
-  float *v, *h2, *wv, *ds, *dq, *dp;  // per-pixel operands [N, ch, HW]
+  void *v, *h2, *wv, *ds, *dq, *dp;  // per-pixel operands [N, ch, HW], T
   float *vpart, *dapart, *wpart;
 };
 
-P1Work carve_p1(Carver& cv, int N, int C, int F, long long HW, int P) {
+P1Work carve_p1(Carver& cv, int N, int C, int F, long long HW, int P,
+                size_t esize) {
   P1Work w;
   const size_t px = (size_t)N * HW;
-  w.v = cv.take<float>(px * C);
-  w.h2 = cv.take<float>(px * C);
-  w.wv = cv.take<float>(px * F);
-  w.ds = cv.take<float>(px * C);
-  w.dq = cv.take<float>(px * 2 * F);
-  w.dp = cv.take<float>(px * C);
+  w.v = cv.take<char>(px * C * esize);
+  w.h2 = cv.take<char>(px * C * esize);
+  w.wv = cv.take<char>(px * F * esize);
+  w.ds = cv.take<char>(px * C * esize);
+  w.dq = cv.take<char>(px * 2 * F * esize);
+  w.dp = cv.take<char>(px * C * esize);
   const size_t blocks = (size_t)N * ((HW + P - 1) / P);
   w.vpart = cv.take<float>(blocks * (6 * C + 2 * F));
   w.dapart = cv.take<float>(blocks * C);
@@ -534,39 +548,42 @@ struct P1Args {
   float eps;
 };
 
-template <int KO, int P>
+template <typename T, int KO, int P>
 cudaError_t launch_k3(const P1Args& a, const P1Work& w, cudaStream_t s) {
   const size_t smem = (size_t)(4 * a.C + 3 * a.F) * P * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      k3_kernel<KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k3_kernel<T, KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((a.HW + P - 1) / P);
-  k3_kernel<KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
-      static_cast<const float*>(a.x), static_cast<const float*>(a.g),
-      static_cast<const float*>(a.dout), static_cast<const float*>(a.att),
+  k3_kernel<T, KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.att),
       static_cast<const float*>(a.W3), static_cast<const float*>(a.b3),
       static_cast<const float*>(a.w2n), static_cast<const float*>(a.b2n),
       static_cast<const float*>(a.W4), static_cast<const float*>(a.b4),
       static_cast<const float*>(a.W5), static_cast<const float*>(a.b5),
       static_cast<const float*>(a.beta), static_cast<const float*>(a.gamma),
-      static_cast<float*>(a.dz), w.v, w.h2, w.wv, w.ds, w.dq, w.dp, w.vpart,
-      w.dapart, a.C, a.F, a.HW, a.eps);
+      static_cast<T*>(a.dz), static_cast<T*>(w.v), static_cast<T*>(w.h2),
+      static_cast<T*>(w.wv), static_cast<T*>(w.ds), static_cast<T*>(w.dq),
+      static_cast<T*>(w.dp), w.vpart, w.dapart, a.C, a.F, a.HW, a.eps);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t run_p1(const P1Args& a, cudaStream_t s) {
   const int P = p1_pixels(a.C, a.F);
   if (P == 0) return cudaErrorInvalidValue;
   Carver cv{static_cast<char*>(a.ws)};
-  const P1Work w = carve_p1(cv, a.N, a.C, a.F, a.HW, P);
+  const P1Work w = carve_p1(cv, a.N, a.C, a.F, a.HW, P, sizeof(T));
   cudaError_t err;
   if (P == 32)
-    err = a.C <= 64 ? launch_k3<8, 32>(a, w, s) : launch_k3<16, 32>(a, w, s);
+    err = a.C <= 64 ? launch_k3<T, 8, 32>(a, w, s)
+                    : launch_k3<T, 16, 32>(a, w, s);
   else if (P == 16)
-    err = launch_k3<16, 16>(a, w, s);
+    err = launch_k3<T, 16, 16>(a, w, s);
   else
-    err = launch_k3<16, 8>(a, w, s);
+    err = launch_k3<T, 16, 8>(a, w, s);
   if (err != cudaSuccess) return err;
 
   const int C = a.C, F = a.F, N = a.N;
@@ -581,11 +598,16 @@ cudaError_t run_p1(const P1Args& a, cudaStream_t s) {
   if ((err = launch_sum_rows(w.dapart, static_cast<float*>(a.da), N, blocks,
                              C, s)))
     return err;
-  if ((err = wgrad<float>(w.ds, w.wv, C, F, N, a.HW, w.wpart, dW5, s)))
+  if ((err = wgrad<T>(static_cast<const T*>(w.ds),
+                      static_cast<const T*>(w.wv), C, F, N, a.HW, w.wpart,
+                      dW5, s)))
     return err;
-  if ((err = wgrad<float>(w.dq, w.h2, 2 * F, C, N, a.HW, w.wpart, dW4, s)))
+  if ((err = wgrad<T>(static_cast<const T*>(w.dq),
+                      static_cast<const T*>(w.h2), 2 * F, C, N, a.HW,
+                      w.wpart, dW4, s)))
     return err;
-  return wgrad<float>(w.dp, w.v, C, C, N, a.HW, w.wpart, dW3, s);
+  return wgrad<T>(static_cast<const T*>(w.dp), static_cast<const T*>(w.v), C,
+                  C, N, a.HW, w.wpart, dW3, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -747,7 +769,8 @@ cudaError_t run_p1_mma(const P1Args& a, int P, int BX, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// K4a (fp32): LN1 -> conv1 -> dw3x3 recompute, gate grad, depthwise adjoint.
+// K4a (FMA route, T as K3's): LN1 -> conv1 -> dw3x3 recompute, gate grad,
+// depthwise adjoint.
 // grid (tiles, ceil(C / kBGate), N), block kThreads (16 x 16 halo tile).
 // Per-tile partials of 11 * 2C floats: index k * 2C + j for tap k < 9
 // (dkdw[j, k]), k = 9 (dbk[j]) and k = 10 (db1[j]).
@@ -764,14 +787,15 @@ constexpr size_t k4a_smem_bytes() {
          sizeof(float);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) k4a_kernel(
-    const float* __restrict__ x, const float* __restrict__ dz,
+    const T* __restrict__ x, const T* __restrict__ dz,
     const float* __restrict__ dgc, const float* __restrict__ att,
     const float* __restrict__ w1n, const float* __restrict__ b1n,
     const float* __restrict__ W1, const float* __restrict__ b1,
     const float* __restrict__ kdw, const float* __restrict__ bk,
     const float* __restrict__ W3, const float* __restrict__ beta,
-    float* __restrict__ dt_o, float* __restrict__ part, int C, int H, int W,
+    T* __restrict__ dt_o, float* __restrict__ part, int C, int H, int W,
     int tiles_x, float eps) {
   constexpr int KO = kBGate;
   extern __shared__ float smem[];
@@ -789,8 +813,8 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
   const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
   const long long HW = (long long)H * W;
   const long long pix = inside ? (long long)gr * W + gc : 0;
-  const float* xn = x + (long long)n * C * HW + pix;
-  const float* dzn = dz + (long long)n * C * HW + pix;
+  const T* xn = x + (long long)n * C * HW + pix;
+  const T* dzn = dz + (long long)n * C * HW + pix;
 
   float acc[2 * KO], dv[KO];
 #pragma unroll
@@ -800,10 +824,10 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
 
   if (inside) {
     // LN1 statistics (shifted one pass, as K1)
-    const float k0 = xn[0];
+    const float k0 = to_f<T>(xn[0]);
     float s1 = 0.f, s2 = 0.f;
     for (int c = 0; c < C; ++c) {
-      const float d = xn[(long long)c * HW] - k0;
+      const float d = to_f<T>(xn[(long long)c * HW]) - k0;
       s1 += d;
       s2 = fmaf(d, d, s2);
     }
@@ -816,8 +840,8 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
       float h[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float xv = xn[(long long)(c + q) * HW];
-        h[q] = fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]);
+        const float xv = to_f<T>(xn[(long long)(c + q) * HW]);
+        h[q] = to_cdt<T>(fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]));
       }
 #pragma unroll
       for (int r = 0; r < KO; ++r) {
@@ -832,7 +856,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
     }
     // local gate grad dv[j] = sum_c W3[c, j] * round(beta[c] * dz[c])
     for (int c = 0; c < C; ++c) {
-      const float pr = beta[c] * dzn[(long long)c * HW];
+      const float pr = to_cdt<T>(beta[c] * to_f<T>(dzn[(long long)c * HW]));
       const float* row = W3 + (long long)c * C + j0;
 #pragma unroll
       for (int r = 0; r < KO; r += 4) {
@@ -889,7 +913,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
   const bool own = inside && hr >= 2 && hr < 2 + kBT && hc >= 2 &&
                    hc < 2 + kBT;
   const int warp = tid / 32, lane = tid % 32;
-  float* dtn = dt_o + (long long)n * 2 * C * HW + pix;
+  T* dtn = dt_o + (long long)n * 2 * C * HW + pix;
 #pragma unroll 1
   for (int r2 = 0; r2 < 2 * KO; ++r2) {
     const int jl = j0 + (r2 % KO);
@@ -920,7 +944,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
       red_s[(warp * kBRed + 9) * 2 * KO + r2] = s_bk;
       red_s[(warp * kBRed + 10) * 2 * KO + r2] = s_b1;
     }
-    if (ok) dtn[(long long)jg * HW] = dt;
+    if (ok) dtn[(long long)jg * HW] = from_f<T>(dt);
   }
   __syncthreads();
   float* pt = part + ((long long)n * gridDim.x + tile) * kBRed * 2 * C;
@@ -937,7 +961,8 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K4b (fp32): LN1 backward and dx.  grid (ceil(HW / P), N), block kThreads.
+// K4b (FMA route): LN1 backward and dx.  grid (ceil(HW / P), N), block
+// kThreads.
 // Per-block partials [dw1n C | db1n C].
 // ---------------------------------------------------------------------------
 
@@ -947,13 +972,13 @@ int p2_pixels(int C) {
   return 0;
 }
 
-template <int KO, int P>
+template <typename T, int KO, int P>
 __global__ void __launch_bounds__(kThreads) k4b_kernel(
-    const float* __restrict__ x, const float* __restrict__ dz,
-    const float* __restrict__ dt, const float* __restrict__ w1n,
+    const T* __restrict__ x, const T* __restrict__ dz,
+    const T* __restrict__ dt, const float* __restrict__ w1n,
     const float* __restrict__ b1n, const float* __restrict__ W1,
-    float* __restrict__ dx_out, float* __restrict__ h_o,
-    float* __restrict__ vpart, int C, long long HW, float eps) {
+    T* __restrict__ dx_out, T* __restrict__ h_o, float* __restrict__ vpart,
+    int C, long long HW, float eps) {
   constexpr int G = kThreads / P;
   extern __shared__ float smem[];
   float* t_s = smem;            // [2C] dt (compute type)
@@ -973,9 +998,9 @@ __global__ void __launch_bounds__(kThreads) k4b_kernel(
   const int it_c = (C + G * KO - 1) / (G * KO);
 
   for (int c = grp; c < C; c += G)
-    x_s[c * P + lane] = valid ? x[base + (long long)c * HW] : 0.f;
+    x_s[c * P + lane] = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
   for (int j = grp; j < 2 * C; j += G)
-    t_s[j * P + lane] = valid ? dt[base2 + (long long)j * HW] : 0.f;
+    t_s[j * P + lane] = valid ? to_f<T>(dt[base2 + (long long)j * HW]) : 0.f;
   __syncthreads();
 
   float mu, rstd;
@@ -984,7 +1009,7 @@ __global__ void __launch_bounds__(kThreads) k4b_kernel(
     const float xh = (x_s[c * P + lane] - mu) * rstd;
     x_s[c * P + lane] = xh;
     if (valid)
-      h_o[base + (long long)c * HW] = fmaf(xh, w1n[c], b1n[c]);
+      h_o[base + (long long)c * HW] = from_f<T>(fmaf(xh, w1n[c], b1n[c]));
   }
   __syncthreads();
 
@@ -1022,8 +1047,8 @@ __global__ void __launch_bounds__(kThreads) k4b_kernel(
     for (int c = grp; c < C; c += G) {
       const float gxh = h_s[c * P + lane] * w1n[c];
       const float dx = (gxh - mean_g - x_s[c * P + lane] * mean_gx) * rstd +
-                       dz[base + (long long)c * HW];
-      dx_out[base + (long long)c * HW] = dx;
+                       to_f<T>(dz[base + (long long)c * HW]);
+      dx_out[base + (long long)c * HW] = from_f<T>(dx);
     }
   }
 }
@@ -1057,29 +1082,29 @@ struct P2Args {
   float eps;
 };
 
-template <int KO, int P>
+template <typename T, int KO, int P>
 cudaError_t launch_k4b(const P2Args& a, const P2Work& w, cudaStream_t s) {
   const size_t smem = (size_t)4 * a.C * P * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      k4b_kernel<KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k4b_kernel<T, KO, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const long long HW = (long long)a.H * a.W;
   const unsigned blocks = (unsigned)((HW + P - 1) / P);
-  k4b_kernel<KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
-      static_cast<const float*>(a.x), static_cast<const float*>(a.dz),
-      static_cast<const float*>(w.dt), static_cast<const float*>(a.w1n),
+  k4b_kernel<T, KO, P><<<dim3(blocks, (unsigned)a.N), kThreads, smem, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dz),
+      static_cast<const T*>(w.dt), static_cast<const float*>(a.w1n),
       static_cast<const float*>(a.b1n), static_cast<const float*>(a.W1),
-      static_cast<float*>(a.dx), static_cast<float*>(w.h), w.part_b, a.C, HW,
-      a.eps);
+      static_cast<T*>(a.dx), static_cast<T*>(w.h), w.part_b, a.C, HW, a.eps);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t run_p2(const P2Args& a, cudaStream_t s) {
   const int P = p2_pixels(a.C);
   if (P == 0) return cudaErrorInvalidValue;
   Carver cv{static_cast<char*>(a.ws)};
-  const P2Work w = carve_p2(cv, a.N, a.C, a.H, a.W, P, sizeof(float));
+  const P2Work w = carve_p2(cv, a.N, a.C, a.H, a.W, P, sizeof(T));
   const int C = a.C, N = a.N;
   const long long HW = (long long)a.H * a.W;
   float* grads = static_cast<float*>(a.grads);
@@ -1089,42 +1114,40 @@ cudaError_t run_p2(const P2Args& a, cudaStream_t s) {
 
   const size_t smem_a = k4a_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      k4a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k4a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_a);
   if (err != cudaSuccess) return err;
   const int tiles_x = (a.W + kBT - 1) / kBT;
   const int tiles = p2_tiles(a.H, a.W);
   const dim3 grid_a((unsigned)tiles, (unsigned)((C + kBGate - 1) / kBGate),
                     (unsigned)N);
-  k4a_kernel<<<grid_a, kThreads, smem_a, s>>>(
-      static_cast<const float*>(a.x), static_cast<const float*>(a.dz),
+  k4a_kernel<T><<<grid_a, kThreads, smem_a, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dz),
       static_cast<const float*>(a.dgc), static_cast<const float*>(a.att),
       static_cast<const float*>(a.w1n), static_cast<const float*>(a.b1n),
       static_cast<const float*>(a.W1), static_cast<const float*>(a.b1),
       static_cast<const float*>(a.kdw), static_cast<const float*>(a.bk),
       static_cast<const float*>(a.W3), static_cast<const float*>(a.beta),
-      static_cast<float*>(w.dt), w.part_a, C, a.H, a.W, tiles_x, a.eps);
+      static_cast<T*>(w.dt), w.part_a, C, a.H, a.W, tiles_x, a.eps);
   if ((err = cudaGetLastError())) return err;
   if ((err = launch_sum_rows(w.part_a, vec_a, 1, N * tiles,
                              (long long)kBRed * 2 * C, s)))
     return err;
 
   if (P == 32)
-    err = C <= 64 ? launch_k4b<8, 32>(a, w, s)
-                  : launch_k4b<16, 32>(a, w, s);
+    err = C <= 64 ? launch_k4b<T, 8, 32>(a, w, s)
+                  : launch_k4b<T, 16, 32>(a, w, s);
   else if (P == 16)
-    err = launch_k4b<16, 16>(a, w, s);
+    err = launch_k4b<T, 16, 16>(a, w, s);
   else
-    err = launch_k4b<16, 8>(a, w, s);
+    err = launch_k4b<T, 16, 8>(a, w, s);
   if (err != cudaSuccess) return err;
   const int blocks_b = (int)((HW + P - 1) / P);
   if ((err = launch_sum_rows(w.part_b, vec_b, 1, N * blocks_b, 2 * C, s)))
     return err;
-  return wgrad<float>(static_cast<const float*>(w.dt),
-                      static_cast<const float*>(w.h), 2 * C, C, N, HW,
-                      w.wpart, dW1, s);
+  return wgrad<T>(static_cast<const T*>(w.dt), static_cast<const T*>(w.h),
+                  2 * C, C, N, HW, w.wpart, dW1, s);
 }
-
 
 // ---------------------------------------------------------------------------
 // K4 in bf16: k4_front_kernel -> k4_dw_kernel -> k4_back_kernel ->
@@ -1278,7 +1301,8 @@ cudaError_t run_p2_mma(const P2Args& a, int P, int BX, int DX,
 
 extern "C" {
 
-// fp32 K3 pixels per block (0: the shape does not fit in shared memory).
+// Pixels per block of K3's FMA kernel (0: the shape does not fit in shared
+// memory).
 int nafblk_p1_pixels(int C, int F) { return p1_pixels(C, F); }
 
 // Dynamic shared memory (bytes) of the bf16 K3 with a tile of P pixels,
@@ -1298,30 +1322,30 @@ int nafblk_p1_mma_blocks_per_sm(int C, int F, int P) {
                    : k3_mma_occupancy<8>(C, F);
 }
 
-// Workspace bytes nafblk_p1 needs (-1: the shape or tile is not taken).
+// Workspace bytes nafblk_p1 needs (-1: the shape or route is not taken).
 // tile, grid: pixels per block (8, 16 or 32) and blocks per image of the
-// bf16 kernel; unused in fp32.
+// tensor-core route (bf16 only); tile = 0 chooses the FMA route.
 long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16,
                               int tile, int grid) {
   Carver cv{nullptr};
-  if (is_bf16) {
-    if (!p1_mma_ok(C, F, HW, tile, grid)) return -1;
+  if (tile > 0) {
+    if (!is_bf16 || !p1_mma_ok(C, F, HW, tile, grid)) return -1;
     carve_p1_mma(cv, N, C, F, HW, tile, grid);
   } else {
     const int P = p1_pixels(C, F);
-    if (P == 0) return -1;
-    carve_p1(cv, N, C, F, HW, P);
+    if (P == 0 || C % 4 || F % 4) return -1;
+    carve_p1(cv, N, C, F, HW, P, is_bf16 ? sizeof(bf16) : sizeof(float));
   }
   return (long long)cv.off;
 }
 
 // K3. x, g, dout, dz: [N, C, HW] (fp32, or bf16 when is_bf16); att, da:
-// [N, C] fp32; W3, W4, W5: fp32, or bf16 when is_bf16; the vectors fp32;
-// grads: fp32 [dW3 C*C | dW4 2F*C | dW5 C*F | dgamma C | db5 C | db4 2F |
-// dw2n C | db2n C | dbeta C | db3 C]; ws: workspace.
-// fp32 requires C % 4 == 0, F % 4 == 0, nafblk_p1_pixels(C, F) > 0; bf16
-// requires C % 16 == 0, F % 16 == 0, a tile that fits and 1 <= grid <= the
-// image's tiles.
+// [N, C] fp32; the vectors fp32; grads: fp32 [dW3 C*C | dW4 2F*C |
+// dW5 C*F | dgamma C | db5 C | db4 2F | dw2n C | db2n C | dbeta C | db3 C];
+// ws: workspace. tile = 0: the FMA route (W3, W4, W5 fp32, holding bf16
+// values when is_bf16; C % 4 == 0, F % 4 == 0, nafblk_p1_pixels(C, F) > 0);
+// tile > 0: the tensor-core route (bf16 with W3, W4, W5 bf16, C % 16 == 0,
+// F % 16 == 0, a tile that fits and 1 <= grid <= the image's tiles).
 int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
               const void* W3, const void* b3, const void* w2n, const void* b2n,
               const void* W4, const void* b4, const void* W5, const void* b5,
@@ -1331,8 +1355,11 @@ int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const P1Args a{x, g, dout, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta,
                  gamma, dz, da, grads, ws, N, C, F, HW, eps};
-  if (is_bf16) return (int)run_p1_mma(a, tile, grid, s);
-  return (int)run_p1(a, s);
+  if (tile > 0)
+    return is_bf16 ? (int)run_p1_mma(a, tile, grid, s)
+                   : (int)cudaErrorInvalidValue;
+  if (is_bf16) return (int)run_p1<bf16>(a, s);
+  return (int)run_p1<float>(a, s);
 }
 
 // Dynamic shared memory (bytes) of the bf16 K4's two pixel-tile kernels
@@ -1359,29 +1386,34 @@ int nafblk_p2_dw_blocks_per_sm() {
   return occupancy((const void*)k4_dw_kernel, 0);
 }
 
-// Workspace bytes nafblk_p2 needs (-1: the shape or geometry is not taken).
-// tile, grid, dw_grid: the bf16 kernels' pixels per tile (8, 16 or 32),
-// blocks per image of the pixel-tile kernels and of the depthwise kernel;
-// unused in fp32.
+// Pixels per block of K4's FMA back kernel k4b_kernel (0: the shape does
+// not fit in shared memory).
+int nafblk_p2_pixels(int C) { return p2_pixels(C); }
+
+// Workspace bytes nafblk_p2 needs (-1: the shape or route is not taken).
+// tile, grid, dw_grid: the tensor-core route's pixels per tile (8, 16 or
+// 32), blocks per image of the pixel-tile kernels and of the depthwise
+// kernel (bf16 only); tile = 0 chooses the FMA route.
 long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16,
                               int tile, int grid, int dw_grid) {
   Carver cv{nullptr};
-  if (is_bf16) {
-    if (!p2_mma_ok(C, H, W, tile, grid, dw_grid)) return -1;
+  if (tile > 0) {
+    if (!is_bf16 || !p2_mma_ok(C, H, W, tile, grid, dw_grid)) return -1;
     carve_p2_mma(cv, N, C, H, W, tile, grid, dw_grid);
   } else {
     const int P = p2_pixels(C);
-    if (P == 0) return -1;
-    carve_p2(cv, N, C, H, W, P, sizeof(float));
+    if (P == 0 || C % 4) return -1;
+    carve_p2(cv, N, C, H, W, P, is_bf16 ? sizeof(bf16) : sizeof(float));
   }
   return (long long)cv.off;
 }
 
 // K4. x, dz, dx: [N, C, H*W] (fp32, or bf16 when is_bf16); dgc, att:
-// [N, C] fp32; W1, W3: fp32, or bf16 when is_bf16; the vectors fp32;
-// grads: fp32 [dW1 2C*C | 11 x 2C: dkdw^T (9 rows), dbk, db1 | dw1n C |
-// db1n C]; ws: workspace. fp32 requires C % 4 == 0; bf16 requires
-// C % 16 == 0 and the geometry nafblk_p2_workspace takes.
+// [N, C] fp32; the vectors fp32; grads: fp32 [dW1 2C*C | 11 x 2C: dkdw^T
+// (9 rows), dbk, db1 | dw1n C | db1n C]; ws: workspace. tile = 0: the FMA
+// route (W1, W3 fp32, holding bf16 values when is_bf16; C % 4 == 0);
+// tile > 0: the tensor-core route (bf16 with W1, W3 bf16, C % 16 == 0 and
+// the geometry nafblk_p2_workspace takes).
 int nafblk_p2(const void* x, const void* dz, const void* dgc, const void* att,
               const void* w1n, const void* b1n, const void* W1, const void* b1,
               const void* kdw, const void* bk, const void* W3,
@@ -1391,8 +1423,11 @@ int nafblk_p2(const void* x, const void* dz, const void* dgc, const void* att,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const P2Args a{x, dz, dgc, att, w1n, b1n, W1, b1, kdw, bk, W3, beta,
                  dx, grads, ws, N, C, H, W, eps};
-  if (is_bf16) return (int)run_p2_mma(a, tile, grid, dw_grid, s);
-  return (int)run_p2(a, s);
+  if (tile > 0)
+    return is_bf16 ? (int)run_p2_mma(a, tile, grid, dw_grid, s)
+                   : (int)cudaErrorInvalidValue;
+  if (is_bf16) return (int)run_p2<bf16>(a, s);
+  return (int)run_p2<float>(a, s);
 }
 
 }  // extern "C"

@@ -51,6 +51,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "nafblk_p2_mma_smem": (_L, [_I, _I]),
         "nafblk_p2_mma_blocks_per_sm": (_I, [_I, _I]),
         "nafblk_p2_dw_blocks_per_sm": (_I, []),
+        "nafblk_p2_pixels": (_I, [_I]),
         "nafblk_p2_workspace": (_L, [_I] * 8),
         "nafblk_p2": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _I, _I, _I, _I,
                                        _P]),
@@ -61,7 +62,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "ln_bwd": (_I, [_P] * 7 + [_I, _I, _L, _I, _I, _I, _P]),
     },
     "pool": {
-        "relu_pool_fwd": (_I, [_P, _P, _L, _I, _I, _I, _P]),
+        "relu_pool_fwd": (_I, [_P, _P, _L] + [_I] * 9 + [_P]),
+        "relu_pool_fwd_blocks_per_sm": (_I, [_I] * 4),
         "pool_bwd": (_I, [_P, _P, _P, _L, _I, _I, _I, _I, _P]),
     },
 }

@@ -31,11 +31,13 @@ failure:
 - bf16 with C (and F) a multiple of 16 runs on the tensor cores
   (``mma.sync``): K1 as ``k1_front_kernel`` + ``k1_dw_kernel`` with the
   tile and grids of :func:`k1_geometry`, K2 as ``k2_mma_kernel``
-  (:func:`k2_geometry`), K3 as ``k3_mma_kernel`` (:func:`p1_tile`), K4 as
-  its front, depthwise and back kernels (:func:`p2_tile`);
+  (:func:`k2_geometry`), K3 as ``k3_mma_kernel`` (:func:`p1_geometry`), K4
+  as its front, depthwise and back kernels (:func:`p2_geometry`);
 - fp32 runs the FMA kernels (TF32 would break the 1e-4 tolerance), and so
-  do K1 and K2 in bf16 with C % 16 != 0 (C % 4 == 0); K3 and K4 in bf16
-  raise there.
+  does bf16 at any other C % 4 == 0 (F % 4 == 0), all four kernels alike:
+  the FMA kernels are instantiated for bf16 activations, with every
+  product operand rounded to bf16 as the tensor-core route rounds it. A
+  bf16 block whose forward runs on the card runs its backward there too.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
@@ -681,6 +683,27 @@ def p1_tile(n: int, c: int, f: int, s: int) -> int:
                              lambda t: p1_blocks_per_sm(c, f, t))
 
 
+# Pixels per block of the FMA route of K3 and K4 (csrc/nafblock_bwd.cu:
+# p1_pixels, p2_pixels; fp32, and bf16 at C or F no multiple of 16): K3
+# keeps (4C + 3F) fp32 rows of P pixels in shared memory, K4's back kernel
+# 4C. chip_smoke.py holds both against the built library's counts.
+def p1_fma_pixels(c: int, f: int) -> int:
+    """Pixels per block of K3's FMA kernel; 0 when no tile fits."""
+    for t in P1_TILES:
+        if (4 * c + 3 * f) * t * 4 <= P1_SMEM_LIMIT:
+            return t
+    return 0
+
+
+def p1_geometry(dtype: torch.dtype, n: int, c: int, f: int,
+                s: int) -> Tuple[int, int]:
+    """``(tile, grid)`` of K3's tensor-core route on a bf16 ``[N, C, S]``
+    input (:func:`p1_tile`, :func:`p1_grid`). ``(0, 0)`` chooses the FMA
+    route: fp32, or C, F no multiples of 16, or too wide for any tile."""
+    tile = p1_tile(n, c, f, s) if dtype == torch.bfloat16 else 0
+    return (tile, p1_grid(n, c, f, s, tile)) if tile else (0, 0)
+
+
 def rounded_matrices(p: Params, dt: torch.dtype) -> Params:
     """``p`` with its matrices rounded to bf16 for a block that runs in
     bf16 (``p`` itself otherwise): the four kernels of one forward and
@@ -692,17 +715,21 @@ def rounded_matrices(p: Params, dt: torch.dtype) -> Params:
             for k, t in p.items()}
 
 
-def p1_operands(p: Params, cdt: torch.dtype) -> list:
+def p1_operands(p: Params, cdt: torch.dtype, mma: bool = True) -> list:
     """K3's ten parameters as its kernels take them: W3, W4, W5 rounded to
-    ``cdt`` and handed over in ``cdt`` (bf16 matrices go to the tensor
-    cores as they are; fp32 ones to the FMA kernels), vectors fp32."""
-    return _kernel_args(p, _B_PARAMS, cdt, matrices=cdt)
+    ``cdt`` and handed over in ``cdt`` on the tensor-core route (``mma``:
+    bf16 matrices go to the tensor cores as they are), in fp32 on the FMA
+    route; vectors fp32."""
+    return _kernel_args(p, _B_PARAMS, cdt,
+                        matrices=cdt if mma else torch.float32)
 
 
 def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
             att: torch.Tensor, p: Params, eps: float = 1e-6):
     """K3 on ``x, g, dout: [N, C, H*W]``, ``att: [N, C]`` -> ``(dz, da,
-    grads)``; plain version on CPU."""
+    grads)``; plain version on CPU. On CUDA the route follows
+    :func:`p1_geometry`: the tensor-core kernels, or the FMA kernel (fp32,
+    and bf16 with C or F no multiple of 16; C, F multiples of 4)."""
     if not x.is_cuda:
         return plain_p1(x, g, dout, att, p, eps)
     n, c, s = x.shape
@@ -715,19 +742,12 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
     _check_cuda(x, p, _B_PARAMS)
     lib = _build.load("nafblock_bwd")
     bf16 = int(x.dtype == torch.bfloat16)
-    tile = p1_tile(n, c, f, s) if bf16 else 0
-    grid = p1_grid(n, c, f, s, tile) if tile else 0
-    if bf16 and tile == 0:
-        raise ValueError(
-            f"K3 in bf16 needs C and F to be multiples of 16 and "
-            f"{p1_smem_bytes(c, f, P1_TILES[-1])} bytes of shared memory for "
-            f"a tile of {P1_TILES[-1]} pixels (22C + 3 slabs; the limit is "
-            f"{P1_SMEM_LIMIT}); got C={c}, F={f}")
+    tile, grid = p1_geometry(x.dtype, n, c, f, s)
     ws_bytes = lib.nafblk_p1_workspace(n, c, f, s, bf16, tile, grid)
     if ws_bytes < 0:
-        raise ValueError(f"K3 in fp32 keeps (4C+3F) x 8 fp32 values per "
+        raise ValueError(f"K3's FMA route keeps (4C+3F) x 8 fp32 values per "
                          f"block in shared memory; C={c}, F={f} does not fit")
-    args = p1_operands(p, _compute_dtype(x))
+    args = p1_operands(p, _compute_dtype(x), mma=tile > 0)
     att = att.detach().float().contiguous()
     dz = torch.empty_like(dout)
     da = torch.empty((n, c), device=x.device, dtype=torch.float32)
@@ -822,13 +842,36 @@ def p2_dw_grid(n: int, c: int, h: int, w: int) -> int:
     return _dw_grid(n, c, h, w, P2_DW_TILE, P2_DW_BLOCKS_PER_SM)
 
 
+def p2_fma_pixels(c: int) -> int:
+    """Pixels per block of K4's FMA back kernel (4C fp32 rows of the
+    tile in shared memory); 0 when no tile fits."""
+    for t in P1_TILES:
+        if 4 * c * t * 4 <= P1_SMEM_LIMIT:
+            return t
+    return 0
+
+
+def p2_geometry(dtype: torch.dtype, n: int, c: int, h: int,
+                w: int) -> Tuple[int, int, int]:
+    """``(tile, grid, dw_grid)`` of K4's tensor-core route on a bf16
+    ``[N, C, H*W]`` input (:func:`p2_tile`, :func:`p2_grid`,
+    :func:`p2_dw_grid`). ``(0, 0, 0)`` chooses the FMA route: fp32, or a C
+    that is no multiple of 16 or too wide for any tile."""
+    tile = p2_tile(n, c, h * w) if dtype == torch.bfloat16 else 0
+    if not tile:
+        return 0, 0, 0
+    return tile, p2_grid(n, c, h * w, tile), p2_dw_grid(n, c, h, w)
+
+
 def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
             att: torch.Tensor, p: Params, hw: Tuple[int, int],
             eps: float = 1e-6):
     """K4 on ``x, dz: [N, C, H*W]``, ``dgc, att: [N, C]`` -> ``(dx,
-    grads)``; plain version on CPU. In bf16 W1 and W3 go to the tensor
-    cores as bf16 (as :class:`NAFBlockFunction` hands them over, with no
-    conversion)."""
+    grads)``; plain version on CPU. On CUDA the route follows
+    :func:`p2_geometry`: on the tensor-core route W1 and W3 go to the
+    kernels as bf16 (as :class:`NAFBlockFunction` hands them over, with no
+    conversion); the FMA route (fp32, and bf16 with C no multiple of 16)
+    takes them in fp32."""
     if not x.is_cuda:
         return plain_p2(x, dz, dgc, att, p, hw, eps)
     n, c, s = x.shape
@@ -842,21 +885,14 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
     _check_cuda(x, p, _P2_PARAMS)
     lib = _build.load("nafblock_bwd")
     bf16 = int(x.dtype == torch.bfloat16)
-    tile = p2_tile(n, c, s) if bf16 else 0
-    if bf16 and tile == 0:
-        raise ValueError(
-            f"K4 in bf16 needs C to be a multiple of 16 and "
-            f"{p2_smem_bytes(c, P1_TILES[-1])} bytes of shared memory for a "
-            f"tile of {P1_TILES[-1]} pixels (the limit is {P1_SMEM_LIMIT}); "
-            f"got C={c}")
-    grid = p2_grid(n, c, s, tile) if tile else 0
-    dw_grid = p2_dw_grid(n, c, h, w) if tile else 0
+    tile, grid, dw_grid = p2_geometry(x.dtype, n, c, h, w)
     ws_bytes = lib.nafblk_p2_workspace(n, c, h, w, bf16, tile, grid, dw_grid)
     if ws_bytes < 0:
-        raise ValueError(f"K4 keeps 4C x 8 fp32 values per block in shared "
-                         f"memory; C={c} does not fit")
+        raise ValueError(f"K4's FMA route keeps 4C x 8 fp32 values per block "
+                         f"in shared memory; C={c} does not fit")
     cdt = _compute_dtype(x)
-    args = _kernel_args(p, _P2_PARAMS, cdt, matrices=cdt)
+    args = _kernel_args(p, _P2_PARAMS, cdt,
+                        matrices=cdt if tile else torch.float32)
     dgc = dgc.detach().float().contiguous()
     att = att.detach().float().contiguous()
     dx = torch.empty_like(dz)

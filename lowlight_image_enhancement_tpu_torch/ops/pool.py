@@ -15,7 +15,8 @@ Counterpart of ``lowlight_image_enhancement_tpu/ops/pallas/pool.py``
 
 An odd trailing row or column of ``x`` belongs to no window (the output
 is ``[N, C, H // 2, W // 2]``) and gets a zero gradient. The kernels take
-every shape.
+every shape. K7's vector widths, block and grid are chosen here
+(:func:`pool_fwd_geometry`) and only checked by the kernel.
 
 :func:`relu_max_pool_2x2` joins K7 and K8 (``relu=True``) under autograd;
 :func:`max_pool_2x2_bwd` is K8 with ``relu=False``, the backward of a
@@ -28,9 +29,12 @@ kernel or raises. Each wrapper counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+from typing import Dict, NamedTuple, Tuple
+
 import torch
 
 from lowlight_image_enhancement_tpu_torch.ops import _build
+from lowlight_image_enhancement_tpu_torch.ops.layernorm import SM_COUNT
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -93,18 +97,101 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} is too large: {tuple(x.shape)}")
 
 
+# K7's geometry (csrc/pool.cu:relu_pool_fwd_kernel). A thread makes Q = 16
+# bytes of consecutive outputs of one output row (8 bf16 or 4 fp32 values,
+# a "group") from 2Q elements of each of the two input rows of its windows.
+# It loads them in vectors of lv elements and stores in vectors of sv:
+#   lv = Q (16 bytes) where W % Q == 0 and x is 16-byte aligned, with
+#        sv = Q where Wo % Q == 0, else Q / 2 (8 bytes);
+#   lv = 2 where W is even (and x aligned to 2 elements), sv = 2 where Wo
+#        is even, else 1;
+#   lv = sv = 1 else (W odd).
+# A block is bx groups of a row by by rows (bx * by <= 256; a row of more
+# than 256 groups is cut into gy chunks of bx groups); gx blocks take the
+# rows in strides of gx * by: one row a thread up to two rounds of blocks
+# over the card, the rows beyond walked by addition.
+POOL_FWD_THREADS = 256
+POOL_FWD_ROUNDS = 2
+
+
+class PoolFwdGeometry(NamedTuple):
+    lv: int   # elements a load moves
+    sv: int   # elements a store moves
+    bx: int   # threads of a block along a row: groups
+    by: int   # ... across rows
+    gx: int   # blocks over the rows
+    gy: int   # blocks along a row
+
+
+def pool_fwd_geometry(dtype: torch.dtype, nc: int, h: int, w: int,
+                      per_sm: int, offset: int = 0) -> PoolFwdGeometry:
+    """K7's vector widths, block and grid on ``[NC, H, W]`` of ``dtype``
+    whose data starts ``offset`` bytes past a 16-byte boundary, with
+    ``per_sm`` blocks an SM (the built kernel's count on CUDA)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    q = 16 // es
+    wo = w // 2
+    fits = lambda lv: w % lv == 0 and offset % (lv * es) == 0
+    if fits(q):
+        lv, sv = q, (q if wo % q == 0 else q // 2)
+    elif fits(2):
+        lv, sv = 2, (2 if wo % 2 == 0 else 1)
+    else:
+        lv = sv = 1
+    groups = max(1, -(-wo // q))
+    gy = -(-groups // POOL_FWD_THREADS)
+    bx = -(-groups // gy)
+    by = POOL_FWD_THREADS // bx
+    rows = max(1, nc * (h // 2))
+    gx = max(1, min(-(-rows // by),
+                    -(-POOL_FWD_ROUNDS * SM_COUNT * per_sm // gy)))
+    return PoolFwdGeometry(lv, sv, bx, by, gx, gy)
+
+
+def pool_fwd_blocks_per_sm(dtype: torch.dtype, lv: int, sv: int,
+                           threads: int) -> int:
+    """Blocks of the built K7 with ``(lv, sv)`` and ``threads`` threads a
+    block that share an SM, as the CUDA runtime counts them (once per
+    argument tuple)."""
+    key = (dtype == torch.bfloat16, lv, sv, threads)
+    if key not in _POOL_PER_SM:
+        per_sm = _build.load("pool").relu_pool_fwd_blocks_per_sm(
+            int(key[0]), lv, sv, threads)
+        if per_sm < 1:
+            raise RuntimeError(f"K7 {key}: no block fits on an SM ({per_sm})")
+        _POOL_PER_SM[key] = per_sm
+    return _POOL_PER_SM[key]
+
+
+_POOL_PER_SM: Dict[Tuple[bool, int, int, int], int] = {}
+
+
+def pool_fwd_geometry_for(x: torch.Tensor) -> PoolFwdGeometry:
+    """K7's geometry on the CUDA tensor ``x: [N, C, H, W]``: blocks per SM
+    from the built kernel at the block size the geometry chooses."""
+    n, c, h, w = x.shape
+    offset = x.data_ptr() % 16
+    first = pool_fwd_geometry(x.dtype, n * c, h, w, 1, offset)
+    per_sm = pool_fwd_blocks_per_sm(x.dtype, first.lv, first.sv,
+                                    first.bx * first.by)
+    return pool_fwd_geometry(x.dtype, n * c, h, w, per_sm, offset)
+
+
 def call_relu_pool_fwd(x: torch.Tensor) -> torch.Tensor:
     """K7 on ``x: [N, C, H, W]`` -> ``[N, C, H // 2, W // 2]``; plain
-    version on CPU."""
+    version on CPU. On CUDA the geometry is :func:`pool_fwd_geometry_for`."""
     if not x.is_cuda:
         return plain_relu_pool_fwd(x)
     _check_cuda(x, "x")
     n, c, h, w = x.shape
     y = torch.empty((n, c, h // 2, w // 2), device=x.device, dtype=x.dtype)
+    if y.numel() == 0:
+        return y
+    geo = pool_fwd_geometry_for(x)
     lib = _build.load("pool")
     with torch.cuda.device(x.device):
         rc = lib.relu_pool_fwd(x.data_ptr(), y.data_ptr(), n * c, h, w,
-                               int(x.dtype == torch.bfloat16),
+                               int(x.dtype == torch.bfloat16), *geo,
                                _build.current_stream(x))
     if rc != 0:
         raise RuntimeError(f"relu_pool_fwd launch failed: CUDA error {rc}")

@@ -8,7 +8,8 @@ tested on the CPU:
   fits in shared memory, at most one round of blocks over the card, no
   more blocks than tiles, and at least 66 blocks (half the SMs of an H100)
   wherever N*H*W >= 1024;
-- ``p2_tile`` refuses a C that is no multiple of 16 (one tensor-core step);
+- ``p2_tile`` refuses a C that is no multiple of 16 (one tensor-core step),
+  which K4's FMA route takes instead (``p2_geometry``, ``p2_fma_pixels``);
 - ``plain_ln_bwd`` against the JAX ``_bwd_call`` (Pallas interpret mode) at
   C=48 on a pixel count that is no multiple of 8 and at C=1024, and
   ``plain_p2`` against the JAX ``_call_p2`` at C=48 on a 12x20 image
@@ -111,7 +112,11 @@ def test_k4_tile_and_grids_are_legal_and_fill_the_card(n, c, h, w):
 
 @pytest.mark.parametrize("c", [4, 8, 24, 40, 72])
 def test_k4_tile_refuses_c_that_is_no_multiple_of_16(c):
+    # no tensor-core tile: a bf16 K4 at such a C takes the FMA route, whose
+    # back kernel fits the widest tile
     assert ops.p2_tile(2, c, 4096) == 0
+    assert ops.p2_geometry(torch.bfloat16, 2, c, 64, 64) == (0, 0, 0)
+    assert ops.p2_fma_pixels(c) == 32
 
 
 def test_k4_tile_narrows_as_the_image_shrinks_and_fits_c1024():
@@ -119,6 +124,7 @@ def test_k4_tile_narrows_as_the_image_shrinks_and_fits_c1024():
     assert tiles == sorted(tiles, reverse=True)
     assert ops.p2_tile(2, 1024, 1024) == 8
     assert ops.p2_tile(2, 4096, 1024) == 0     # no tile fits
+    assert ops.p2_fma_pixels(4096) == 0        # nor on the FMA route
 
 
 def test_k4_resident_weights_only_up_to_64_channels():

@@ -160,9 +160,14 @@ def test_rounded_matrices_are_shared_by_the_block_without_a_changed_bit():
 
 
 def test_k3_tile_refuses_what_the_kernel_cannot_take():
+    # C or F no multiple of 16: no tensor-core tile, the FMA route instead
     assert ops.p1_tile(2, 40, 40, 4096) == 0      # C no multiple of 16
     assert ops.p1_tile(2, 32, 24, 4096) == 0      # F no multiple of 16
+    for c, f in ((40, 40), (32, 24), (4, 4), (8, 16), (24, 48), (72, 72)):
+        assert ops.p1_geometry(torch.bfloat16, 2, c, f, 4096) == (0, 0)
+        assert ops.p1_fma_pixels(c, f) == 32
     assert ops.p1_tile(2, 2048, 2048, 1024) == 0  # no tile fits
+    assert ops.p1_fma_pixels(2048, 2048) == 0     # nor on the FMA route
     # the tile only narrows as the image shrinks
     tiles = [ops.p1_tile(2, 64, 64, s) for s in (4096, 2048, 1024, 512, 64)]
     assert tiles == sorted(tiles, reverse=True)
