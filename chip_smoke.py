@@ -26,10 +26,11 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles)
    and at NAFSSR's C=48 with 30x90 pixels and N=16, checking dz, da, dx
    and every weight grad;
-4b. narrow-channel phase: the same at C = 8, 24, 40 and 12 (no multiples
-   of 16: in bf16 all four kernels take the FMA route), F = C on 2xCx64^2
-   and 2xCx20^2 and F = 2C on 2xCx64^2, fp32 and bf16, with the route
-   that K3 and K4 took named by their device kernels;
+4b. narrow-channel phase: the same at C = 8, 24, 40, 12, 6 and 10 (no
+   multiples of 16: in bf16 all four kernels take the FMA route; 6 and
+   10 are no multiples of 4 either, and the matrices' rows are padded),
+   F = C on 2xCx64^2 and 2xCx20^2 and F = 2C on 2xCx64^2, fp32 and bf16,
+   with the route that each of K1-K4 took named by its device kernels;
 5. serving phase: ``RestorationServer`` on ``NewBPNAFNet`` (width 32,
    full depth: 36 NAFBlocks) in bf16 with seeded random weights answers 8
    mixed-size requests (one through the tiled path); checks shapes,
@@ -51,6 +52,22 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    one launch of each of K1-K4 per block, and in its traced step both
    routes (the C=8 blocks on the FMA kernels, the others on the tensor
    cores);
+6c. path T: the user's training entry point, ``Trainer(opt).train()``, on
+   ``configs/sid_newbp_mono_selfcontained.yml`` over a seeded synthetic
+   SID tree (``make_synthetic_sid``: 4 train and 2 val pairs at 512^2,
+   laid out as the config's ``SID_ROOT``), 6 iterations at full width
+   and depth with batches of 2 384^2 crops from the packs through the
+   device prefetcher: the native pack reader, 36 launches of each of
+   K1-K4 per step (their tensor-core kernels in a traced step), finite
+   logs, checkpoints at 3 and 6, validation at 6 with the config's four
+   metrics on the two full val images, the restore of step 3 bit for
+   bit, and a second Trainer that resumes at 3 and reaches 6; prints
+   ms/step, data ms/step and the validation's wall time beside the
+   training phase's ms/step;
+6d. the CLI: ``python -m lowlight_image_enhancement_tpu_torch.train -opt
+   configs/debug/sid_newbp_mono_debug.yml`` in a subprocess from a
+   temporary directory (16 iterations on the card, the self-provisioned
+   debug fixtures), then ``test.py`` on its ``net_g_latest.pth``;
 7. LayerNorm and pool kernel phase: holds K5 (``ln_fwd``), K6 (``ln_bwd``),
    K7 (``relu_pool_fwd``) and K8 (``pool_bwd``, with and without the relu)
    against their plain versions in fp32 and bf16: the LN kernels at the
@@ -102,6 +119,7 @@ from __future__ import annotations
 import copy
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -713,8 +731,9 @@ def hold_fma_geometry(widths) -> None:
 K34_TENSOR_CORES = ("nafblk::k3_mma_kernel", "nafblk::k4_front_kernel",
                     "nafblk::k4_dw_kernel", "nafblk::k4_back_kernel")
 K34_FMA = ("k3_kernel", "k4a_kernel", "k4b_kernel")
-# C that is no multiple of 16: in bf16 all four kernels take the FMA route
-NARROW_C = (8, 24, 40, 12)
+# C that is no multiple of 16: in bf16 all four kernels take the FMA route;
+# 6 and 10 are no multiples of 4 either (the matrices' rows padded)
+NARROW_C = (8, 24, 40, 12, 6, 10)
 # a whole 64x64 image, and a side that is no multiple of K4's 12-pixel FMA
 # tile or of 8
 NARROW_SIDES = (64, 20)
@@ -743,8 +762,11 @@ def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
     with the standard FFN (F = C) and a doubled one (F = 2C, at 64x64), on
     a whole 64x64 image and a ragged 20x20, in bf16 (the FMA route of all
     four kernels) and fp32, against their plain versions: 2^-6 / 1e-4 of
-    max|ref|, equal bits on two calls; K3's and K4's route named by their
-    device kernels and their times kept."""
+    max|ref|, equal bits on two calls; the route of all four named by their
+    device kernels and their times kept. At C = 6 and 10 (no multiple of
+    4) the kernels get their matrices' rows zero-padded by the wrappers,
+    and the whole block runs through NAFBlockFunction, forward and
+    backward (in ``backward_checks``)."""
     cases = [(c, ffn, side) for c in NARROW_C for ffn in (2, 4)
              for side in NARROW_SIDES if ffn == 2 or side == NARROW_SIDES[0]]
     hold_fma_geometry({(c, c * ffn // 2) for c, ffn, _ in cases})
@@ -760,12 +782,18 @@ def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
                           device="cuda")
         for dt in (torch.float32, torch.bfloat16):
             x, dout = x32.to(dt), d32.to(dt)
-            pk = ops.rounded_matrices(p, dt)
+            # as NAFBlockFunction hands them over: rounded, and at C or F
+            # % 4 != 0 with their rows padded once
+            pk = ops.padded_matrices(ops.rounded_matrices(p, dt))
             checks, g, att, dz, dgc = backward_checks(x, dout, p, pk, shw,
                                                        dt)
             show(checks, c, f"{side}x{side} F={f}", dt)
             with torch.no_grad():
                 t = {
+                    "nafblk_a": timed(lambda: ops.call_a(x, pk, shw),
+                                      lambda: ops.plain_a(x, p, shw)),
+                    "nafblk_b": timed(lambda: ops.call_b(x, g, att, pk),
+                                      lambda: ops.plain_b(x, g, att, p)),
                     "nafblk_p1": timed(
                         lambda: ops.call_p1(x, g, dout, att, pk),
                         lambda: ops.plain_p1(x, g, dout, att, p)),
@@ -778,6 +806,12 @@ def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
                        "narrow", BATCH, shw, f)
             tag = f"{str(dt)[6:]} N={BATCH} C={c} F={f} {side}x{side}"
             s = side * side
+            show_route(f"K1 {tag}", t["nafblk_a"][2],
+                       ops.k1_geometry(dt, BATCH, c, side, side)[0] > 0,
+                       (K12_TENSOR_CORES[:2], K12_FMA[:1]))
+            show_route(f"K2 {tag}", t["nafblk_b"][2],
+                       ops.k2_geometry(dt, BATCH, c, f, s)[0] > 0,
+                       (K12_TENSOR_CORES[2:], K12_FMA[1:]))
             show_route(f"K3 {tag}", t["nafblk_p1"][2],
                        ops.p1_geometry(dt, BATCH, c, f, s)[0] > 0,
                        (K34_TENSOR_CORES[:1], K34_FMA[:1]))
@@ -1145,6 +1179,249 @@ def debug_path() -> dict:
                                  "debug network traced step", backward=True,
                                  fma_too=True)
     return {"launches": counts, "l_total": float(logs["l_total"]), **trace}
+
+
+# path T: the training entry point (Trainer) on the flagship config
+T_STEPS = 6
+T_SAVE = 3
+
+
+def synthetic_sid_root(root: Path) -> Path:
+    """The flagship config's SID layout under ``root`` (``SID_assets/
+    manifest_sid.json``, ``SID_pack/{train,val}_{short,long}.pack``) from
+    the port's ``make_synthetic_sid``: 4 train and 2 val pairs at 512^2,
+    ratios 100/250/300, shot and read noise, seeded."""
+    from lowlight_image_enhancement_tpu_torch.data import make_synthetic_sid
+
+    gen = root / "generated"
+    paths = make_synthetic_sid(str(gen), n_train=4, n_val=2, size=512,
+                               seed=SEED)
+    (root / "SID_assets").mkdir(parents=True)
+    (root / "SID_pack").mkdir()
+    Path(paths.pop("manifest")).rename(root / "SID_assets" /
+                                       "manifest_sid.json")
+    for name, path in paths.items():
+        Path(path).rename(root / "SID_pack" / f"{name}.pack")
+    return root
+
+
+def state_tensors(state) -> list:
+    opt = state.optimizer
+    return [t.detach().clone() for t in
+            list(opt.params) + list(opt.mu) + list(opt.nu)]
+
+
+def instrument(trainer, what: str, per_step: dict, record: dict) -> None:
+    """Wraps the Trainer's step (its launches, reset just before and read
+    just after each step, must be ``per_step``; its host time ending in
+    ``torch.cuda.synchronize()``), its saves (the state tensors at each
+    saved step) and its validation (results and wall time) into
+    ``record``."""
+    step, save, validate = trainer.step_fn, trainer._save, trainer.validate
+
+    def timed_step(state, batch):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        expect_launches(launches(), f"{what} step {out[0].step}", **per_step)
+        return out
+
+    def saving():
+        save()
+        record["saved"][trainer.state.step] = state_tensors(trainer.state)
+
+    def validating():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = validate()
+        record["val"].append((res, time.perf_counter() - t0))
+        return res
+
+    trainer.step_fn, trainer._save, trainer.validate = (timed_step, saving,
+                                                        validating)
+
+
+def trainer_path(train_ms: float) -> dict:
+    """Path T: ``Trainer(opt).train()`` on the card, ``opt`` the flagship
+    config parsed over a synthetic SID tree, overridden only in
+    ``train.total_iter`` 6, ``logger.print_freq`` 1,
+    ``logger.save_checkpoint_freq`` 3, ``val.val_freq`` 6,
+    ``use_tb_logger`` false and the experiment root. Checks the native
+    pack reader, 36 launches of each of K1-K4 per step and their
+    tensor-core kernels in a traced step, finite logs, the checkpoints at 3
+    and 6, the four metrics of the validation at 6 (finite, 2 images of
+    512^2), the restore of step 3 bit for bit, and a second Trainer that
+    resumes at 3 with the schedule's step and reaches 6."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lowlight_image_enhancement_tpu_torch.training import (
+        checkpoint as ckpt)
+    from lowlight_image_enhancement_tpu_torch.training.trainer import Trainer
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_t_"))
+    t0 = time.perf_counter()
+    os.environ["SID_ROOT"] = str(synthetic_sid_root(tmp / "sid"))
+    t_data = time.perf_counter() - t0
+    opt = parse(str(TRAIN_CONFIG), is_train=True, root_dir=str(tmp / "exp"))
+    opt["train"]["total_iter"] = T_STEPS
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=T_SAVE,
+                         use_tb_logger=False)
+    opt["val"]["val_freq"] = T_STEPS
+    four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
+
+    trainer = Trainer(opt)
+    check(trainer.net.dtype == torch.bfloat16 and len(trainer.net.blocks())
+          == 36, "path T: NewBPNAFNet in bf16 with 36 NAFBlocks")
+    ds = trainer.train_loader.dataset
+    check(ds._short.uses_native and ds._long.uses_native,
+          "path T: the packs must be read by the native reader")
+    rec = {"step_ms": [], "saved": {}, "val": []}
+    instrument(trainer, "path T", four, rec)
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    hist = trainer.history
+    check([h["iter"] for h in hist] == list(range(1, T_STEPS + 1))
+          and all(np.isfinite(list(h.values())).all() for h in hist),
+          f"path T: logs of iterations {[h['iter'] for h in hist]}")
+    states, models = opt["path"]["training_states"], opt["path"]["models"]
+    check(sorted(os.listdir(states)) == ["00000003.pth", "00000006.pth"]
+          and {"net_g_00000003.pth", "net_g_00000006.pth",
+               "net_g_latest.pth"} <= set(os.listdir(models)),
+          f"path T: checkpoints {sorted(os.listdir(states))}")
+    metrics = list(opt["val"]["metrics"])
+    check(len(rec["val"]) == 2 and len(trainer.val_loader) == 2,
+          "path T: validation at 6 and the final one, on 2 images")
+    for res, _ in rec["val"]:
+        check(sorted(res) == sorted(metrics)
+              and all(np.isfinite(v) for v in res.values()),
+              f"path T: validation {res}")
+
+    # the state of step 3 comes back from its file bit for bit, and a
+    # second Trainer resumes there and reaches 6
+    os.remove(os.path.join(states, "00000006.pth"))
+    trainer2 = Trainer(opt)
+    check(trainer2.start_iter == T_SAVE and trainer2.state.step == T_SAVE
+          and trainer2.state.optimizer.count == T_SAVE,
+          f"path T: resumed at {trainer2.start_iter}, count "
+          f"{trainer2.state.optimizer.count}")
+    restored = state_tensors(trainer2.state)
+    check(len(restored) == len(rec["saved"][T_SAVE]) and all(
+        torch.equal(a, b) for a, b in zip(restored, rec["saved"][T_SAVE])),
+        "path T: restore of step 3 differs from what was saved")
+    lr3 = trainer2.schedule(trainer2.state.optimizer.count)
+    check(lr3 == trainer.schedule(T_SAVE),
+          f"path T: resumed lr {lr3} != schedule(3)")
+    rec2 = {"step_ms": [], "saved": {}, "val": []}
+    instrument(trainer2, "path T resumed", four, rec2)
+    step2 = trainer2.step_fn
+    traced = {}
+
+    def traced_first(state, batch):
+        if traced:
+            return step2(state, batch)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = step2(state, batch)
+        traced.update(device_records(prof.key_averages()))
+        return out
+
+    trainer2.step_fn = traced_first
+    trainer2.train()
+    torch.cuda.synchronize()
+    check([h["iter"] for h in trainer2.history] == [4, 5, 6]
+          and trainer2.state.step == T_STEPS,
+          f"path T resumed: iterations {[h['iter'] for h in trainer2.history]}")
+    if traced:
+        expect_tensor_core_route(traced, "path T traced step (resumed, "
+                                 "iteration 4)", backward=True)
+    else:
+        print("path T traced step: the profiler shows no device time")
+
+    ms = statistics.median(rec["step_ms"][1:])
+    data_ms = statistics.median(h["data_time"] * 1e3 for h in hist[1:])
+    iter_ms = statistics.median((h["time"] + h["data_time"]) * 1e3
+                                for h in hist[1:])
+    val_res, val_s = rec["val"][0]
+    out = {"ms_per_step": ms, "step_ms": rec["step_ms"],
+           "data_ms_per_step": data_ms, "iteration_ms": iter_ms,
+           "data_ms": [h["data_time"] * 1e3 for h in hist],
+           "val_wall_s": val_s, "val_metrics": val_res,
+           "final_val_wall_s": rec["val"][1][1],
+           "train_phase_ms_per_step": train_ms, "l_total":
+           [h["l_total"] for h in hist], "resumed_l_total":
+           [h["l_total"] for h in trainer2.history],
+           "launches_per_step": four, "wall_s": t_train,
+           "synthetic_data_s": t_data,
+           "native_reader": bool(ds._short.uses_native)}
+    print(f"path T: {T_STEPS} iterations in {t_train:.1f} s; step ms median "
+          f"of 2-{T_STEPS} {ms:.1f} (all {[round(t, 1) for t in rec['step_ms']]})"
+          f", data ms median {data_ms:.2f}, validation {val_s:.2f} s "
+          f"{val_res}; training phase {train_ms:.1f} ms/step")
+    print(json.dumps({"path_T": out}))
+    os.environ.pop("SID_ROOT")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def cli_path() -> dict:
+    """The training CLI on the debug config as a user runs it, in a
+    subprocess from a temporary working directory, on the card by default
+    (``${DEBUG_SID_ROOT}`` self-provisioned), then ``test.py`` on its
+    ``net_g_latest.pth``: rc 0, 16 iterations, the checkpoint, the
+    validation line and the test results."""
+    import os
+    import tempfile
+
+    import yaml
+
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DEBUG_SID_ROOT", "SID_ROOT")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+
+    def run(module: str, cfg: Path) -> str:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"lowlight_image_enhancement_tpu_torch.{module}",
+             "-opt", str(cfg)], cwd=work, env=env, capture_output=True,
+            text=True, timeout=600)
+        log = proc.stdout + proc.stderr
+        print(f"CLI {module}: rc {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(proc.returncode == 0, f"CLI {module} failed:\n{log[-4000:]}")
+        return log
+
+    log = run("train", DEBUG_CONFIG)
+    iters = [int(m.replace(",", ""))
+             for m in re.findall(r"iter:\s*([\d,]+), lr", log)]
+    latest = work / "experiments" / "sid_newbp_mono_debug" / "models" / \
+        "net_g_latest.pth"
+    check(sorted(set(iters)) == list(range(1, 17)) and latest.exists()
+          and "m_psnr_linear" in log and "final validation" in log,
+          f"CLI train: iterations {sorted(set(iters))}, checkpoint "
+          f"{latest.exists()}")
+    print("\n".join(line for line in log.splitlines()
+                    if "iter:      16" in line or "final validation" in line))
+    with open(DEBUG_CONFIG) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["path"]["pretrain_network_g"] = str(latest)
+    with open(work / "eval.yml", "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    log_t = run("test", work / "eval.yml")
+    lines = [line for line in log_t.splitlines() if "[SID-debug-val]" in line]
+    check(len(lines) == 1 and "psnr_linear" in lines[0],
+          f"CLI test: no results line:\n{log_t[-2000:]}")
+    print(lines[0])
+    shutil.rmtree(work, ignore_errors=True)
+    return {"iterations": max(iters), "test": lines[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1564,11 +1841,14 @@ def main() -> int:
           forward_phase, gen, rows)
     phase("backward kernel phase (batch 2, 384x384 training widths)",
           backward_phase, gen, rows)
-    phase("narrow-channel phase (K1-K4 at C = 8, 24, 40, 12)",
+    phase("narrow-channel phase (K1-K4 at C = 8, 24, 40, 12, 6, 10)",
           narrow_channels_phase, gen, rows)
     serve = phase("serving phase", serving_phase, gen)
     train = phase("training phase", training_phase)
     debug = phase("path D (the debug network in bf16)", debug_path)
+    path_t = phase("path T (the Trainer on the flagship config)",
+                   trainer_path, train["ms_per_step"])
+    cli = phase("CLI (train.py and test.py on the debug config)", cli_path)
     perc = phase("path P", perceptual_path)
     base = phase("path B", baseline_path)
     ssr = phase("path S", nafssr_path)
@@ -1655,7 +1935,11 @@ def main() -> int:
         "debug_step": {"launches": debug["launches"],
                        "l_total": debug["l_total"],
                        "device_busy_ms": debug["device_busy_ms"],
-                       "kernel_records": debug["kernel_records"]}}))
+                       "kernel_records": debug["kernel_records"]},
+        "path_T": {k: path_t[k] for k in (
+            "ms_per_step", "data_ms_per_step", "iteration_ms", "val_wall_s",
+            "val_metrics", "train_phase_ms_per_step")},
+        "cli": cli}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

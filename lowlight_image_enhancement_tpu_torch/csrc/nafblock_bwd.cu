@@ -10,8 +10,10 @@
 // Two routes per kernel, chosen by the wrapper from dtype and shape
 // (ops/nafblock.py:p1_geometry, p2_geometry) and passed as tile > 0 or
 // tile = 0: bf16 with C and F multiples of 16 (one tensor-core step) runs
-// the tensor-core kernels; fp32, and bf16 at any other C % 4 == 0, run the
-// FMA kernels of the first port, instantiated for the activation type.
+// the tensor-core kernels; fp32, and bf16 at any other C, run the FMA
+// kernels of the first port, instantiated for the activation type. Their
+// matrices come with rows zero-padded to pitch4 (nafblock_common.cuh), so
+// they take any C and F; the weight gradients come back at true shapes.
 //
 // K3 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_p1 (pallas_call in _call_p1).
@@ -303,6 +305,8 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
   // loop counts shared by every group, so each lane meets every shuffle
   const int it_c = (C + G * KO - 1) / (G * KO);
   const int it_f = (F + G * KO - 1) / (G * KO);
+  // row pitches of the matrices: [C, ldc] W3 and W4, [C, ldf] W5
+  const int ldc = pitch4(C), ldf = pitch4(F);
 
   // v = g * att (conv3 and dW3 operand), z = x
   for (int c = grp; c < C; c += G) {
@@ -320,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    rows_dot<KO, P>(W3, C, o0, C, a_s, lane, acc);
+    rows_dot<KO, P>(W3, ldc, C, o0, C, a_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int o = o0 + r;
@@ -350,8 +354,8 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     float qa[KO], qb[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) qa[r] = qb[r] = 0.f;
-    rows_dot<KO, P>(W4, C, j0, F, a_s, lane, qa);
-    rows_dot<KO, P>(W4 + (long long)F * C, C, j0, F, a_s, lane, qb);
+    rows_dot<KO, P>(W4, ldc, C, j0, F, a_s, lane, qa);
+    rows_dot<KO, P>(W4 + (long long)F * ldc, ldc, C, j0, F, a_s, lane, qb);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int j = j0 + r;
@@ -374,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    rows_dot<KO, P>(W5, F, o0, C, w_s, lane, acc);
+    rows_dot<KO, P>(W5, ldf, F, o0, C, w_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int o = o0 + r;
@@ -404,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    cols_dot<KO, P>(W5, F, C, f0, F, d_s, lane, acc);
+    cols_dot<KO, P>(W5, ldf, C, f0, F, d_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int f = f0 + r;
@@ -439,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    cols_dot<KO, P>(W4, C, 2 * F, c0, C, q_s, lane, acc);
+    cols_dot<KO, P>(W4, ldc, 2 * F, c0, C, q_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int c = c0 + r;
@@ -499,7 +503,7 @@ __global__ void __launch_bounds__(kThreads) k3_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    cols_dot<KO, P>(W3, C, C, c0, C, d_s, lane, acc);
+    cols_dot<KO, P>(W3, ldc, C, c0, C, d_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int c = c0 + r;
@@ -835,20 +839,25 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
     const float var = fmaxf(s2 / C - md * md, 0.f);
     const float mu = k0 + md;
     const float rstd = rsqrtf(var + eps);
-    // conv1 rows j0 + r and C + j0 + r
+    // conv1 rows j0 + r and C + j0 + r (W1 and W3 rows ldc = pitch4(C)
+    // long; channels past C count 0)
+    const int ldc = pitch4(C);
     for (int c = 0; c < C; c += 4) {
       float h[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float xv = to_f<T>(xn[(long long)(c + q) * HW]);
-        h[q] = to_cdt<T>(fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]));
+        h[q] = 0.f;
+        if (c + q < C) {
+          const float xv = to_f<T>(xn[(long long)(c + q) * HW]);
+          h[q] = to_cdt<T>(fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]));
+        }
       }
 #pragma unroll
       for (int r = 0; r < KO; ++r) {
         const int j = j0 + r;
         if (j < C) {
-          const float4 wa = ldg4(W1 + (long long)j * C + c);
-          const float4 wb = ldg4(W1 + (long long)(C + j) * C + c);
+          const float4 wa = ldg4(W1 + (long long)j * ldc + c);
+          const float4 wb = ldg4(W1 + (long long)(C + j) * ldc + c);
           acc[r] = dot4(wa, h[0], h[1], h[2], h[3], acc[r]);
           acc[KO + r] = dot4(wb, h[0], h[1], h[2], h[3], acc[KO + r]);
         }
@@ -857,7 +866,7 @@ __global__ void __launch_bounds__(kThreads) k4a_kernel(
     // local gate grad dv[j] = sum_c W3[c, j] * round(beta[c] * dz[c])
     for (int c = 0; c < C; ++c) {
       const float pr = to_cdt<T>(beta[c] * to_f<T>(dzn[(long long)c * HW]));
-      const float* row = W3 + (long long)c * C + j0;
+      const float* row = W3 + (long long)c * ldc + j0;
 #pragma unroll
       for (int r = 0; r < KO; r += 4) {
         if (j0 + r < C) {
@@ -1020,7 +1029,7 @@ __global__ void __launch_bounds__(kThreads) k4b_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    cols_dot<KO, P>(W1, C, 2 * C, c0, C, t_s, lane, acc);
+    cols_dot<KO, P>(W1, pitch4(C), 2 * C, c0, C, t_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int c = c0 + r;
@@ -1333,7 +1342,7 @@ long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16,
     carve_p1_mma(cv, N, C, F, HW, tile, grid);
   } else {
     const int P = p1_pixels(C, F);
-    if (P == 0 || C % 4 || F % 4) return -1;
+    if (P == 0) return -1;
     carve_p1(cv, N, C, F, HW, P, is_bf16 ? sizeof(bf16) : sizeof(float));
   }
   return (long long)cv.off;
@@ -1343,7 +1352,8 @@ long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16,
 // [N, C] fp32; the vectors fp32; grads: fp32 [dW3 C*C | dW4 2F*C |
 // dW5 C*F | dgamma C | db5 C | db4 2F | dw2n C | db2n C | dbeta C | db3 C];
 // ws: workspace. tile = 0: the FMA route (W3, W4, W5 fp32, holding bf16
-// values when is_bf16; C % 4 == 0, F % 4 == 0, nafblk_p1_pixels(C, F) > 0);
+// values when is_bf16, rows zero-padded to pitch4: W3 [C, pitch4(C)], W4
+// [2F, pitch4(C)], W5 [C, pitch4(F)]; any C, F with nafblk_p1_pixels > 0);
 // tile > 0: the tensor-core route (bf16 with W3, W4, W5 bf16, C % 16 == 0,
 // F % 16 == 0, a tile that fits and 1 <= grid <= the image's tiles).
 int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
@@ -1402,7 +1412,7 @@ long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16,
     carve_p2_mma(cv, N, C, H, W, tile, grid, dw_grid);
   } else {
     const int P = p2_pixels(C);
-    if (P == 0 || C % 4) return -1;
+    if (P == 0) return -1;
     carve_p2(cv, N, C, H, W, P, is_bf16 ? sizeof(bf16) : sizeof(float));
   }
   return (long long)cv.off;
@@ -1411,7 +1421,8 @@ long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16,
 // K4. x, dz, dx: [N, C, H*W] (fp32, or bf16 when is_bf16); dgc, att:
 // [N, C] fp32; the vectors fp32; grads: fp32 [dW1 2C*C | 11 x 2C: dkdw^T
 // (9 rows), dbk, db1 | dw1n C | db1n C]; ws: workspace. tile = 0: the FMA
-// route (W1, W3 fp32, holding bf16 values when is_bf16; C % 4 == 0);
+// route (W1, W3 fp32, holding bf16 values when is_bf16, rows zero-padded to
+// pitch4(C); any C);
 // tile > 0: the tensor-core route (bf16 with W1, W3 bf16, C % 16 == 0 and
 // the geometry nafblk_p2_workspace takes).
 int nafblk_p2(const void* x, const void* dz, const void* dgc, const void* att,

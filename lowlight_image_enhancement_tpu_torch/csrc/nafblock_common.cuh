@@ -110,22 +110,27 @@ __device__ __forceinline__ float dot4(float4 w, float a0, float a1, float a2,
   return fmaf(w.w, a3, acc);
 }
 
+// Row pitch of a matrix on the FMA route: its rows are read as float4, so
+// the caller pads each row of K values with zeros to a multiple of 4.
+__host__ __device__ __forceinline__ int pitch4(int k) { return (k + 3) & ~3; }
+
 // acc[r] += sum_k Wm[o0 + r, k] * in_s[k, lane] for rows o0 + r < M
-// (Wm row-major [M, K], K % 4 == 0).
+// (Wm row-major [M, ldw], ldw = pitch4(K), zeros past column K; in_s holds
+// K rows, so the last group of a K % 4 != 0 reads none past them).
 template <int KO, int P>
-__device__ __forceinline__ void rows_dot(const float* __restrict__ Wm, int K,
-                                         int o0, int M,
+__device__ __forceinline__ void rows_dot(const float* __restrict__ Wm,
+                                         int ldw, int K, int o0, int M,
                                          const float* __restrict__ in_s,
                                          int lane, float* acc) {
   for (int k = 0; k < K; k += 4) {
     const float a0 = in_s[(k + 0) * P + lane];
-    const float a1 = in_s[(k + 1) * P + lane];
-    const float a2 = in_s[(k + 2) * P + lane];
-    const float a3 = in_s[(k + 3) * P + lane];
+    const float a1 = k + 1 < K ? in_s[(k + 1) * P + lane] : 0.f;
+    const float a2 = k + 2 < K ? in_s[(k + 2) * P + lane] : 0.f;
+    const float a3 = k + 3 < K ? in_s[(k + 3) * P + lane] : 0.f;
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       if (o0 + r < M) {
-        const float4 w = ldg4(Wm + (long long)(o0 + r) * K + k);
+        const float4 w = ldg4(Wm + (long long)(o0 + r) * ldw + k);
         acc[r] = dot4(w, a0, a1, a2, a3, acc[r]);
       }
     }
@@ -133,8 +138,9 @@ __device__ __forceinline__ void rows_dot(const float* __restrict__ Wm, int K,
 }
 
 // The transposed product: acc[r] += sum_k Wm[k, o0 + r] * in_s[k, lane]
-// for o0 + r < M (Wm row-major [K, ldw]; ldw, o0 and M multiples of 4, so
-// each float4 of a row lies wholly inside or outside [0, M)).
+// for o0 + r < M (Wm row-major [K, ldw], ldw = pitch4(M) with zeros past
+// column M; o0 a multiple of 4, so each float4 of a row lies inside the
+// row, and acc[r] for o0 + r >= M is left for the caller to ignore).
 template <int KO, int P>
 __device__ __forceinline__ void cols_dot(const float* __restrict__ Wm,
                                          int ldw, int K, int o0, int M,

@@ -40,8 +40,11 @@
 //   (ops/nafblock.py: k1_geometry, k2_geometry) so that one round of
 //   blocks fills the card; here they are only checked.
 //
-// - FMA (fp32, and bf16 with C % 16 != 0; the first port's kernels, C % 4
-//   == 0). k1_kernel: one block owns a 16x16 halo tile (14x14 output
+// - FMA (fp32, and bf16 with C % 16 != 0; the first port's kernels, any
+//   C and F). The matrices come with each row zero-padded to pitch4 of its
+//   length (the caller pads them), so a row is read as float4 at any
+//   width; activations keep the true C, every statistic and sum runs over
+//   the true C, and a read of 4 channels at once stops at C. k1_kernel: one block owns a 16x16 halo tile (14x14 output
 //   pixels, one thread per halo pixel) and 16 gate channels, and each
 //   thread recomputes LN1 and the 32 conv1 rows it needs for its halo
 //   pixel straight from x (every block of 16 gate channels repeats them),
@@ -122,20 +125,25 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(
     const float mu = k0 + md;
     const float rstd = rsqrtf(var + eps);
 
-    // conv1 rows j0..j0+KO (first gate half) and C+j0.. (second half)
+    // conv1 rows j0..j0+KO (first gate half) and C+j0.. (second half);
+    // W1's rows are ldc = pitch4(C) long, and channels past C count 0
+    const int ldc = pitch4(C);
     for (int c = 0; c < C; c += 4) {
       float h[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float xv = to_f<T>(xn[(long long)(c + q) * HW]);
-        h[q] = to_cdt<T>(fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]));
+        h[q] = 0.f;
+        if (c + q < C) {
+          const float xv = to_f<T>(xn[(long long)(c + q) * HW]);
+          h[q] = to_cdt<T>(fmaf((xv - mu) * rstd, w1n[c + q], b1n[c + q]));
+        }
       }
 #pragma unroll
       for (int r = 0; r < KO; ++r) {
         const int j = j0 + r;
         if (j < C) {
-          const float4 wa = ldg4(W1 + (long long)j * C + c);
-          const float4 wb = ldg4(W1 + (long long)(C + j) * C + c);
+          const float4 wa = ldg4(W1 + (long long)j * ldc + c);
+          const float4 wb = ldg4(W1 + (long long)(C + j) * ldc + c);
           acc[r] = dot4(wa, h[0], h[1], h[2], h[3], acc[r]);
           acc[KO + r] = dot4(wb, h[0], h[1], h[2], h[3], acc[KO + r]);
         }
@@ -221,6 +229,8 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
   const long long p = (long long)blockIdx.x * P + lane;
   const bool valid = p < HW;
   const long long base = (long long)n * C * HW + p;
+  // row pitches of the matrices: [C, ldc] W3 and W4, [C, ldf] W5
+  const int ldc = pitch4(C), ldf = pitch4(F);
 
   for (int c = grp; c < C; c += G) {
     const float xv = valid ? to_f<T>(x[base + (long long)c * HW]) : 0.f;
@@ -235,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    rows_dot<KO, P>(W3, C, o0, C, a_s, lane, acc);
+    rows_dot<KO, P>(W3, ldc, C, o0, C, a_s, lane, acc);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int o = o0 + r;
@@ -257,8 +267,8 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
     float qa[KO], qb[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) qa[r] = qb[r] = 0.f;
-    rows_dot<KO, P>(W4, C, j0, F, a_s, lane, qa);
-    rows_dot<KO, P>(W4 + (long long)F * C, C, j0, F, a_s, lane, qb);
+    rows_dot<KO, P>(W4, ldc, C, j0, F, a_s, lane, qa);
+    rows_dot<KO, P>(W4 + (long long)F * ldc, ldc, C, j0, F, a_s, lane, qb);
 #pragma unroll
     for (int r = 0; r < KO; ++r) {
       const int j = j0 + r;
@@ -273,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
     float acc[KO];
 #pragma unroll
     for (int r = 0; r < KO; ++r) acc[r] = 0.f;
-    rows_dot<KO, P>(W5, F, o0, C, w_s, lane, acc);
+    rows_dot<KO, P>(W5, ldf, F, o0, C, w_s, lane, acc);
     if (valid) {
 #pragma unroll
       for (int r = 0; r < KO; ++r) {
@@ -503,7 +513,8 @@ long long nafblk_a_workspace(int N, int C, int H, int W, int tile, int grid,
 }
 
 // K1. x, g: [N, C, H*W]; sums: [N, C] fp32; ws: workspace. tile = 0: the
-// FMA route (x fp32, or bf16 when is_bf16; W1 fp32; C % 4 == 0; t unused);
+// FMA route (x fp32, or bf16 when is_bf16; W1 fp32 [2C, pitch4(C)], rows
+// zero-padded; any C; t unused);
 // tile > 0: the tensor-core route (x and W1 bf16, C % 16 == 0, the geometry
 // nafblk_a_workspace takes), which writes the front stage's output to t:
 // fp32 [N, 2C, H*W rounded up to 8].
@@ -553,7 +564,8 @@ int nafblk_b_pixels(int C, int F) {
 
 // K2. x, g, out: [N, C, HW]; att: [N, C] fp32; W3 [C, C], W4 [2F, C],
 // W5 [C, F]. tile = 0: the FMA route (x fp32, or bf16 when is_bf16;
-// matrices fp32; C % 4 == 0, F % 4 == 0 and nafblk_b_pixels(C, F) > 0);
+// matrices fp32 with rows zero-padded to pitch4: W3 [C, pitch4(C)], W4
+// [2F, pitch4(C)], W5 [C, pitch4(F)]; any C, F with nafblk_b_pixels > 0);
 // tile > 0: the tensor-core route (x and matrices bf16, C % 16 == 0,
 // F % 16 == 0, a tile that fits and 1 <= grid <= the image's tiles).
 int nafblk_b(const void* x, const void* g, const void* att, const void* W3,

@@ -34,9 +34,12 @@ failure:
   (:func:`k2_geometry`), K3 as ``k3_mma_kernel`` (:func:`p1_geometry`), K4
   as its front, depthwise and back kernels (:func:`p2_geometry`);
 - fp32 runs the FMA kernels (TF32 would break the 1e-4 tolerance), and so
-  does bf16 at any other C % 4 == 0 (F % 4 == 0), all four kernels alike:
-  the FMA kernels are instantiated for bf16 activations, with every
-  product operand rounded to bf16 as the tensor-core route rounds it. A
+  does bf16 at any other C and F, all four kernels alike: the FMA kernels
+  are instantiated for bf16 activations, with every product operand
+  rounded to bf16 as the tensor-core route rounds it. They read matrix
+  rows as float4, so each matrix reaches them with its rows zero-padded to
+  a multiple of 4 (:func:`padded_matrices`, once per block forward); the
+  activations keep their true C and the weight grads their true shapes. A
   bf16 block whose forward runs on the card runs its backward there too.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
@@ -99,6 +102,36 @@ def pack_params(norm1_w, norm1_b, conv1_w, conv1_b, conv2_w, conv2_b,
     }
 
 
+def row_pitch(k: int) -> int:
+    """Row length of a matrix on the FMA route: ``k`` rounded up to a
+    multiple of 4 (``pitch4`` of ``csrc/nafblock_common.cuh``)."""
+    return -(-k // 4) * 4
+
+
+def padded_matrices(p: Params) -> Params:
+    """``p`` with each matrix's rows zero-padded to :func:`row_pitch` of
+    their length (W1, W3, W4 ``[., C]`` to ``pitch(C)``, W5 ``[C, F]`` to
+    ``pitch(F)``), as the FMA kernels read them; ``p`` itself when every
+    row already is. Padding a padded ``p`` changes nothing."""
+    pads = {k: row_pitch(p[k].shape[1]) - p[k].shape[1]
+            for k in _MATRICES if k in p}
+    if not any(pads.values()):
+        return p
+    return {k: F.pad(t.detach(), (0, pads[k])) if pads.get(k) else t
+            for k, t in p.items()}
+
+
+def true_matrices(p: Params, c: int) -> Params:
+    """The matrices of ``p`` at their true shapes (views): the columns of
+    W1, W3, W4 past ``c`` and of W5 past ``F`` dropped, so the plain
+    versions take ``p`` padded or not."""
+    f = p["W4"].shape[0] // 2 if "W4" in p else None
+    cols = {"W1": c, "W3": c, "W4": c, "W5": f}
+    if all(p[k].shape[1] == cols[k] for k in _MATRICES if k in p):
+        return p
+    return {k: t[:, :cols[k]] if k in _MATRICES else t for k, t in p.items()}
+
+
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
@@ -125,6 +158,7 @@ def plain_a_front(x: torch.Tensor, p: Params,
     """Plain first stage of K1: ``t = W1 LN1(x) + b1``, fp32
     ``[N, 2C, S]`` (the operands of the product rounded to x's compute
     dtype)."""
+    p = true_matrices(p, x.shape[1])
     hn = _ln(x.float(), p["w1n"], p["b1n"], eps)
     return _mm(p["W1"], hn, _compute_dtype(x)) + p["b1"].float()[:, None]
 
@@ -159,6 +193,7 @@ def sca_attention(sums: torch.Tensor, p: Params, area: int) -> torch.Tensor:
 def plain_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
             eps: float = 1e-6) -> torch.Tensor:
     """Plain K2: the block output ``[N, C, S]`` in x.dtype."""
+    p = true_matrices(p, x.shape[1])
     cdt = _compute_dtype(x)
     v = g.float() * att.float()[:, :, None]
     pth = _mm(p["W3"], v, cdt) + p["b3"].float()[:, None]
@@ -202,6 +237,7 @@ def plain_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
 
     Mirrors ``_kernel_p1``: the second half is recomputed from ``(x, g,
     att)``; every product rounds both operands to the compute dtype."""
+    p = true_matrices(p, x.shape[1])
     cdt = _compute_dtype(x)
     f = p["W5"].shape[1]
     col = lambda k: p[k].float()[:, None]
@@ -253,6 +289,7 @@ def plain_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
     are convolutions with ``t`` and the flipped taps. ``u`` includes ``bk``
     (the true derivative; the TPU kernel leaves ``bk`` out)."""
     n, c, s = x.shape
+    p = true_matrices(p, c)
     h, w = hw
     cdt = _compute_dtype(x)
     col = lambda k: p[k].float()[:, None]
@@ -291,11 +328,6 @@ def _check_cuda(x: torch.Tensor, p: Params, names) -> None:
         raise TypeError(f"NAFBlock kernels take fp32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("NAFBlock kernels need a contiguous [N, C, H*W] input")
-    if x.shape[1] % 4:
-        raise ValueError(
-            f"NAFBlock kernels need C % 4 == 0 (their FMA route, which fp32 "
-            f"takes; the bf16 tensor-core route needs C % 16 == 0), got "
-            f"C={x.shape[1]}")
     for k in names:
         if p[k].device != x.device:
             raise ValueError(f"parameter {k} is on {p[k].device}, "
@@ -500,7 +532,8 @@ def call_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
     On CUDA the route follows :func:`k1_geometry`: bf16 with C % 16 == 0
     runs the tensor-core kernels (W1 in bf16, as :class:`NAFBlockFunction`
     hands it over, goes to them with no conversion); fp32, and bf16 with
-    C % 16 != 0, run the FMA kernel (C % 4 == 0). ``return_t`` adds the
+    C % 16 != 0, run the FMA kernel (any C; W1's rows padded by
+    :func:`padded_matrices` unless they come so). ``return_t`` adds the
     first stage's fp32 ``t [N, 2C, H*W]``, which only the tensor-core
     route (and on CPU the plain version) computes apart."""
     if not x.is_cuda:
@@ -511,7 +544,8 @@ def call_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
     h, w = hw
     if h * w != s:
         raise ValueError(f"hw={hw} does not match H*W={s}")
-    if p["W1"].shape != (2 * c, c):
+    p = padded_matrices(p)
+    if p["W1"].shape != (2 * c, row_pitch(c)):
         raise ValueError(
             f"K1 needs dw_expand == 2 (W1 [2C, C]); got W1 {tuple(p['W1'].shape)}")
     _check_cuda(x, p, _A_PARAMS)
@@ -553,16 +587,19 @@ def call_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
     On CUDA the route follows :func:`k2_geometry`: bf16 with C and F
     multiples of 16 runs ``k2_mma_kernel`` (W3, W4, W5 in bf16, as
     :class:`NAFBlockFunction` hands them over); fp32, and bf16 with C or F
-    no multiple of 16, run the FMA kernel (C, F multiples of 4 and
-    (2C + F) x 16 fp32 values in shared memory)."""
+    no multiple of 16, run the FMA kernel (any C, F with (2C + F) x 16
+    fp32 values in shared memory; rows padded as in :func:`call_a`)."""
     if not x.is_cuda:
         return plain_b(x, g, att, p, eps)
     n, c, s = x.shape
-    f = p["W5"].shape[1]
+    p = padded_matrices(p)
+    f = p["W4"].shape[0] // 2
     _like_x(x, g=g)
-    if p["W4"].shape != (2 * f, c) or p["W3"].shape != (c, c) or f % 4:
-        raise ValueError(f"K2 needs W3 [C, C] and W4 [2F, C] with F % 4 == 0; "
-                         f"got W3 {tuple(p['W3'].shape)}, "
+    if (p["W4"].shape != (2 * f, row_pitch(c))
+            or p["W3"].shape != (c, row_pitch(c))
+            or p["W5"].shape != (c, row_pitch(f))):
+        raise ValueError(f"K2 needs W3 [C, C], W4 [2F, C] and W5 [C, F]; got "
+                         f"W3 {tuple(p['W3'].shape)}, "
                          f"W4 {tuple(p['W4'].shape)}")
     _check_cuda(x, p, _B_PARAMS)
     tile, grid = k2_geometry(x.dtype, n, c, f, s, built=True)
@@ -729,16 +766,19 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
     """K3 on ``x, g, dout: [N, C, H*W]``, ``att: [N, C]`` -> ``(dz, da,
     grads)``; plain version on CPU. On CUDA the route follows
     :func:`p1_geometry`: the tensor-core kernels, or the FMA kernel (fp32,
-    and bf16 with C or F no multiple of 16; C, F multiples of 4)."""
+    and bf16 with C or F no multiple of 16; any C, F, the matrix rows
+    padded as in :func:`call_a`). The weight grads come at true shapes."""
     if not x.is_cuda:
         return plain_p1(x, g, dout, att, p, eps)
     n, c, s = x.shape
-    f = p["W5"].shape[1]
+    p = padded_matrices(p)
+    f = p["W4"].shape[0] // 2
     _like_x(x, g=g, dout=dout)
-    if (p["W4"].shape != (2 * f, c) or p["W3"].shape != (c, c)
-            or p["W5"].shape != (c, f) or f % 4):
-        raise ValueError(f"K3 needs W3 [C, C], W4 [2F, C], W5 [C, F] with "
-                         f"F % 4 == 0; got W4 {tuple(p['W4'].shape)}")
+    if (p["W4"].shape != (2 * f, row_pitch(c))
+            or p["W3"].shape != (c, row_pitch(c))
+            or p["W5"].shape != (c, row_pitch(f))):
+        raise ValueError(f"K3 needs W3 [C, C], W4 [2F, C], W5 [C, F]; got "
+                         f"W4 {tuple(p['W4'].shape)}")
     _check_cuda(x, p, _B_PARAMS)
     lib = _build.load("nafblock_bwd")
     bf16 = int(x.dtype == torch.bfloat16)
@@ -871,7 +911,7 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
     :func:`p2_geometry`: on the tensor-core route W1 and W3 go to the
     kernels as bf16 (as :class:`NAFBlockFunction` hands them over, with no
     conversion); the FMA route (fp32, and bf16 with C no multiple of 16)
-    takes them in fp32."""
+    takes them in fp32, rows padded as in :func:`call_a`."""
     if not x.is_cuda:
         return plain_p2(x, dz, dgc, att, p, hw, eps)
     n, c, s = x.shape
@@ -879,7 +919,9 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
     if h * w != s:
         raise ValueError(f"hw={hw} does not match H*W={s}")
     _like_x(x, dz=dz)
-    if p["W1"].shape != (2 * c, c) or p["W3"].shape != (c, c):
+    p = padded_matrices(p)
+    if (p["W1"].shape != (2 * c, row_pitch(c))
+            or p["W3"].shape != (c, row_pitch(c))):
         raise ValueError(f"K4 needs W1 [2C, C] and W3 [C, C]; got W1 "
                          f"{tuple(p['W1'].shape)}")
     _check_cuda(x, p, _P2_PARAMS)
@@ -926,7 +968,9 @@ class NAFBlockFunction(torch.autograd.Function):
     backward (K3 -> SCA backward -> K4): the counterpart of the JAX
     ``fused_nafblock`` custom VJP. Saves ``(x, g, m, att)`` as the JAX
     ``_vjp_fwd`` does (and, in bf16, the four matrices as rounded once for
-    all four kernels), and returns ``dx`` and a grad for each packed view.
+    all four kernels, and where a row's length is no multiple of 4 with
+    the rows padded once for all four), and returns ``dx`` and a grad for
+    each packed view at its own shape.
 
     ``apply(x, hw, eps, *params)`` with ``x: [N, C, H*W]`` and ``params``
     the 18 views in :data:`PARAM_ORDER`."""
@@ -934,12 +978,13 @@ class NAFBlockFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, hw, eps, *params):
         given = dict(zip(PARAM_ORDER, params))
-        p = rounded_matrices(given, x.dtype)
+        p = padded_matrices(rounded_matrices(given, x.dtype))
         area = hw[0] * hw[1]
         g, sums = call_a(x, p, hw, eps)
         att = sca_attention(sums, p, area)
         out = call_b(x, g, att, p, eps)
-        # the rounded matrices go to the backward beside the parameters
+        # the rounded (padded) matrices go to the backward beside the
+        # parameters
         rounded = [] if p is given else [p[k] for k in _MATRICES]
         ctx.save_for_backward(x, g, sums / float(area), att, *params,
                               *rounded)

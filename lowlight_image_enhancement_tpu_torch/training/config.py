@@ -5,16 +5,19 @@
 ``parse(opt_path, is_train)`` loads a YAML into a nested dict and applies
 ``${VAR}`` env-var expansion (plus ``SID_ROOT`` auto-detection), the
 phase split of ``datasets:`` keys, ``scale`` propagation, the derived
-experiment/result dirs and the debug-name frequency overrides. The JAX
-version also generates the synthetic debug data set on demand; that
-arrives with the port's data slice, so ``${DEBUG_SID_ROOT}`` is left as
-written when it is unset.
+experiment/result dirs and the debug-name frequency overrides. A config
+that names ``${DEBUG_SID_ROOT}`` while the variable is unset gets the
+synthetic debug data set, generated once (the port's ``make_debug_sid``)
+under the temporary directory, as the JAX version does.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import re
+import shutil
+import tempfile
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -40,11 +43,57 @@ def find_sid_root(start: Optional[str] = None) -> Optional[str]:
     return None
 
 
+def _default_debug_sid_root() -> str:
+    """Self-provision the hermetic debug fixture set when a config names
+    ``${DEBUG_SID_ROOT}`` and the variable is unset (JAX
+    ``_default_debug_sid_root``): generated once under the temporary
+    directory, into a private directory that is then renamed into place,
+    so two concurrent parses never see half-written packs. Sets
+    ``DEBUG_SID_ROOT`` for the rest of the process."""
+    uid = getattr(os, "getuid", lambda: "u")()
+    root = os.path.join(tempfile.gettempdir(), f"llie_torch_debug_sid_{uid}")
+    manifest = os.path.join(root, "manifest_sid_debug.json")
+    if not os.path.exists(manifest):
+        from lowlight_image_enhancement_tpu_torch.data.debug_fixtures import (
+            make_debug_sid,
+        )
+
+        tmp = f"{root}.build{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        try:
+            make_debug_sid(tmp)
+            try:
+                os.rename(tmp, root)
+            except OSError:
+                # lost the race, or a partial root from an interrupted
+                # build: keep a root with a manifest, else replace it
+                if not os.path.exists(manifest):
+                    shutil.rmtree(root, ignore_errors=True)
+                    try:
+                        os.rename(tmp, root)
+                    except OSError:
+                        if not os.path.exists(manifest):
+                            raise
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        logging.getLogger(__name__).info(
+            "DEBUG_SID_ROOT unset: generated synthetic debug fixtures at %s",
+            root)
+    os.environ["DEBUG_SID_ROOT"] = root
+    return root
+
+
 def _expand_value(val: Any, env: Dict[str, str]) -> Any:
     if isinstance(val, str):
         def sub(m):
             name = m.group(1)
-            return env.get(name, os.environ.get(name, m.group(0)))
+            if name in env:
+                return env[name]
+            if name in os.environ:
+                return os.environ[name]
+            if name == "DEBUG_SID_ROOT":
+                return _default_debug_sid_root()
+            return m.group(0)
 
         return _ENV_RE.sub(sub, val)
     if isinstance(val, dict):
@@ -99,3 +148,14 @@ def parse(opt_path: str, is_train: bool = True,
         path_opt["log"] = str(results_root)
         path_opt["visualization"] = str(results_root / "visualization")
     return opt
+
+
+def dict2str(opt: Dict[str, Any], indent: int = 1) -> str:
+    """Pretty-print a nested config (reference ``dict2str``)."""
+    msg = ""
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            msg += " " * (indent * 2) + f"{k}:\n" + dict2str(v, indent + 1)
+        else:
+            msg += " " * (indent * 2) + f"{k}: {v}\n"
+    return msg

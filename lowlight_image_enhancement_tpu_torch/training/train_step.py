@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from lowlight_image_enhancement_tpu_torch.training.augment import mixup_batch
+
 Batch = Mapping[str, torch.Tensor]
 # Adam's denominator epsilon, added outside the square root (optax's default)
 ADAM_EPS = 1e-8
@@ -173,23 +175,25 @@ def hybrid_batch_kwargs(output: torch.Tensor, batch: Batch) -> Dict:
 
 def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
                     pixel_loss: Optional[Callable] = None,
-                    mixup_alpha: Optional[float] = None):
+                    mixup_alpha: Optional[float] = None, seed: int = 0):
     """``train_step(state, batch) -> (state, logs)``: forward, loss,
     gradients of every trainable tensor, ``logs['grad_norm']`` (before the
     clip), one optimizer step. ``batch`` holds NCHW ``lq`` and ``gt`` and
     optionally ``short_raw``, ``long_raw``, ``short_obs``, ``expo_ratio``.
-    Logs are detached tensors (no host sync).
+    Logs are detached tensors (no host sync). ``mixup_alpha`` mixes each
+    batch first (:func:`..training.augment.mixup_batch`), with draws from a
+    host generator seeded by ``seed``.
 
     Every call puts ``net`` in train mode and leaves it there (a module
     with drop-path then draws from its generator): call ``net.eval()``, or
     go through ``make_eval_step``, before using the bare ``net`` for
     inference between steps."""
-    if mixup_alpha:
-        raise NotImplementedError(
-            "mixup needs training/augment.py, which the port has not "
-            "ported yet")
+    mixup_gen = (torch.Generator().manual_seed(int(seed)) if mixup_alpha
+                 else None)
 
     def train_step(state: TrainState, batch: Batch):
+        if mixup_alpha:
+            batch = mixup_batch(batch, alpha=mixup_alpha, generator=mixup_gen)
         params = state.optimizer.params
         net.train()       # the JAX step applies with deterministic=False
         output = net(batch["lq"])

@@ -183,3 +183,107 @@ def test_fma_route_matrix_operands_keep_the_bits():
     assert torch.equal(dz, dz_h) and torch.equal(da, da_h)
     for k in grads:
         assert torch.equal(grads[k], grads_h[k]), k
+
+
+# C % 4 != 0: the FMA kernels read the matrices' rows as float4, so the
+# rows are zero-padded to a multiple of 4 once per block forward
+# (ops.padded_matrices); the plain versions take padded or unpadded
+# matrices alike.
+ODD_C = [6, 10]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("ffn", [2, 4], ids=["F=C", "F=2C"])
+@pytest.mark.parametrize("c", ODD_C)
+def test_padded_matrices_give_the_plain_k1_k4_results(c, ffn, dt):
+    h, w = 10, 12
+    rng = np.random.default_rng(c * ffn)
+    blk = NAFBlock(c, ffn_expand=ffn)
+    with torch.no_grad():
+        for prm in blk.parameters():
+            prm.copy_(torch.from_numpy(rng.normal(
+                0, 0.5, tuple(prm.shape)).astype(np.float32)))
+    p = ops.rounded_matrices(blk.packed(), dt)
+    pp = ops.padded_matrices(p)
+    f = c * ffn // 2
+    assert {k: tuple(pp[k].shape) for k in ("W1", "W3", "W4", "W5")} == {
+        "W1": (2 * c, ops.row_pitch(c)), "W3": (c, ops.row_pitch(c)),
+        "W4": (2 * f, ops.row_pitch(c)), "W5": (c, ops.row_pitch(f))}
+    for k in ("W1", "W3", "W4", "W5"):
+        cols = p[k].shape[1]
+        assert torch.equal(pp[k][:, :cols], p[k])
+        assert not torch.any(pp[k][:, cols:])
+    assert ops.padded_matrices(pp) is pp
+    rnd = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32))
+    x, dout = rnd(2, c, h * w).to(dt), rnd(2, c, h * w).to(dt)
+    att, dgc = rnd(2, c), rnd(2, c)
+    same = lambda a, b: torch.equal(a, b)
+    g, sums = ops.plain_a(x, p, (h, w))
+    g_p, sums_p = ops.plain_a(x, pp, (h, w))
+    assert same(g, g_p) and same(sums, sums_p)
+    assert same(ops.plain_b(x, g, att, p), ops.plain_b(x, g, att, pp))
+    dz, da, grads = ops.plain_p1(x, g, dout, att, p)
+    dz_p, da_p, grads_p = ops.plain_p1(x, g, dout, att, pp)
+    assert same(dz, dz_p) and same(da, da_p)
+    dx, first = ops.plain_p2(x, dz, dgc, att, p, (h, w))
+    dx_p, first_p = ops.plain_p2(x, dz, dgc, att, pp, (h, w))
+    assert same(dx, dx_p)
+    for a, b in ((grads, grads_p), (first, first_p)):
+        assert set(a) == set(b)
+        for k in a:
+            assert same(a[k], b[k]), k
+            assert a[k].shape == (p[k].shape if k in p else a[k].shape)
+    # the whole block through NAFBlockFunction: forward and every grad
+    xt = x.clone().requires_grad_(True)
+    out = ops.nafblock_fwd(xt, blk.packed(), (h, w))
+    assert same(out.detach(), ops.nafblock_fwd_reference(x, p, (h, w)))
+    gr = torch.autograd.grad((out.float() * dout.float()).sum(),
+                             [xt, *blk.parameters()])
+    assert all(gi is not None and gi.shape == t.shape
+               for gi, t in zip(gr, [xt, *blk.parameters()]))
+
+
+@pytest.mark.parametrize("c", ODD_C + [4, 8])
+def test_check_cuda_takes_any_c(c):
+    blk = NAFBlock(c)
+    x = torch.zeros(2, c, 20)
+    for names in (ops._A_PARAMS, ops._B_PARAMS, ops._P2_PARAMS):
+        ops._check_cuda(x, ops.padded_matrices(blk.packed()), names)
+    with pytest.raises(TypeError):
+        ops._check_cuda(x.half(), blk.packed(), ops._A_PARAMS)
+
+
+@pytest.mark.parametrize("c", ODD_C)
+def test_fp32_block_grads_match_jax_at_c_not_multiple_of_4(c):
+    x = np.random.default_rng(c).normal(size=(N, H, W, c)).astype(np.float32)
+    params = _jax_block_params(c, x, seed=c + 1)
+    cfg = make_block_config(H, W, c, 2, 2)
+    assert cfg is not None
+    r = np.random.default_rng(c + 2).normal(size=(N, c, H * W)).astype(
+        np.float32)
+
+    def loss(p, xf):
+        return jnp.sum(fused_nafblock(xf, _jax_pack(p), cfg) * r)
+
+    xf = jnp.asarray(np.ascontiguousarray(x.transpose(0, 3, 1, 2)).reshape(
+        N, c, H * W))
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, xf)
+    ref = {"out": np.asarray(fused_nafblock(xf, _jax_pack(params), cfg)),
+           "dx": np.asarray(gx),
+           **{k: v.numpy() for k, v in block_state_from_jax(
+               jax.tree_util.tree_map(np.asarray, gp)).items()}}
+    blk = NAFBlock(c)
+    blk.load_state_dict(block_state_from_jax(params), strict=True)
+    xt = torch.from_numpy(np.asarray(xf)).requires_grad_(True)
+    out = ops.nafblock_fwd(xt, blk.packed(), (H, W))
+    names = [k for k, _ in blk.named_parameters()]
+    grads = torch.autograd.grad((out * torch.from_numpy(r)).sum(),
+                                [xt, *blk.parameters()])
+    got = {"out": out.detach().numpy(), "dx": grads[0].numpy(),
+           **{k: g.numpy() for k, g in zip(names, grads[1:])}}
+    assert set(got) == set(ref) and len(got) == 20
+    for k, g in got.items():
+        scale = float(np.abs(ref[k]).max())
+        assert float(np.abs(g - ref[k]).max()) <= 1e-4 * scale, k

@@ -219,8 +219,7 @@ def test_train_step_rules():
         "use_perc": False, "use_deltaE": False, "use_ssim": False,
         "use_phys": False}}, device="cpu")
     opt = ts.make_optimizer(1e-3)
-    with pytest.raises(NotImplementedError, match="augment"):
-        ts.make_train_step(net, loss, opt, mixup_alpha=1.2)
+    mixup_step = ts.make_train_step(net, loss, opt, mixup_alpha=1.2, seed=3)
     with pytest.raises(ValueError):
         ts.make_optimizer(1e-3, optim_type="Lion")
     state = ts.create_train_state(net, opt, loss)
@@ -230,3 +229,6 @@ def test_train_step_rules():
     assert state.step == 1 and float(logs["grad_norm"]) > 0
     out = ts.make_eval_step(net)(batch["lq"])
     assert out.shape == batch["lq"].shape and not out.requires_grad
+    # mixup (training/augment.py) mixes the batch before the step
+    state, logs = mixup_step(state, batch)
+    assert state.step == 2 and np.isfinite(float(logs["l_total"]))
