@@ -95,7 +95,24 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    blocks, drop-path 0.1 from a seeded generator) with its AdamW / cosine
    / MSE train block on a seeded synthetic 16x6x30x90 batch: training
    steps (32 launches of each of K1-K6 per step), one eval forward, and
-   the same fp32 gradient check.
+   the same fp32 gradient check;
+11. path M: the evaluation metrics. The flagship ``NewBPNAFNet`` (bf16,
+   seeded) through ``metrics.compute_metrics`` over the two 512^2
+   validation pairs of path T's synthetic SID tree, with the P2 raw PSF,
+   LPIPS-vgg and the sRGB conversion: every metric finite, 36 launches of
+   K1 and K2 per forward; LPIPS alex/vgg and InceptionV3 pool3 on the card
+   against the same modules on the CPU; the VGG19 FID extractor under
+   ``kernel_fused`` (4 launches of K7 a call) against ``reduce_window``;
+   NIQE; ``count_flops`` of the forward at 1x3x512^2 (meta tensors)
+   against its analytic MAC count; wall ms of each metric, the forward's
+   latency, LPIPS-vgg and Inception times (and at 1424x2128, a quarter of
+   a SID Sony frame) with their achieved fp32 rates;
+12. path L: the training step of 6. with ``hybrid_opt.use_lpips: true``
+   (``w_lpips`` 0.05, random LPIPS-vgg in fp32): finite positive
+   ``l_lpips``, 36 launches of each of K1-K4 per step on the tensor
+   cores, a falling loss, ms/step beside the training phase's, and the
+   LPIPS term's input gradient on the card against the CPU in fp64 (the
+   fp32 readings printed).
 
 Every kernel row carries two times: ``ms``, CUDA events around the
 wrapper (host time included), and ``device_ms``, the kernel's own device
@@ -930,14 +947,17 @@ def serving_phase(gen: torch.Generator) -> dict:
 
 
 def recipe(config: Path, network_g: dict, res_scale: float,
-           pool_impl: str = None):
+           pool_impl: str = None, **hybrid):
     """``(net, loss, state, step)`` of ``config``'s train block around
     ``network_g`` (its ``network_g`` when None), on the card, with seeded
-    random weights; ``pool_impl`` goes to ``hybrid_opt.perceptual``."""
+    random weights; ``pool_impl`` goes to ``hybrid_opt.perceptual``, the
+    other keywords into ``hybrid_opt``."""
     opt = parse(str(config), is_train=True)
     train = copy.deepcopy(opt["train"])
     if pool_impl is not None:
         train["hybrid_opt"]["perceptual"] = {"pool_impl": pool_impl}
+    if hybrid:
+        train["hybrid_opt"].update(hybrid)
     amp = bool(train.get("enable_amp"))
     net = define_network({**(network_g or opt["network_g"]),
                           "dtype": "bfloat16" if amp else "float32"},
@@ -1004,7 +1024,8 @@ def run_steps(what: str, step, state, batch, **per_step: int) -> dict:
     check(l1 < l0, f"{what}: l_total did not fall: {l0} -> {l1}")
     return {"ms_per_step": statistics.median(times), "step_ms": times,
             "l_total": [l0] + [h["l_total"] for h in history],
-            "launches": total, "launches_per_step": per_step, **trace}
+            "logs": history, "launches": total,
+            "launches_per_step": per_step, **trace}
 
 
 def traced_step(what: str, step, state, batch, untraced_ms: float) -> dict:
@@ -1366,6 +1387,312 @@ def trainer_path(train_ms: float) -> dict:
     print(json.dumps({"path_T": out}))
     os.environ.pop("SID_ROOT")
     shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# path M: the evaluation metrics; the slice's cut of a SID Sony frame
+# (2848x4256): a quarter of its pixels, 1424x2128, so that the fp32 VGG16
+# activations of both LPIPS images stay well inside 80 GB
+SID_QUARTER = (1424, 2128)
+
+
+def nafnet_macs(width: int, enc, mid: int, dec, h: int, w: int,
+                c_in: int = 3) -> int:
+    """Multiply-adds of NAFNet's convolutions and products at (h, w):
+    intro, per block conv1 (C -> 2C), the 3x3 depthwise conv, conv3,
+    conv4 (C -> 2C), conv5 and the SCA 1x1, the 2x2 down and 1x1 up convs,
+    ending."""
+    macs, c = 9 * c_in * width * h * w, width
+
+    def block(c, hw):
+        return hw * (2 * c * c + 18 * c + c * c + 2 * c * c + c * c) + c * c
+
+    for n in enc:
+        macs += n * block(c, h * w)
+        h, w = h // 2, w // 2
+        macs += 4 * c * 2 * c * h * w
+        c *= 2
+    macs += mid * block(c, h * w)
+    for n in dec:
+        macs += c * 2 * c * h * w
+        h, w, c = h * 2, w * 2, c // 2
+        macs += n * block(c, h * w)
+    return macs + 9 * c * c_in * h * w
+
+
+def wall_ms(fn) -> float:
+    """Host ms of one call of ``fn`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def evaluation_path() -> dict:
+    """Path M: the flagship ``NewBPNAFNet`` at full width and depth (bf16,
+    seeded as the serving phase's: residual scales 0.1) through
+    ``metrics.compute_metrics`` over the two 512^2 validation pairs of
+    path T's synthetic SID tree (``SonySIDDataset``: ``short_raw`` and
+    ``expo_ratio``), with the P2 raw PSF, LPIPS-vgg and the sRGB
+    conversion. Checks every key finite (``lpips`` and ``phys_mae``
+    among them), 36 launches of K1 and K2 per forward, LPIPS alex and vgg
+    and InceptionV3 pool3 on the card against the same modules on the CPU,
+    the VGG19 FID features under ``kernel_fused`` (4 K7 launches a call)
+    against ``reduce_window``, NIQE finite, and ``count_flops`` of the
+    forward at 1x3x512^2 equal to its analytic MAC count; times each
+    metric, LPIPS-vgg per 512^2 pair, Inception per 299^2 batch, the
+    forward by ``measure_inference_time`` and one LPIPS-vgg pair and one
+    Inception call at 1424x2128."""
+    import os
+    import tempfile
+
+    from lowlight_image_enhancement_tpu_torch import metrics as M
+    from lowlight_image_enhancement_tpu_torch.data import (
+        create_dataset, create_loader)
+    from lowlight_image_enhancement_tpu_torch.ops.color import linear_to_srgb
+    from lowlight_image_enhancement_tpu_torch.ops.psf import (
+        build_psf_kernels, normalize_psf_energy)
+
+    net = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
+                         device="cuda")
+    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED), 0.1)
+    eval_step = make_eval_step(net)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_m_"))
+    os.environ["SID_ROOT"] = str(synthetic_sid_root(tmp / "sid"))
+    opt = parse(str(TRAIN_CONFIG), is_train=False)
+    val_opt = opt["datasets"]["val"]
+    loader = create_loader(create_dataset(val_opt), val_opt, seed=SEED)
+    batches = list(loader)
+    check(len(batches) == 2 and all(
+        b["lq"].shape == (1, 512, 512, 3) and "short_raw" in b
+        and "expo_ratio" in b for b in batches),
+        "path M: the two 512^2 validation pairs with short_raw, expo_ratio")
+    psf = normalize_psf_energy(build_psf_kernels("mono", "P2"))
+    outputs = []
+
+    def forward(x):
+        out = eval_step(x)
+        outputs.append(out.float())
+        return out
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = M.compute_metrics(forward, batches, psf_kernel=psf, use_lpips=True,
+                            lpips_net="vgg", srgb_convert=True,
+                            device="cuda")
+    torch.cuda.synchronize()
+    t_metrics = time.perf_counter() - t0
+    expect_launches(launches(), "path M compute_metrics",
+                    nafblk_a=36 * len(outputs), nafblk_b=36 * len(outputs))
+    check(len(outputs) == 2 and {"lpips", "phys_mae"} <= set(res)
+          and all(np.isfinite(v) for v in res.values()),
+          f"path M: compute_metrics {res}")
+    print(f"path M compute_metrics: {res} ({t_metrics:.2f} s, 36 launches "
+          f"of K1 and K2 in each of {len(outputs)} forwards)")
+
+    dev = torch.device("cuda")
+    sr = torch.cat(outputs)
+    gt = torch.cat([torch.from_numpy(b["gt"]).permute(0, 3, 1, 2)
+                    for b in batches]).to(dev)
+    short = torch.cat([torch.from_numpy(b["short_raw"]).permute(0, 3, 1, 2)
+                       for b in batches]).to(dev)
+    expo = torch.from_numpy(np.concatenate(
+        [np.reshape(b["expo_ratio"], -1) for b in batches])).to(dev)
+    sr_s, gt_s = linear_to_srgb(sr.clamp(0, 1)), linear_to_srgb(gt.clamp(0, 1))
+    lp_vgg = M.LPIPSMetric(net="vgg", device=dev)
+    metric_ms = {
+        "psnr": wall_ms(lambda: float(M.psnr_linear(sr, gt))),
+        "ssim": wall_ms(lambda: float(M.ssim_linear(sr, gt))),
+        "rgb_psnr": wall_ms(lambda: M.rgb_psnr(sr, gt)),
+        "deltaE": wall_ms(lambda: M.deltaE2000_summary(
+            sr_s, gt_s, percentiles=(95.0,))),
+        "edge_deltaE": wall_ms(lambda: M.edge_deltaE2000(
+            sr_s, gt_s, edge_quantile=0.90)),
+        "lpips_vgg": wall_ms(lambda: lp_vgg.distance(sr_s, gt_s)),
+        "phys_mae": wall_ms(lambda: float(M.phys_cons_raw(sr, short, psf,
+                                                          expo))),
+    }
+    niqe = []
+    metric_ms["niqe"] = wall_ms(lambda: niqe.extend(
+        M.calculate_niqe(sr_s[i].clamp(0, 1)) for i in range(2)))
+    check(all(np.isfinite(niqe)), f"path M: NIQE {niqe}")
+    print(f"path M metric wall ms (2 images of 512^2): {metric_ms}; "
+          f"NIQE {niqe}")
+
+    # LPIPS alex and vgg on the card against the same modules on the CPU
+    # (centre 256^2 crops of both outputs)
+    crop = lambda x: x[:, :, 128:384, 128:384]
+    lpips_err = {}
+    for lp_net in ("alex", "vgg"):
+        card = M.LPIPSMetric(net=lp_net, device=dev).per_image(
+            crop(sr_s), crop(gt_s))
+        cpu = M.LPIPSMetric(net=lp_net, device="cpu").per_image(
+            crop(sr_s).cpu(), crop(gt_s).cpu())
+        lpips_err[lp_net] = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        check(lpips_err[lp_net] <= 1e-4, f"path M: LPIPS-{lp_net} card "
+              f"{card} vs CPU {cpu}")
+    # InceptionV3 pool3 (random trunk) on the card against the CPU
+    incep = M.inception_feature_extractor(allow_random=True, device=dev)
+    incep_cpu = M.inception_feature_extractor(allow_random=True,
+                                              device="cpu")
+    f_card, f_cpu = incep(sr_s), incep_cpu(sr_s.cpu())
+    incep_err = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    check(f_card.shape == (2, 2048) and incep_err <= 1e-4,
+          f"path M: Inception card vs CPU {incep_err:.3e} of max|feature|")
+    # the VGG19 FID features with K7 against reduce_window
+    vgg_fused = M.vgg_feature_extractor(pool_impl="kernel_fused", device=dev)
+    vgg_plain = M.vgg_feature_extractor(pool_impl="reduce_window",
+                                        device=dev)
+    reset_launches()
+    v_fused = vgg_fused(sr_s)
+    expect_launches(launches(), "path M VGG19 FID extractor (kernel_fused)",
+                    relu_pool_fwd=4)
+    v_plain = vgg_plain(sr_s)
+    vgg_err = float(np.abs(v_fused - v_plain).max() / np.abs(v_plain).max())
+    check(vgg_err <= 1e-5, f"path M: VGG19 FID features kernel_fused vs "
+          f"reduce_window {vgg_err:.3e}")
+    print(f"path M card vs CPU: LPIPS rel {lpips_err}, Inception "
+          f"{incep_err:.3e} of max|feature|; VGG19 FID features "
+          f"kernel_fused vs reduce_window {vgg_err:.3e} (4 K7 launches)")
+
+    # FLOPs on the plain path (meta tensors) against the analytic count
+    meta = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
+                          device="meta")
+    flops = M.FLOPsCounter(convention="macs").count(
+        meta, torch.empty(1, 3, 512, 512, device="meta"))
+    want = nafnet_macs(32, (2, 2, 4, 8), 12, (2, 2, 2, 2), 512, 512)
+    check(flops.total == want, f"path M: count_flops {flops.total} MACs, "
+          f"analytic {want}")
+    x1 = torch.from_numpy(batches[0]["lq"]).permute(0, 3, 1, 2).to(dev)
+    latency = M.measure_inference_time(eval_step, x1, warmup=3, runs=10)
+    pair = (sr_s[:1] * 2 - 1, gt_s[:1] * 2 - 1)
+    lpips_pair_ms = time_ms(lambda: lp_vgg.model(*pair), iters=5)
+    b299 = torch.nn.functional.interpolate(sr_s, (299, 299))
+    incep_ms = time_ms(lambda: incep.module(b299 * 2 - 1), iters=5)
+
+    # one LPIPS-vgg pair and one Inception call at a quarter SID frame
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    big = [torch.rand(1, 3, *SID_QUARTER, generator=gen, device=dev)
+           for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        big_lpips = lp_vgg.model(big[0] * 2 - 1, big[1] * 2 - 1)
+        big_feat = incep.module(big[0] * 2 - 1)
+    check(bool(torch.isfinite(big_lpips).all())
+          and bool(torch.isfinite(big_feat).all()),
+          "path M: LPIPS / Inception at 1424x2128 not finite")
+    big_lpips_ms = time_ms(lambda: lp_vgg.model(big[0], big[1]), iters=3)
+    big_incep_ms = time_ms(lambda: incep.module(big[0]), iters=3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # achieved rates: FLOPs of the same calls counted on meta tensors
+    lp_meta = M.LPIPSMetric(net="vgg", device="cpu").model
+    rates = {
+        "lpips_vgg_512_pair": (lp_meta, [(1, 3, 512, 512)] * 2,
+                               lpips_pair_ms),
+        "inception_2x299": (incep_cpu.module, [(2, 3, 299, 299)], incep_ms),
+        "lpips_vgg_1424x2128_pair": (lp_meta, [(1, 3, *SID_QUARTER)] * 2,
+                                     big_lpips_ms)}
+    tflop_s = {}
+    for key, (module, shapes, ms) in rates.items():
+        n_flops = M.FLOPsCounter(convention="flops_2xmac").count(
+            copy.deepcopy(module).to("meta"),
+            *[torch.empty(sh, device="meta") for sh in shapes]).total
+        tflop_s[key] = n_flops / (ms * 1e-3) / 1e12
+    out = {"metrics": res, "compute_metrics_s": t_metrics,
+           "metric_wall_ms": metric_ms, "niqe": niqe,
+           "lpips_card_vs_cpu_rel": lpips_err,
+           "inception_card_vs_cpu": incep_err,
+           "vgg_fid_fused_vs_plain": vgg_err,
+           "flops_macs_1x3x512": flops.total, "flops_backend":
+           flops.metadata["backend"],
+           "forward_ms_1x3x512": latency["ms_per_image"],
+           "lpips_vgg_ms_per_512_pair": lpips_pair_ms,
+           "inception_ms_per_299_batch_of_2": incep_ms,
+           "lpips_vgg_ms_1424x2128_pair": big_lpips_ms,
+           "inception_ms_1424x2128": big_incep_ms,
+           "peak_gb_1424x2128": peak_gb, "fp32_tflop_s": tflop_s,
+           "launches_per_forward": {"nafblk_a": 36, "nafblk_b": 36},
+           "k7_launches_per_fid_call": 4}
+    print(f"path M: forward {latency['ms_per_image']:.2f} ms at 1x3x512^2 "
+          f"({flops.total / 1e9:.3f} GMACs by count_flops = analytic); "
+          f"LPIPS-vgg {lpips_pair_ms:.2f} ms per 512^2 pair, Inception "
+          f"{incep_ms:.2f} ms per 2x299^2 batch; at 1424x2128 LPIPS-vgg "
+          f"{big_lpips_ms:.2f} ms a pair, Inception {big_incep_ms:.2f} ms, "
+          f"peak {peak_gb:.2f} GB; fp32 TFLOP/s (count_flops of the same "
+          f"calls / their time; peak 67 without TF32) {tflop_s}")
+    print(json.dumps({"path_M": out}))
+    os.environ.pop("SID_ROOT")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def lpips_loss_path(train_ms: float) -> dict:
+    """Path L: the flagship recipe with ``hybrid_opt.use_lpips: true`` (its
+    ``w_lpips`` 0.05; random LPIPS-vgg, as ``pretrained: false``) on the
+    training phase's 2x3x384^2 batch: finite logs, ``l_lpips`` positive,
+    36 launches of each of K1-K4 per step on the tensor-core route, a
+    falling loss; the LPIPS term's fp32 input gradient at 2x3x128^2 on
+    the card against the CPU in fp64 (1e-6 of max|g|; the fp32 readings
+    printed beside the CPU's own fp32 error); ms/step beside the training
+    phase's."""
+    net, loss, state, step = recipe(TRAIN_CONFIG, None, 0.01,
+                                    use_lpips=True)
+    check(loss.lpips is not None and loss.w["lpips"] == 0.05,
+          "path L: HybridLossPlus without its LPIPS-vgg term")
+    four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
+    res = run_steps("NewBPNAFNet + LPIPS", step, state, flagship_batch(),
+                    **four)
+    expect_tensor_core_route(res["device_kernels"], "path L traced step",
+                             backward=True)
+    lp = [h["l_lpips"] for h in res["logs"]]
+    check(all(np.isfinite(v) and v > 0 for v in lp),
+          f"path L: l_lpips {lp}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    target = torch.rand(2, 3, 128, 128, generator=gen, device="cuda")
+    pred = (target + 0.2 * torch.randn(target.shape, generator=gen,
+                                       device="cuda")).clamp(0, 1)
+
+    def term_grad(module, dt, device):
+        p = pred.to(device, dt).requires_grad_(True)
+        t = target.to(device, dt)
+        val = module(p.clamp(0, 1) * 2 - 1, t.clamp(0, 1) * 2 - 1).mean()
+        return torch.autograd.grad(val, p)[0].double().cpu()
+
+    # The term's input gradient is piecewise smooth: where a ReLU input or
+    # a max-pool pair lies within fp32 rounding of its switch, any two
+    # fp32 computations (fp32 and fp64 on one CPU too) route a region of
+    # it apart, by up to 1e-2 of max|g|. fp64 leaves no such switch: the
+    # card is held to the CPU there; the fp32 readings are printed beside
+    # the CPU's own fp32 error.
+    lp_cpu = copy.deepcopy(loss.lpips).cpu()
+    g = {"card32": term_grad(loss.lpips, torch.float32, "cuda"),
+         "cpu32": term_grad(lp_cpu, torch.float32, "cpu"),
+         "card64": term_grad(copy.deepcopy(loss.lpips).double(),
+                             torch.float64, "cuda"),
+         "cpu64": term_grad(lp_cpu.double(), torch.float64, "cpu")}
+    gmax = g["cpu64"].abs().max().item()
+    rel = lambda a, b: (g[a] - g[b]).abs().max().item() / gmax
+    g_err = {"card64_vs_cpu64": rel("card64", "cpu64"),
+             "card32_vs_cpu32": rel("card32", "cpu32"),
+             "card32_vs_cpu64": rel("card32", "cpu64"),
+             "cpu32_vs_cpu64": rel("cpu32", "cpu64")}
+    check(gmax > 0 and g_err["card64_vs_cpu64"] <= 1e-6,
+          f"path L: LPIPS fp64 input gradient card vs CPU "
+          f"{g_err['card64_vs_cpu64']:.3e} of max|g| {gmax:.3e}")
+    ratio = res["ms_per_step"] / train_ms
+    print(f"path L: l_lpips {lp}; LPIPS input gradient, share of max|g|: "
+          f"{g_err}; {res['ms_per_step']:.1f} ms/step, {ratio:.2f}x the "
+          f"training phase's {train_ms:.1f} in this run")
+    out = {"ms_per_step": res["ms_per_step"], "step_ms": res["step_ms"],
+           "train_phase_ms_per_step": train_ms, "ratio_to_train_phase": ratio,
+           "device_busy_ms": res["device_busy_ms"],
+           "device_idle_share": res["device_idle_share"],
+           "kernel_records": res["kernel_records"], "l_lpips": lp,
+           "l_total": res["l_total"], "launches_per_step": four,
+           "lpips_grad_rel": g_err}
+    print(json.dumps({"path_L": out}))
     return out
 
 
@@ -1852,6 +2179,9 @@ def main() -> int:
     perc = phase("path P", perceptual_path)
     base = phase("path B", baseline_path)
     ssr = phase("path S", nafssr_path)
+    path_m = phase("path M (the evaluation metrics)", evaluation_path)
+    path_l = phase("path L (LPIPS in the loss)", lpips_loss_path,
+                   train["ms_per_step"])
 
     kernels = []
     bf16 = lambda k: [r for r in rows[k] if r["dtype"] == "bfloat16"]
@@ -1939,7 +2269,15 @@ def main() -> int:
         "path_T": {k: path_t[k] for k in (
             "ms_per_step", "data_ms_per_step", "iteration_ms", "val_wall_s",
             "val_metrics", "train_phase_ms_per_step")},
-        "cli": cli}))
+        "cli": cli,
+        "path_M": {k: path_m[k] for k in (
+            "metrics", "metric_wall_ms", "forward_ms_1x3x512",
+            "lpips_vgg_ms_per_512_pair", "inception_ms_per_299_batch_of_2",
+            "lpips_vgg_ms_1424x2128_pair", "inception_ms_1424x2128",
+            "fp32_tflop_s")},
+        "path_L": {k: path_l[k] for k in (
+            "ms_per_step", "ratio_to_train_phase", "device_busy_ms",
+            "device_idle_share", "l_lpips")}}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

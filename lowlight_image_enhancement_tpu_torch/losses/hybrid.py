@@ -6,13 +6,11 @@ Counterpart of ``lowlight_image_enhancement_tpu/losses/hybrid.py``
 - :class:`HybridLoss`: ``lambda_l1 * L1 + lambda_perc * Perceptual``,
   returning ``(total, l1, perc)``;
 - :class:`HybridLossPlus`: the training loss -- L1 on raw, perceptual,
-  DeltaE00, SSIM and one physics term (RAW or sRGB), with optional
-  Kendall-Gal uncertainty weighting (``L * exp(-2 s) + s``; the trainable
-  ``s`` live in :attr:`HybridLossPlus.log_sigma`, an ``nn.ParameterDict``)
-  and detached per-term logs;
+  LPIPS (vgg, off by default), DeltaE00, SSIM and one physics term (RAW or
+  sRGB), with optional Kendall-Gal uncertainty weighting (``L * exp(-2 s)
+  + s``; the trainable ``s`` live in :attr:`HybridLossPlus.log_sigma`, an
+  ``nn.ParameterDict``) and detached per-term logs;
 - :func:`assert_finite_logs`: the host-side NaN/Inf guard.
-
-The LPIPS term waits for the metrics slice of the port.
 """
 
 from __future__ import annotations
@@ -30,6 +28,10 @@ from lowlight_image_enhancement_tpu_torch.losses.components import (
     PhysicsConsistencyLoss,
     Scalar,
     SSIMLoss,
+)
+from lowlight_image_enhancement_tpu_torch.models.lpips import (
+    LPIPSNet,
+    load_lpips,
 )
 from lowlight_image_enhancement_tpu_torch.ops.psf import CrosstalkPSF
 from lowlight_image_enhancement_tpu_torch.utils.registry import LOSS_REGISTRY
@@ -63,7 +65,11 @@ class HybridLossPlus(nn.Module):
     w_perc=0.02, w_lpips=0.0, w_deltaE=0.02, w_ssim=0.05, w_phys=0.10``);
     with ``use_phys`` exactly one of ``physics_kernel`` (RAW) or
     ``physics_psf_module`` (sRGB) must be given; ``perc_pool_impl`` is the
-    perceptual trunk's ``pool_impl``. Call with NCHW keywords::
+    perceptual trunk's ``pool_impl``. ``use_lpips`` adds ``mean(LPIPS-vgg(
+    clip(Bhat, 0, 1) * 2 - 1, clip(B, 0, 1) * 2 - 1))`` in fp32 through
+    ``lpips`` (an :class:`LPIPSNet`; by default ``load_lpips(net="vgg")``,
+    which must find converted weights when ``require_pretrained``). Call
+    with NCHW keywords::
 
         total, logs = loss(Bhat_raw=..., B_raw=..., A_raw=...,
                            expo_ratio=..., Bhat_srgb01=..., B_srgb01=...,
@@ -81,6 +87,7 @@ class HybridLossPlus(nn.Module):
                  physics_kernel: Optional[torch.Tensor] = None,
                  physics_psf_module: Optional[CrosstalkPSF] = None,
                  perceptual: Optional[PerceptualLoss] = None,
+                 lpips: Optional[LPIPSNet] = None,
                  require_pretrained: bool = False,
                  perc_dtype: Optional[torch.dtype] = None,
                  perc_pool_impl: Optional[str] = None,
@@ -91,10 +98,6 @@ class HybridLossPlus(nn.Module):
             raise ValueError("use_phys requires exactly one of "
                              "physics_kernel (RAW) or physics_psf_module "
                              "(sRGB)")
-        if use_lpips:
-            raise NotImplementedError(
-                "HybridLossPlus(use_lpips=True): LPIPS is not ported yet "
-                "(it comes with the port's metrics slice)")
         self.w = dict(l1_raw=w_l1_raw, perc=w_perc, lpips=w_lpips,
                       deltaE=w_deltaE, ssim=w_ssim, phys=w_phys)
         self.use = dict(perc=use_perc, lpips=use_lpips, deltaE=use_deltaE,
@@ -105,6 +108,19 @@ class HybridLossPlus(nn.Module):
             self.perceptual = perceptual or PerceptualLoss(
                 require_pretrained=require_pretrained, dtype=perc_dtype,
                 pool_impl=perc_pool_impl)
+        self.lpips = None
+        if use_lpips:
+            if lpips is None:
+                lpips, lpips_pretrained = load_lpips(net="vgg")
+                if require_pretrained and not lpips_pretrained:
+                    raise RuntimeError(
+                        "HybridLossPlus(use_lpips=True): pretrained LPIPS "
+                        "weights not found (the reference uses LPIPS v0.1 "
+                        "vgg, NewBP_model/losses.py:246-252). Provide "
+                        "weights (tools/convert_lpips_weights.py -> "
+                        "$LLIE_LPIPS_NPZ) or set `pretrained: false` to opt "
+                        "into random features.")
+            self.lpips = lpips
         self.deltaE = DeltaE00Loss() if use_deltaE else None
         self.ssim = SSIMLoss() if use_ssim else None
         self.phys_raw = (PhysicsConsistencyLoss(physics_kernel)
@@ -145,6 +161,10 @@ class HybridLossPlus(nn.Module):
         if self.perceptual is not None:
             total = add("perc", "l_perc",
                         self.perceptual(Bhat_srgb01, B_srgb01), total)
+        if self.lpips is not None:
+            lp = self.lpips(Bhat_srgb01.float().clamp(0, 1) * 2.0 - 1.0,
+                            B_srgb01.float().clamp(0, 1) * 2.0 - 1.0).mean()
+            total = add("lpips", "l_lpips", lp, total)
         if self.deltaE is not None:
             total = add("deltaE", "l_deltaE",
                         self.deltaE(Bhat_srgb01, B_srgb01), total)

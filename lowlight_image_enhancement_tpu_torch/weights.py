@@ -20,6 +20,13 @@ it for the Flax ``Baseline`` (``ca/down``, ``ca/up`` -> ``se.1``,
 ``se.3``) and ``NAFSSR`` (``blk{i}/blk`` -> ``body.{i}.blk``,
 ``blk{i}/scam`` -> ``body.{i}.scam``).
 
+:func:`lpips_params_from_jax` and :func:`inception_params_from_jax` carry
+the Flax ``LPIPSNet`` (``trunk/conv*`` HWIO -> OIHW, ``lin{i}`` ``[C]`` ->
+``[1, C, 1, 1]``) and ``InceptionV3Pool3`` (each ``BasicConv``'s
+``kernel`` and BatchNorm ``bn_scale``, ``bn_bias``, ``bn_mean``,
+``bn_var`` -> ``<path>.conv.weight``, ``<path>.bn.weight``, ``.bias``,
+``.running_mean``, ``.running_var``) into the port's modules.
+
 An unknown or missing key raises ``KeyError``.
 """
 
@@ -255,4 +262,68 @@ def vgg_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for name in names:
         for k, v in _conv(tree[name], name).items():
             sd[f"{name}.{k}"] = v
+    return sd
+
+
+def _params(variables: Mapping[str, Any]) -> Mapping[str, Any]:
+    """The ``params`` collection of Flax ``variables`` (or the tree
+    itself when it is already one)."""
+    return variables["params"] if "params" in variables else variables
+
+
+def lpips_params_from_jax(variables: Mapping[str, Any],
+                          net: str) -> Dict[str, torch.Tensor]:
+    """Flax ``LPIPSNet(net=net)`` variables (numpy leaves) -> the port's
+    :class:`...models.lpips.LPIPSNet` ``state_dict``."""
+    from lowlight_image_enhancement_tpu_torch.models.lpips import (
+        N_CHANNELS, LPIPSNet)
+
+    model = LPIPSNet(net=net)
+    tree = _params(variables)
+    heads = [f"lin{i}" for i in range(len(N_CHANNELS[net]))]
+    _check_keys(tree, "LPIPS", ("trunk", *heads))
+    names = [n for n, _ in model.trunk.named_children()]
+    _check_keys(tree["trunk"], "LPIPS trunk", names)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in names:
+        _prefixed(sd, f"trunk.{name}", _conv(tree["trunk"][name], name))
+    for head in heads:
+        sd[f"{head}.weight"] = torch.from_numpy(
+            np.array(tree[head], np.float32).reshape(1, -1, 1, 1))
+    _check_fit(sd, model)
+    return sd
+
+
+_BN = (("bn_scale", "bn.weight"), ("bn_bias", "bn.bias"),
+       ("bn_mean", "bn.running_mean"), ("bn_var", "bn.running_var"))
+
+
+def inception_params_from_jax(variables: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """Flax ``InceptionV3Pool3`` variables (numpy leaves) -> the port's
+    :class:`...models.inception.InceptionV3Pool3` ``state_dict`` (its
+    BatchNorms' ``num_batches_tracked`` stay 0)."""
+    from lowlight_image_enhancement_tpu_torch.models.inception import (
+        InceptionV3Pool3)
+
+    model = InceptionV3Pool3()
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        if "kernel" in tree:
+            where = "/".join(path)
+            leaves = _leaves(tree, where, ("kernel",) + tuple(
+                k for k, _ in _BN))
+            base = ".".join(path)
+            sd[f"{base}.conv.weight"] = _oihw(leaves[0])
+            for (_, name), val in zip(_BN, leaves[1:]):
+                sd[f"{base}.{name}"] = torch.from_numpy(val)
+            sd[f"{base}.bn.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.long)
+            return
+        for key, sub in tree.items():
+            walk(sub, path + (key,))
+
+    walk(_params(variables), ())
+    _check_fit(sd, model)
     return sd

@@ -195,9 +195,15 @@ def test_hybrid_loss_plus_matches_jax(data, vgg_pair, variant):
 def test_hybrid_loss_rules():
     with pytest.raises(ValueError, match="exactly one"):
         losses.HybridLossPlus(use_perc=False)
-    with pytest.raises(NotImplementedError, match="metrics slice"):
+    # the LPIPS term refuses random features only where pretrained ones
+    # are required, as the JAX loss does; else it is a random LPIPS-vgg
+    with pytest.raises(RuntimeError, match="pretrained LPIPS"):
         losses.HybridLossPlus(use_perc=False, use_lpips=True,
+                              require_pretrained=True,
                               physics_psf_module=psf.create_crosstalk_psf())
+    assert losses.HybridLossPlus(
+        use_perc=False, use_lpips=True,
+        physics_psf_module=psf.create_crosstalk_psf()).lpips.net == "vgg"
     with pytest.raises(FloatingPointError):
         losses.assert_finite_logs({"a": torch.tensor(1.0),
                                    "b": torch.tensor(float("nan"))})

@@ -9,12 +9,14 @@
   ``edge_deltae2000_mean``) against the JAX registry's: rtol 1e-5;
 - ``training/validation.py:compute_metrics`` over the flagship config's
   ``val.metrics`` block;
-- the names that wait for the rest of ``metrics/`` raise, and the input
-  checks of the colour metrics.
+- the bridge names ``lpips_distance`` (one weight file for both
+  packages), ``psnr`` and ``ssim`` (image domain) against the JAX
+  registry's, and the input checks of the colour metrics.
 """
 
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,15 +25,21 @@ import yaml
 
 from lowlight_image_enhancement_tpu import metrics as jmetrics
 from lowlight_image_enhancement_tpu.metrics import color_error as jce
+from lowlight_image_enhancement_tpu.metrics.lpips_metric import (
+    LPIPSMetric as JLPIPSMetric,
+)
+from lowlight_image_enhancement_tpu.models.lpips import load_lpips
 from lowlight_image_enhancement_tpu.utils.registry import (
     METRIC_REGISTRY as JAX_METRICS,
 )
 from lowlight_image_enhancement_tpu_torch import metrics  # noqa: F401
 from lowlight_image_enhancement_tpu_torch.metrics import color_error as ce
+from lowlight_image_enhancement_tpu_torch.metrics import lpips_metric
 from lowlight_image_enhancement_tpu_torch.training.validation import (
     compute_metrics,
 )
 from lowlight_image_enhancement_tpu_torch.utils.registry import METRIC_REGISTRY
+from lowlight_image_enhancement_tpu_torch.weights import lpips_params_from_jax
 
 FLAGSHIP = "configs/sid_newbp_mono_selfcontained.yml"
 
@@ -110,12 +118,36 @@ def test_compute_metrics_on_the_flagship_block():
                                    rtol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("name", ["lpips_distance", "psnr", "ssim"])
-def test_unported_names_raise(name):
-    assert name in JAX_METRICS
-    pred, gt = _pair(5)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        METRIC_REGISTRY.get(name)(_nchw(pred), _nchw(gt))
+@pytest.fixture
+def same_lpips_alex(tmp_path, monkeypatch):
+    """One LPIPS-alex weight file (the JAX random init) read by both
+    packages through ``$LLIE_LPIPS_NPZ``, their model caches emptied."""
+    _, variables, _ = load_lpips(net="alex")
+    sd = lpips_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, variables), "alex")
+    path = tmp_path / "lpips_alex.npz"
+    np.savez(path, **{k: v.numpy() for k, v in sd.items()})
+    monkeypatch.setenv("LLIE_LPIPS_NPZ", str(path))
+    monkeypatch.setattr(JLPIPSMetric, "_CACHE", {})
+    monkeypatch.setattr(lpips_metric, "_CACHE", {})
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("lpips_distance", {}),
+    ("psnr", {"crop_border": 2, "test_y_channel": True}),
+    ("ssim", {"crop_border": 1}),
+])
+def test_image_and_lpips_bridge_names_match_jax(same_lpips_alex, name, kw):
+    """The names that waited for the rest of ``metrics/`` (LPIPS, the
+    image-domain PSNR/SSIM) against the JAX registry's: rtol 1e-5 (LPIPS
+    1e-4, as the LPIPS tests hold it)."""
+    pred, gt = _pair(5, h=64, w=48)
+    got = METRIC_REGISTRY.get(name)(_nchw(pred), _nchw(gt), **kw)
+    want = JAX_METRICS.get(name)(jnp.asarray(pred), jnp.asarray(gt), **kw)
+    assert isinstance(got, float)
+    np.testing.assert_allclose(got, float(want),
+                               rtol=1e-4 if name.startswith("lpips")
+                               else 1e-5)
 
 
 def test_colour_metric_input_checks():

@@ -24,10 +24,22 @@ port's names), and PSNR/SSIM of both trained networks on a held-out
 batch, both computed by the JAX package's ``calculate_psnr_img`` /
 ``calculate_ssim_img`` on 8-bit outputs, as ``parity_train_ab.py`` does.
 
+``--probe`` answers a different question: whether the two packages take
+the same step from the same state. It runs the JAX trajectory of the
+protocol and, at steps 0, 50, 100, 200 and 299 (``--probe-at``), loads
+JAX's parameters and AdamW moments into the port, takes one step on both
+sides from that state, and reports per leaf the relative difference
+``max|port - jax| / max|jax|`` of the gradient and of the update (the
+port's update taken in float64 from the fp32 gradient, so that the
+rounding of ``p + u`` does not enter it), and each loss term of both
+sides.
+
 Usage::
 
     python tools/parity_port_ab.py --protocol v1   # -> parity_port_ab.json
     python tools/parity_port_ab.py --protocol v3   # -> parity_port_ab_v3.json
+    python tools/parity_port_ab.py --protocol v3 --probe
+                                        # -> parity_port_ab_v3_probe.json
 """
 
 from __future__ import annotations
@@ -86,22 +98,42 @@ def shared_init(geometry, side: int):
             np.float32), params)
 
 
-def run_jax(net, params, steps: int, side: int, full: bool, jperc):
-    """The JAX package's trajectory: (losses, final params, val output)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
+TERMS = ("l1_raw", "perc", "deltaE", "ssim", "phys")
 
+
+def loss_kwargs(full: bool, only: str = None) -> dict:
+    """``HybridLossPlus`` weights and switches of the protocol, or of its
+    term ``only`` alone (the same keywords in both packages)."""
+    kw = dict(use_perc=full, w_perc=W_PERC, use_deltaE=full,
+              w_deltaE=W_DELTAE, use_ssim=full, w_ssim=W_SSIM,
+              use_phys=True, w_phys=W_PHYS)
+    if only is not None:
+        for t in TERMS[1:]:
+            kw[f"use_{t}"] = kw[f"use_{t}"] and t == only
+        kw["w_l1_raw"] = 1.0 if only == "l1_raw" else 0.0
+    return kw
+
+
+def jax_loss_of(full: bool, jperc, only: str = None):
     from lowlight_image_enhancement_tpu.losses import HybridLossPlus
     from lowlight_image_enhancement_tpu.ops.psf import create_crosstalk_psf
+
+    kw = loss_kwargs(full, only)
+    return HybridLossPlus(
+        perceptual=jperc if kw["use_perc"] else None,
+        physics_psf_module=(create_crosstalk_psf("mono", "P2")
+                            if kw["use_phys"] else None), **kw)
+
+
+def jax_setup(net, params, side: int, full: bool, jperc):
+    """The JAX package's loss, optimizer, initial state, step and batch."""
+    import jax
+    import jax.numpy as jnp
+
     from lowlight_image_enhancement_tpu.training.train_step import (
         TrainState, make_optimizer, make_train_step)
 
-    loss = HybridLossPlus(
-        use_perc=full, w_perc=W_PERC, perceptual=jperc,
-        use_deltaE=full, w_deltaE=W_DELTAE, use_ssim=full, w_ssim=W_SSIM,
-        use_phys=True, w_phys=W_PHYS,
-        physics_psf_module=create_crosstalk_psf("mono", "P2"))
+    loss = jax_loss_of(full, jperc)
     tx = make_optimizer(LR)
     params = jax.tree_util.tree_map(jnp.asarray, params)
     trainable = {"params": params, "log_sigma": {}}
@@ -111,6 +143,16 @@ def run_jax(net, params, steps: int, side: int, full: bool, jperc):
     b = make_batch(side)
     batch = {k: jnp.asarray(v) for k, v in b.items()}
     batch["expo_ratio"] = jnp.full((b["lq"].shape[0],), RHO, jnp.float32)
+    return loss, tx, state, step, batch
+
+
+def run_jax(net, params, steps: int, side: int, full: bool, jperc):
+    """The JAX package's trajectory: (losses, final params, val output)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    _, _, state, step, batch = jax_setup(net, params, side, full, jperc)
     losses = []
     for _ in range(steps):
         state, logs = step(state, batch)
@@ -122,9 +164,9 @@ def run_jax(net, params, steps: int, side: int, full: bool, jperc):
             np.clip(np.asarray(out), 0.0, 1.0))
 
 
-def run_port(params, geometry, steps: int, side: int, full: bool, jperc):
-    """The port's trajectory from the same init: (losses, final
-    state_dict, val output NHWC)."""
+def port_loss(full: bool, jperc, only: str = None):
+    """The port's ``HybridLossPlus`` of the protocol, or of its term
+    ``only`` alone (the perceptual trunk bridged from ``jperc``)."""
     import jax
     import numpy as np
     import torch
@@ -133,26 +175,37 @@ def run_port(params, geometry, steps: int, side: int, full: bool, jperc):
         PerceptualLoss)
     from lowlight_image_enhancement_tpu_torch.losses.hybrid import (
         HybridLossPlus)
-    from lowlight_image_enhancement_tpu_torch.models import NAFNet
     from lowlight_image_enhancement_tpu_torch.ops.psf import (
         create_crosstalk_psf)
-    from lowlight_image_enhancement_tpu_torch.training.train_step import (
-        create_train_state, make_optimizer, make_train_step)
     from lowlight_image_enhancement_tpu_torch.weights import (
-        params_from_jax, vgg_params_from_jax)
+        vgg_params_from_jax)
 
-    net = NAFNet(**geometry)
-    net.load_state_dict(params_from_jax(params, model=net))
+    kw = loss_kwargs(full, only)
     perc = None
-    if full:
+    if kw["use_perc"]:
         perc = PerceptualLoss(dtype=torch.float32)
         perc.vgg.load_state_dict(vgg_params_from_jax(
             jax.tree_util.tree_map(np.asarray, jperc.variables["params"])))
-    loss = HybridLossPlus(
-        use_perc=full, w_perc=W_PERC, perceptual=perc,
-        use_deltaE=full, w_deltaE=W_DELTAE, use_ssim=full, w_ssim=W_SSIM,
-        use_phys=True, w_phys=W_PHYS,
-        physics_psf_module=create_crosstalk_psf("mono", "P2"))
+    return HybridLossPlus(
+        perceptual=perc, physics_psf_module=(
+            create_crosstalk_psf("mono", "P2") if kw["use_phys"] else None),
+        **kw)
+
+
+def run_port(params, geometry, steps: int, side: int, full: bool, jperc):
+    """The port's trajectory from the same init: (losses, final
+    state_dict, val output NHWC)."""
+    import numpy as np
+    import torch
+
+    from lowlight_image_enhancement_tpu_torch.models import NAFNet
+    from lowlight_image_enhancement_tpu_torch.training.train_step import (
+        create_train_state, make_optimizer, make_train_step)
+    from lowlight_image_enhancement_tpu_torch.weights import params_from_jax
+
+    net = NAFNet(**geometry)
+    net.load_state_dict(params_from_jax(params, model=net))
+    loss = port_loss(full, jperc)
     opt = make_optimizer(LR)
     state = create_train_state(net, opt, loss)
     step = make_train_step(net, loss, opt)
@@ -257,6 +310,217 @@ def run_parity(steps: int, side: int, width: int, full: bool) -> dict:
     }
 
 
+PROBE_AT = (0, 50, 100, 200, 299)
+
+
+def rel_diff(got, want) -> float:
+    """``max|got - want| / max|want|`` (float64)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                  1e-30))
+
+
+def diff_stats(got, want) -> dict:
+    """How two gradients differ: ``max|d| / max|want|``, ``|d|_2 /
+    |want|_2`` and the share of elements with ``|d| > 1e-5 max|want|``.
+    A switch decided by a rounding (a ReLU at 0, a max-pool argmax, a hue
+    branch) moves a region of the gradient; a wrong formula moves all of
+    it."""
+    import numpy as np
+
+    got = np.asarray(got.detach() if hasattr(got, "detach") else got,
+                     np.float64)
+    want = np.asarray(want.detach() if hasattr(want, "detach") else want,
+                      np.float64)
+    d = np.abs(got - want)
+    top = max(np.abs(want).max(), 1e-30)
+    return {"max_rel": float(d.max() / top),
+            "l2_rel": float(np.linalg.norm(d) / max(np.linalg.norm(want),
+                                                    1e-30)),
+            "share_over_1e-5": float(np.mean(d > 1e-5 * top))}
+
+
+def run_probe(points, side: int, width: int, full: bool) -> dict:
+    """JAX's trajectory, and at each step of ``points`` one step of both
+    packages from JAX's state there (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+    import torch
+
+    from lowlight_image_enhancement_tpu.losses.components import (
+        PerceptualLoss as JaxPerceptualLoss)
+    from lowlight_image_enhancement_tpu.training.train_step import (
+        hybrid_batch_kwargs as jax_batch_kwargs)
+    from lowlight_image_enhancement_tpu_torch.models import NAFNet
+    from lowlight_image_enhancement_tpu_torch.training.train_step import (
+        hybrid_batch_kwargs, make_optimizer)
+    from lowlight_image_enhancement_tpu_torch.weights import params_from_jax
+
+    geometry = dict(GEOMETRY, width=width)
+    jperc = JaxPerceptualLoss(dtype=jnp.float32) if full else None
+    jnet, params = shared_init(geometry, side)
+    jloss, tx, state, step, batch = jax_setup(jnet, params, side, full,
+                                              jperc)
+    t0 = time.perf_counter()
+    saved = {}
+    for i in range(max(points) + 1):
+        if i in points:
+            saved[i] = state
+        if i < max(points):
+            state, _ = step(state, batch)
+    t_jax = time.perf_counter() - t0
+
+    def jax_loss(p, b):
+        out = jnet.apply({"params": p}, b["lq"], deterministic=False)
+        return jloss(**jax_batch_kwargs(out, b))
+
+    # the batch is an argument of every jitted function: as a constant XLA
+    # would fold the VGG19 trunk of the perceptual target
+    jax_grad = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))
+
+    def out_grad(loss_):
+        """``o -> dL/do`` of ``loss_`` at the batch."""
+        grad = jax.jit(jax.grad(
+            lambda o, b: loss_(**jax_batch_kwargs(o, b))[0]))
+        return lambda o: grad(o, batch)
+
+    jax_out_grad = out_grad(jloss)
+    terms = [t for t in TERMS if full or t in ("l1_raw", "phys")]
+    jax_term_grads = {t: out_grad(jax_loss_of(full, jperc, t))
+                      for t in terms}
+    port_terms = {t: port_loss(full, jperc, t) for t in terms}
+
+    def jax_split(p):
+        """The network's output, dL/d(output) there, and the network's
+        VJP of that cotangent."""
+        out, vjp = jax.vjp(lambda q: jnet.apply(
+            {"params": q}, batch["lq"], deterministic=False), p)
+        g_out = jax_out_grad(out)
+        return out, g_out, vjp(g_out)[0]
+
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.array(a), (0, 3, 1, 2))))
+    pbatch = {k: nchw(v) for k, v in batch.items() if k != "expo_ratio"}
+    pbatch["expo_ratio"] = torch.from_numpy(np.array(batch["expo_ratio"]))
+    net = NAFNet(**geometry)
+    loss = port_loss(full, jperc)
+    names = [k for k, _ in net.named_parameters()]
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+    report = []
+    for k in points:
+        st = saved[k]
+        (_, jlogs), jg = jax_grad(st.params, batch)
+        trainable = {"params": st.params, "log_sigma": {}}
+        jupd, _ = tx.update({"params": jg, "log_sigma": {}}, st.opt_state,
+                            trainable)
+        (adam,) = [s for s in jax.tree_util.tree_leaves(
+            st.opt_state, is_leaf=lambda s: isinstance(
+                s, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState)]
+        jg_sd = params_from_jax(to_np(jg), model=net)
+        ju_sd = params_from_jax(to_np(jupd["params"]), model=net)
+        mu_sd = params_from_jax(to_np(adam.mu["params"]), model=net)
+        nu_sd = params_from_jax(to_np(adam.nu["params"]), model=net)
+
+        net.load_state_dict(params_from_jax(to_np(st.params), model=net))
+        net.train()
+        out = net(pbatch["lq"])
+        total, logs = loss(**hybrid_batch_kwargs(out, pbatch))
+        grads = torch.autograd.grad(total, list(net.parameters()),
+                                    retain_graph=True)
+        # the gradient split where the loss meets the network: the loss's
+        # gradient at JAX's own output, and the network's VJP of JAX's
+        # cotangent
+        j_out, j_gout, j_vjp = jax_split(st.params)
+        o = nchw(j_out).requires_grad_(True)
+        (p_gout,) = torch.autograd.grad(
+            loss(**hybrid_batch_kwargs(o, pbatch))[0], o)
+        by_term = {}
+        for t in terms:
+            (g_t,) = torch.autograd.grad(
+                port_terms[t](**hybrid_batch_kwargs(o, pbatch))[0], o)
+            by_term[t] = diff_stats(g_t, nchw(jax_term_grads[t](j_out)))
+            if t == "perc":
+                # the port's own fp32 rounding band: the same term in fp64
+                vgg = port_terms[t].perceptual.vgg
+                vgg.dtype = torch.float64
+                o64 = o.detach().double().requires_grad_(True)
+                (g64,) = torch.autograd.grad(port_terms[t](
+                    **hybrid_batch_kwargs(o64, pbatch))[0], o64)
+                vgg.dtype = torch.float32
+                by_term[t]["port_fp32_vs_port_fp64"] = diff_stats(g_t, g64)
+        p_vjp = torch.autograd.grad(out, list(net.parameters()),
+                                    grad_outputs=nchw(j_gout))
+        j_vjp_sd = params_from_jax(to_np(j_vjp), model=net)
+        b_raw = pbatch["long_raw"]
+        flips = int(((out.detach() - b_raw).sign()
+                     != (nchw(j_out) - b_raw).sign()).sum())
+        split = {
+            "output_rel": rel_diff(out.detach().numpy(), nchw(j_out)),
+            "loss_grad_rel_at_jax_output": rel_diff(p_gout.numpy(),
+                                                    nchw(j_gout)),
+            "loss_grad_rel_by_term": by_term,
+            "vjp_worst_rel_of_jax_cotangent": max(
+                rel_diff(g.numpy(), j_vjp_sd[n])
+                for n, g in zip(names, p_vjp)),
+            "l1_sign_flips": flips, "pixels": int(b_raw.numel()),
+        }
+        def port_update(grads_):
+            """The port optimizer's update in float64 from fp32 ``grads_``
+            and JAX's moments."""
+            p64 = [p.detach().double().clone() for p in net.parameters()]
+            opt = make_optimizer(LR).init(p64)
+            opt.count = int(adam.count)
+            for m, v, name in zip(opt.mu, opt.nu, names):
+                m.copy_(mu_sd[name].double())
+                v.copy_(nu_sd[name].double())
+            before = [p.clone() for p in p64]
+            opt.step([g.detach().float().clone() for g in grads_])
+            return [(a - b).numpy() for a, b in zip(p64, before)]
+
+        upd = port_update(grads)
+        # the optimizer alone: the port's update from JAX's gradient
+        upd_j = port_update([jg_sd[n] for n in names])
+        leaves = {}
+        for name, g, u, uj in zip(names, grads, upd, upd_j):
+            leaves[name] = {
+                "grad_rel": rel_diff(g.detach().numpy(), jg_sd[name]),
+                "update_rel": rel_diff(u, ju_sd[name]),
+                "update_rel_same_grad": rel_diff(uj, ju_sd[name]),
+                "grad_max": float(jg_sd[name].abs().max()),
+            }
+        logged = {t: {"port": float(logs[t]), "jax": float(jlogs[t]),
+                      "rel": abs(float(logs[t]) - float(jlogs[t]))
+                      / max(abs(float(jlogs[t])), 1e-30)} for t in logs}
+        worst_g = max(leaves, key=lambda n: leaves[n]["grad_rel"])
+        worst_u = max(leaves, key=lambda n: leaves[n]["update_rel"])
+        worst_o = max(leaves[n]["update_rel_same_grad"] for n in leaves)
+        report.append({
+            "step": k, "terms": logged,
+            "worst_grad_leaf": worst_g,
+            "worst_grad_rel": leaves[worst_g]["grad_rel"],
+            "worst_update_leaf": worst_u,
+            "worst_update_rel": leaves[worst_u]["update_rel"],
+            "worst_update_rel_same_grad": worst_o, "split": split,
+            "leaves": leaves})
+        print(f"step {k}: worst grad rel {leaves[worst_g]['grad_rel']:.3e} "
+              f"({worst_g}), worst update rel "
+              f"{leaves[worst_u]['update_rel']:.3e} ({worst_u}), from JAX's "
+              f"gradient {worst_o:.3e}; {split}; terms "
+              + ", ".join(f"{t} {v['rel']:.2e}" for t, v in logged.items()),
+              flush=True)
+    return {"protocol": {"side": side, "geometry": geometry, "full": full,
+                         "points": list(points),
+                         "measure": "max|port - jax| / max|jax| per leaf",
+                         "dtype": "float32 (CPU, both sides); the port's "
+                                  "update in float64"},
+            "points": report, "seconds": {"jax_trajectory": t_jax}}
+
+
 def force_jax_cpu() -> None:
     """Both sides run on the host CPU; a TPU plugin ignores a plain
     ``JAX_PLATFORMS=cpu``, so all three settings are made."""
@@ -275,15 +539,26 @@ def main() -> None:
     ap.add_argument("--json", default=None,
                     help="output path (default: the protocol's file at the "
                          "repository root)")
+    ap.add_argument("--probe", action="store_true",
+                    help="one step of both packages from JAX's state at "
+                         "the --probe-at steps of the protocol")
+    ap.add_argument("--probe-at", default=",".join(map(str, PROBE_AT)))
     args = ap.parse_args()
     force_jax_cpu()
     proto = PROTOCOLS[args.protocol]
-    report = run_parity(args.steps or proto["steps"], proto["side"],
-                        proto["width"], proto["full"])
+    if args.probe:
+        points = tuple(int(p) for p in args.probe_at.split(","))
+        report = run_probe(points, proto["side"], proto["width"],
+                           proto["full"])
+        default = proto["json"].replace(".json", "_probe.json")
+    else:
+        report = run_parity(args.steps or proto["steps"], proto["side"],
+                            proto["width"], proto["full"])
+        default = proto["json"]
     report["protocol"]["name"] = args.protocol
     out = json.dumps(report, indent=2, default=str)
-    print(out)
-    path = args.json or os.path.join(ROOT, proto["json"])
+    print(out if not args.probe else "")
+    path = args.json or os.path.join(ROOT, default)
     with open(path, "w") as f:
         f.write(out + "\n")
 
