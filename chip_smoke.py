@@ -23,9 +23,10 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    (``nafblk_p2``) and the whole block backward (``NAFBlockFunction`` vs
    the plain backward) at every width of a 384x384, N=2 training crop
    (C=32@384^2 ... C=512@24^2), at the width-64 configuration's
-   C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles)
-   and at NAFSSR's C=48 with 30x90 pixels and N=16, checking dz, da, dx
-   and every weight grad;
+   C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles),
+   at NAFSSR's C=48 with 30x90 pixels and N=16 and at the bottom of
+   NAFNetTPU's trunk, C=1024@12^2, checking dz, da, dx and every weight
+   grad;
 4b. narrow-channel phase: the same at C = 8, 24, 40, 12, 6 and 10 (no
    multiples of 16: in bf16 all four kernels take the FMA route; 6 and
    10 are no multiples of 4 either, and the matrices' rows are padded),
@@ -38,6 +39,11 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    counts) on the tensor-core route (the device kernels of one request
    under the profiler), and one request against the model's eager
    (plain) path;
+5b. path C: ``NAFNetLocal`` (TLC) at NAFNet's SID configuration in bf16
+   with seeded random weights on a 1x3x512^2 request: with a window >= 2x
+   the image it equals the fused ``NAFNet`` of the same weights (36 K1/K2
+   launches) within the served bf16 bar and launches no K1-K4; at the
+   recipe's window of 384 its output is finite, again with no launch;
 6. training phase: the train step of ``configs/sid_newbp_mono_selfcontained
    .yml`` (``NewBPNAFNet`` in bf16, ``HybridLossPlus`` with the random
    bf16 VGG19 trunk, AdamW + clip 0.01 on the cosine schedule) on one
@@ -55,16 +61,26 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
 6c. path T: the user's training entry point, ``Trainer(opt).train()``, on
    ``configs/sid_newbp_mono_selfcontained.yml`` over a seeded synthetic
    SID tree (``make_synthetic_sid``: 4 train and 2 val pairs at 512^2,
-   laid out as the config's ``SID_ROOT``), 6 iterations at full width
+   laid out as the config's ``SID_ROOT``), 4 iterations at full width
    and depth with batches of 2 384^2 crops from the packs through the
    device prefetcher: the native pack reader, 36 launches of each of
    K1-K4 per step (their tensor-core kernels in a traced step), finite
-   logs, checkpoints at 3 and 6, validation at 6 with the config's four
-   metrics on the two full val images, the restore of step 3 bit for
-   bit, and a second Trainer that resumes at 3 and reaches 6; prints
+   logs, checkpoints at 2 and 4, validation at 4 with the config's four
+   metrics on the two full val images, the restore of step 2 bit for
+   bit, and a second Trainer that resumes at 2 and reaches 4; prints
    ms/step, data ms/step and the validation's wall time beside the
    training phase's ms/step;
-6d. the CLI: ``python -m lowlight_image_enhancement_tpu_torch.train -opt
+6d. path A: ``Trainer(opt).train()`` on ``configs/sid_nafnet_tpu.yml``,
+   ``sid_unet.yml`` (under ``LLIE_MAXPOOL_IMPL=kernel_bwd``) and
+   ``sid_swinir.yml`` at full width and depth in bf16 over a synthetic SID
+   tree like path T's (a seeded random VGG19 through ``$LLIE_VGG19_NPZ``
+   for the perceptual term), 4 iterations each: launches per step
+   (NAFNetTPU 36 of each of K1-K4 on the tensor cores; UNet 7 of K8: its
+   3 downs and the VGG19 trunk's 4 pools; SwinIR none), finite logs, a
+   checkpoint, the validation with each config's metrics, ``test.py`` on
+   the saved ``net_g_latest.pth``; ms/step, data ms/step and the device's
+   busy time and idle share of a traced step, beside path T's ms/step;
+6e. the CLI: ``python -m lowlight_image_enhancement_tpu_torch.train -opt
    configs/debug/sid_newbp_mono_debug.yml`` in a subprocess from a
    temporary directory (16 iterations on the card, the self-provisioned
    debug fixtures), then ``test.py`` on its ``net_g_latest.pth``;
@@ -75,14 +91,16 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    N=2) and of a served batch (C=32@512^2 ... C=512@32^2), at NAFSSR's
    C=48 with 30x90 pixels and N=16, at C=1024@32^2 and at a ragged
    C=64@20x20; the pool kernels (exact equality) at the four VGG19 pool
-   shapes, at an odd H and W, with ties, with NaNs in some windows, at
+   shapes, at UNetSID's three (C=32@384^2, 64@192^2, 128@96^2), at an odd
+   H and W, with ties, with NaNs in some windows, at
    W=50 and W=40 (K7's 2-element loads and 8-byte stores) and, for K7,
    with x one element past a 16-byte boundary; K7's geometry printed;
    times each beside its plain version, its bound and the one library
    call that computes the same function;
-8. path P: the training step of 6. with the perceptual trunk's pools on
-   ``kernel_fused`` (8 launches of K7 and 4 of K8 per step) and then on
-   ``kernel_bwd`` (4 of K8, none of K7), and the perceptual term and its
+8. path P: the training step of 6. (1 warm-up and 2 timed steps) with
+   the perceptual trunk's pools on ``kernel_fused`` (8 launches of K7 and
+   4 of K8 per step) and then on ``kernel_bwd`` (4 of K8, none of K7),
+   and the perceptual term and its
    gradient held equal under the three pool options in fp32;
 9. path B: ``Baseline`` at the published width-32 configuration under the
    same recipe in bf16: training steps (72 launches of K5 and of K6 per
@@ -96,6 +114,13 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    / MSE train block on a seeded synthetic 16x6x30x90 batch: training
    steps (32 launches of each of K1-K6 per step), one eval forward, and
    the same fp32 gradient check;
+10b. path R: ``Trainer(opt).train()`` on ``configs/stereo_nafssr.yml``
+   unchanged, ``STEREO_ROOT`` at a synthetic stereo tree
+   (``make_synthetic_stereo``), 4 iterations: 32 launches of each of K1-K6
+   per step, finite logs, the validation's PSNR; ``LowlightModel`` (the
+   config's ``model_type``) for 2 steps on the same loader and ``test()``
+   (``[N, 6, 2H, 2W]``); ``demo_ssr`` in a subprocess on one L/R pair (two
+   PNGs at 2x);
 11. path M: the evaluation metrics. The flagship ``NewBPNAFNet`` (bf16,
    seeded) through ``metrics.compute_metrics`` over the two 512^2
    validation pairs of path T's synthetic SID tree, with the P2 raw PSF,
@@ -187,6 +212,11 @@ WIDE = (1024, 32)
 # a side that is no multiple of K4's 12-pixel tile (ragged edge tiles)
 RAGGED = (64, 20)
 BATCH = 2
+# the bottom of NAFNetTPU's trunk (configs/sid_nafnet_tpu.yml: width 64
+# after a 2x2 space-to-depth of a 384^2 crop): its 12 middle blocks at
+# C=1024@12^2, fewer pixels than one pixel tile of some bf16 kernels (its
+# C=512 blocks run at 24^2, TRAIN_PATH's last width)
+TPU_BOTTOM = (BATCH, 1024, 12, 12, 12, "nafnet_tpu")
 # |kernel - plain| <= TOL * max|plain|: fp32 differs only by summation
 # order; bf16 allows 4 bf16 ulps at the top of the range (a rounding of
 # an operand or of the stored result may land on the other side).
@@ -225,7 +255,12 @@ POOL_SHAPES = [(BATCH, 64, 384, 384, 1, "vgg"),
                (BATCH, 64, 96, 96, 0, "nan"),
                # K7's edges: W % 8 != 0 (a 100-byte bf16 row pitch: 2-element
                # loads), W % 16 == 8 (8-byte bf16 stores, a short last group)
-               (BATCH, 64, 50, 50, 0, "w50"), (BATCH, 64, 40, 40, 0, "w40")]
+               (BATCH, 64, 50, 50, 0, "w50"), (BATCH, 64, 40, 40, 0, "w40"),
+               # UNetSID's three downs (configs/sid_unet.yml, 384^2 crops),
+               # K8 under LLIE_MAXPOOL_IMPL=kernel_bwd
+               (BATCH, 32, 384, 384, 1, "unet"),
+               (BATCH, 64, 192, 192, 1, "unet"),
+               (BATCH, 128, 96, 96, 1, "unet")]
 PALLAS = "lowlight_image_enhancement_tpu/ops/pallas/"
 CSRC = "lowlight_image_enhancement_tpu_torch/csrc/"
 KERNELS = {
@@ -398,36 +433,48 @@ def err(got: torch.Tensor, ref: torch.Tensor, scale=None):
     return e, e / max(s, 1e-30)
 
 
-def bound(kind: str, c: int, hw: int, dt: torch.dtype, n: int = BATCH,
+def bound(kind: str, c: int, hw: tuple, dt: torch.dtype, n: int = BATCH,
           f: int = None):
     """Least time (ms) for one call's work: bytes (each input read once,
     each output written once) over the HBM rate vs the FLOPs of its
     matrix products (FFN width 2F, F = C unless given) over the operand
-    type's peak."""
+    type's peak. ``hw`` is ``(H, W)``. The weight matrices count at the
+    size the wrapper hands them over in: the activation type's on the
+    tensor-core route (bf16, ``ops.*_geometry`` gives a tile), fp32 on
+    the FMA route; vectors and the weight grads K3/K4 write are fp32."""
+    h, w = hw
     s = torch.tensor([], dtype=dt).element_size()
     f = c if f is None else f
-    act = n * c * hw
-    px = n * hw
+    mma = {"nafblk_a": lambda: ops.k1_geometry(dt, n, c, h, w, built=True),
+           "nafblk_b": lambda: ops.k2_geometry(dt, n, c, f, h * w,
+                                               built=True),
+           "nafblk_p1": lambda: ops.p1_geometry(dt, n, c, f, h * w),
+           "nafblk_p2": lambda: ops.p2_geometry(dt, n, c, h, w)}[kind]()[0]
+    m = s if mma else 4                       # bytes of a matrix element
+    act = n * c * h * w
+    px = n * h * w
     nc = 4 * n * c                            # one [N, C] fp32 array
     mats = c * c + 3 * f * c                  # W3, W4 [2F, C], W5 [C, F]
     vecs = 6 * c + 2 * f                      # b3, w2n, b2n, b5, beta,
     # gamma; b4 [2F]
     if kind == "nafblk_a":     # x in, g out; W1, kdw, vectors; sums out
-        nbytes = 2 * act * s + 4 * (2 * c * c + 18 * c + 6 * c) + nc
+        nbytes = 2 * act * s + m * 2 * c * c + 4 * (18 * c + 6 * c) + nc
         flops = px * (4 * c * c + 36 * c)
     elif kind == "nafblk_b":   # x, g in, out; W3, W4, W5, vectors; att
-        nbytes = 3 * act * s + 4 * (mats + vecs) + nc
+        nbytes = 3 * act * s + m * mats + 4 * vecs + nc
         flops = px * (2 * c * c + 6 * f * c)   # conv3, conv4, conv5
     elif kind == "nafblk_p1":  # x, g, dout in, dz out; W3-W5, vectors;
         # att in, da out; fp32 grads of W3-W5 and the vectors out
-        nbytes = 4 * act * s + 2 * 4 * (mats + vecs) + 2 * nc
+        nbytes = 4 * act * s + m * mats + 4 * vecs + 4 * (mats + vecs) \
+            + 2 * nc
         # recompute, input-side products and weight grads, each
         # 2 C^2 + 6 C F (24 C^2 in all at F = C)
         flops = px * 3 * (2 * c * c + 6 * f * c)
-    else:                      # x, dz in, dx out; dgc, att in; W1, W3,
-        # kdw and 7 vectors in (3C^2 + 25C); fp32 grads of W1, the 11 x 2C
-        # taps (kdw, bk, b1) and w1n, b1n out (2C^2 + 24C)
-        nbytes = 3 * act * s + 4 * (5 * c * c + 49 * c) + 2 * nc
+    else:                      # x, dz in, dx out; dgc, att in; W1, W3
+        # (3C^2), kdw and 7 vectors (25C) in; fp32 grads of W1, the
+        # 11 x 2C taps (kdw, bk, b1) and w1n, b1n out (2C^2 + 24C)
+        nbytes = (3 * act * s + m * 3 * c * c + 4 * 25 * c
+                  + 4 * (2 * c * c + 24 * c) + 2 * nc)
         flops = px * (14 * c * c + 108 * c)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
@@ -442,7 +489,7 @@ def fmt_device(dev) -> str:
 def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, split, path,
            n=BATCH, hw=None, f=None):
     h, w = hw or (side, side)
-    b_ms, b_by = bound(kind, c, h * w, dt, n, f)
+    b_ms, b_by = bound(kind, c, (h, w), dt, n, f)
     dev = device_ms(split)
     rows.setdefault(kind, []).append(dict(
         path=path, n=n, c=c, f=c if f is None else f, side=side, h=h, w=w,
@@ -651,10 +698,14 @@ def backward_checks(x, dout, p, pk, shw, dt) -> tuple:
     return checks, g, att, dz, dgc
 
 
+BACKWARD_WIDTHS = ([(BATCH, c, s, s, n, "train") for c, s, n in TRAIN_PATH]
+                   + [(BATCH, *WIDE, WIDE[1], 0, "w64"),
+                      (BATCH, *RAGGED, RAGGED[1], 0, "ragged"), NAFSSR_BLOCK,
+                      TPU_BOTTOM])
+
+
 def backward_phase(gen: torch.Generator, rows: dict) -> None:
-    widths = [(BATCH, c, s, s, n, "train") for c, s, n in TRAIN_PATH]
-    widths += [(BATCH, *WIDE, WIDE[1], 0, "w64"),
-               (BATCH, *RAGGED, RAGGED[1], 0, "ragged"), NAFSSR_BLOCK]
+    widths = BACKWARD_WIDTHS
     hold_fma_geometry({(c, c) for _, c, *_ in widths})
     for n, c, side, wide, nblk, path in widths:
         hw = side * wide
@@ -993,15 +1044,16 @@ def flagship_batch(side: int = 384) -> dict:
             "expo_ratio": torch.from_numpy(expo).cuda()}
 
 
-def run_steps(what: str, step, state, batch, **per_step: int) -> dict:
-    """1 warm-up and ``TRAIN_STEPS`` timed steps: finite logs, ``per_step``
+def run_steps(what: str, step, state, batch, steps: int = TRAIN_STEPS,
+              **per_step: int) -> dict:
+    """1 warm-up and ``steps`` timed steps: finite logs, ``per_step``
     launches in every step (every other kernel none), a falling loss."""
     state, logs0 = step(state, batch)             # warm-up
     assert_finite_logs(logs0)
     torch.cuda.synchronize()
     times, history, total = [], [], {k: 0 for k in WRAPPERS}
     first = state.step
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         reset_launches()
         t0 = time.perf_counter()
         state, logs = step(state, batch)
@@ -1015,7 +1067,7 @@ def run_steps(what: str, step, state, batch, **per_step: int) -> dict:
             total[k] += n
     trace = traced_step(what, step, state, batch, statistics.median(times))
     l0, l1 = float(logs0["l_total"]), history[-1]["l_total"]
-    print(f"{what} training: {TRAIN_STEPS} steps, ms/step median "
+    print(f"{what} training: {steps} steps, ms/step median "
           f"{statistics.median(times):.1f} (all {[round(t, 1) for t in times]})"
           f", l_total {l0:.6f} -> {l1:.6f}, launches/step {per_step}")
     for i, h in enumerate(history):
@@ -1203,27 +1255,20 @@ def debug_path() -> dict:
 
 
 # path T: the training entry point (Trainer) on the flagship config
-T_STEPS = 6
-T_SAVE = 3
+T_STEPS = 4
+T_SAVE = 2
 
 
 def synthetic_sid_root(root: Path) -> Path:
-    """The flagship config's SID layout under ``root`` (``SID_assets/
+    """The SID configs' layout under ``root`` (``SID_assets/
     manifest_sid.json``, ``SID_pack/{train,val}_{short,long}.pack``) from
-    the port's ``make_synthetic_sid``: 4 train and 2 val pairs at 512^2,
-    ratios 100/250/300, shot and read noise, seeded."""
-    from lowlight_image_enhancement_tpu_torch.data import make_synthetic_sid
+    the port's ``make_synthetic_sid_tree``: 4 train and 2 val pairs at
+    512^2, ratios 100/250/300, shot and read noise, seeded."""
+    from lowlight_image_enhancement_tpu_torch.data import (
+        make_synthetic_sid_tree)
 
-    gen = root / "generated"
-    paths = make_synthetic_sid(str(gen), n_train=4, n_val=2, size=512,
-                               seed=SEED)
-    (root / "SID_assets").mkdir(parents=True)
-    (root / "SID_pack").mkdir()
-    Path(paths.pop("manifest")).rename(root / "SID_assets" /
-                                       "manifest_sid.json")
-    for name, path in paths.items():
-        Path(path).rename(root / "SID_pack" / f"{name}.pack")
-    return root
+    return Path(make_synthetic_sid_tree(str(root), n_train=4, n_val=2,
+                                        size=512, seed=SEED))
 
 
 def state_tensors(state) -> list:
@@ -1235,9 +1280,9 @@ def state_tensors(state) -> list:
 def instrument(trainer, what: str, per_step: dict, record: dict) -> None:
     """Wraps the Trainer's step (its launches, reset just before and read
     just after each step, must be ``per_step``; its host time ending in
-    ``torch.cuda.synchronize()``), its saves (the state tensors at each
-    saved step) and its validation (results and wall time) into
-    ``record``."""
+    ``torch.cuda.synchronize()``; the last batch it took), its saves (the
+    state tensors at each saved step) and its validation (results and wall
+    time) into ``record``."""
     step, save, validate = trainer.step_fn, trainer._save, trainer.validate
 
     def timed_step(state, batch):
@@ -1246,6 +1291,7 @@ def instrument(trainer, what: str, per_step: dict, record: dict) -> None:
         out = step(state, batch)
         torch.cuda.synchronize()
         record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        record["batch"] = batch
         expect_launches(launches(), f"{what} step {out[0].step}", **per_step)
         return out
 
@@ -1272,9 +1318,9 @@ def trainer_path(train_ms: float) -> dict:
     ``use_tb_logger`` false and the experiment root. Checks the native
     pack reader, 36 launches of each of K1-K4 per step and their
     tensor-core kernels in a traced step, finite logs, the checkpoints at 3
-    and 6, the four metrics of the validation at 6 (finite, 2 images of
-    512^2), the restore of step 3 bit for bit, and a second Trainer that
-    resumes at 3 with the schedule's step and reaches 6."""
+    and 4, the four metrics of the validation at 4 (finite, 2 images of
+    512^2), the restore of step 2 bit for bit, and a second Trainer that
+    resumes at 2 with the schedule's step and reaches 4."""
     import os
     import tempfile
 
@@ -1312,21 +1358,23 @@ def trainer_path(train_ms: float) -> dict:
           and all(np.isfinite(list(h.values())).all() for h in hist),
           f"path T: logs of iterations {[h['iter'] for h in hist]}")
     states, models = opt["path"]["training_states"], opt["path"]["models"]
-    check(sorted(os.listdir(states)) == ["00000003.pth", "00000006.pth"]
-          and {"net_g_00000003.pth", "net_g_00000006.pth",
+    check(sorted(os.listdir(states)) == [f"{T_SAVE:08d}.pth",
+                                         f"{T_STEPS:08d}.pth"]
+          and {f"net_g_{T_SAVE:08d}.pth", f"net_g_{T_STEPS:08d}.pth",
                "net_g_latest.pth"} <= set(os.listdir(models)),
           f"path T: checkpoints {sorted(os.listdir(states))}")
     metrics = list(opt["val"]["metrics"])
     check(len(rec["val"]) == 2 and len(trainer.val_loader) == 2,
-          "path T: validation at 6 and the final one, on 2 images")
+          f"path T: validation at {T_STEPS} and the final one, on 2 "
+          f"images")
     for res, _ in rec["val"]:
         check(sorted(res) == sorted(metrics)
               and all(np.isfinite(v) for v in res.values()),
               f"path T: validation {res}")
 
-    # the state of step 3 comes back from its file bit for bit, and a
-    # second Trainer resumes there and reaches 6
-    os.remove(os.path.join(states, "00000006.pth"))
+    # the state of step T_SAVE comes back from its file bit for bit, and a
+    # second Trainer resumes there and reaches T_STEPS
+    os.remove(os.path.join(states, f"{T_STEPS:08d}.pth"))
     trainer2 = Trainer(opt)
     check(trainer2.start_iter == T_SAVE and trainer2.state.step == T_SAVE
           and trainer2.state.optimizer.count == T_SAVE,
@@ -1335,10 +1383,10 @@ def trainer_path(train_ms: float) -> dict:
     restored = state_tensors(trainer2.state)
     check(len(restored) == len(rec["saved"][T_SAVE]) and all(
         torch.equal(a, b) for a, b in zip(restored, rec["saved"][T_SAVE])),
-        "path T: restore of step 3 differs from what was saved")
-    lr3 = trainer2.schedule(trainer2.state.optimizer.count)
-    check(lr3 == trainer.schedule(T_SAVE),
-          f"path T: resumed lr {lr3} != schedule(3)")
+        f"path T: restore of step {T_SAVE} differs from what was saved")
+    lr = trainer2.schedule(trainer2.state.optimizer.count)
+    check(lr == trainer.schedule(T_SAVE),
+          f"path T: resumed lr {lr} != schedule({T_SAVE})")
     rec2 = {"step_ms": [], "saved": {}, "val": []}
     instrument(trainer2, "path T resumed", four, rec2)
     step2 = trainer2.step_fn
@@ -1355,14 +1403,12 @@ def trainer_path(train_ms: float) -> dict:
     trainer2.step_fn = traced_first
     trainer2.train()
     torch.cuda.synchronize()
-    check([h["iter"] for h in trainer2.history] == [4, 5, 6]
+    check([h["iter"] for h in trainer2.history]
+          == list(range(T_SAVE + 1, T_STEPS + 1))
           and trainer2.state.step == T_STEPS,
           f"path T resumed: iterations {[h['iter'] for h in trainer2.history]}")
-    if traced:
-        expect_tensor_core_route(traced, "path T traced step (resumed, "
-                                 "iteration 4)", backward=True)
-    else:
-        print("path T traced step: the profiler shows no device time")
+    expect_tensor_core_route(traced, f"path T traced step (resumed, "
+                             f"iteration {T_SAVE + 1})", backward=True)
 
     ms = statistics.median(rec["step_ms"][1:])
     data_ms = statistics.median(h["data_time"] * 1e3 for h in hist[1:])
@@ -1388,6 +1434,324 @@ def trainer_path(train_ms: float) -> dict:
     os.environ.pop("SID_ROOT")
     shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+# path A: the remaining SID architectures through the Trainer, each config
+# unchanged but for the iteration count, the logging / checkpoint /
+# validation frequencies and the experiment root
+A_STEPS = 4
+A_CONFIGS = (
+    # (config, $LLIE_MAXPOOL_IMPL for its run, launches per step)
+    ("sid_nafnet_tpu.yml", None,
+     dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)),
+    # 3 UNet downs + the 4 pools of the perceptual term's VGG19 trunk
+    ("sid_unet.yml", "kernel_bwd", dict(pool_bwd=7)),
+    ("sid_swinir.yml", None, {}),
+)
+
+
+def random_vgg19_npz(path: Path) -> Path:
+    """A seeded random VGG19 trunk in the ``.npz`` format of
+    ``tools/convert_vgg_weights.py``: the configs that ask for the
+    perceptual term without ``pretrained: false`` load it through
+    ``$LLIE_VGG19_NPZ`` (the ImageNet weights are not in the
+    repository)."""
+    from lowlight_image_enhancement_tpu_torch.models.vgg import (
+        VGG19Features, _random_init_)
+
+    vgg = VGG19Features()
+    _random_init_(vgg, torch.Generator().manual_seed(SEED))
+    np.savez(path, **{k: v.numpy() for k, v in vgg.state_dict().items()})
+    return path
+
+
+def config_trainer_run(cfg: Path, exp_root: Path, what: str, steps: int,
+                       per_step: dict) -> tuple:
+    """``Trainer(opt).train()`` of ``cfg`` for ``steps`` iterations with a
+    print every iteration, a checkpoint and a validation at the last, and
+    ``per_step`` launches in every step; then one traced step. Checks the
+    logs, the checkpoint files and the validation (the config's metrics,
+    finite, at ``steps`` and the final one). Returns ``(trainer, opt,
+    summary)``."""
+    import os
+
+    from lowlight_image_enhancement_tpu_torch.training.trainer import Trainer
+
+    opt = parse(str(cfg), is_train=True, root_dir=str(exp_root))
+    opt["train"]["total_iter"] = steps
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=steps,
+                         use_tb_logger=False)
+    opt["val"]["val_freq"] = steps
+    trainer = Trainer(opt)
+    step = trainer.step_fn
+    rec = {"step_ms": [], "saved": {}, "val": []}
+    instrument(trainer, what, per_step, rec)
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = trainer.history
+    check([h["iter"] for h in hist] == list(range(1, steps + 1))
+          and all(np.isfinite(list(h.values())).all() for h in hist),
+          f"{what}: logs of iterations {[h['iter'] for h in hist]}")
+    states, models = opt["path"]["training_states"], opt["path"]["models"]
+    check(sorted(os.listdir(states)) == [f"{steps:08d}.pth"]
+          and "net_g_latest.pth" in os.listdir(models),
+          f"{what}: checkpoints {sorted(os.listdir(states))}")
+    metrics = sorted(opt["val"]["metrics"])
+    check(len(rec["val"]) == 2 and all(
+        sorted(res) == metrics and all(np.isfinite(v) for v in res.values())
+        for res, _ in rec["val"]), f"{what}: validation {rec['val']}")
+    ms = statistics.median(rec["step_ms"][1:])
+    trace = traced_step(what, step, trainer.state, rec["batch"], ms)
+    out = {"ms_per_step": ms, "step_ms": rec["step_ms"],
+           "data_ms_per_step": statistics.median(
+               h["data_time"] * 1e3 for h in hist[1:]),
+           "l_total": [h["l_total"] for h in hist],
+           "val_metrics": rec["val"][0][0], "val_wall_s": rec["val"][0][1],
+           "launches_per_step": per_step, "wall_s": wall,
+           **{k: trace[k] for k in ("device_busy_ms", "device_idle_share",
+                                     "device_kernels", "kernel_records")}}
+    print(f"{what}: {steps} iterations in {wall:.1f} s; step ms median of "
+          f"2-{steps} {ms:.1f} (all {[round(t, 1) for t in rec['step_ms']]})"
+          f", data ms median {out['data_ms_per_step']:.2f}, validation "
+          f"{out['val_wall_s']:.2f} s {out['val_metrics']}")
+    return trainer, opt, out
+
+
+def run_test_cli(opt: dict, latest: Path, work: Path, what: str) -> dict:
+    """``test.py`` (its ``main``, on the card) on ``latest`` through a copy
+    of the run's config with ``path.pretrain_network_g`` set: the config's
+    metrics, finite, on the validation split."""
+    import yaml
+
+    from lowlight_image_enhancement_tpu_torch import test as test_cli
+
+    cfg = {k: v for k, v in copy.deepcopy(opt).items() if k != "is_train"}
+    cfg["path"] = {"pretrain_network_g": str(latest)}
+    with open(work / "eval.yml", "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    results = test_cli.main(["-opt", str(work / "eval.yml")])
+    name = opt["datasets"]["val"]["name"]
+    check(list(results) == [name] and sorted(results[name]) == sorted(
+        opt["val"]["metrics"]) and all(np.isfinite(v) for v in
+                                       results[name].values()),
+          f"{what}: test.py results {results}")
+    print(f"{what} test.py on net_g_latest.pth: {results[name]}")
+    return results[name]
+
+
+def architectures_path(path_t_ms: float) -> dict:
+    """Path A: ``Trainer(opt).train()`` on ``configs/sid_nafnet_tpu.yml``
+    (bf16, 384^2 crops), ``sid_unet.yml`` (bf16, 384^2, its run under
+    ``LLIE_MAXPOOL_IMPL=kernel_bwd``) and ``sid_swinir.yml`` (bf16, 256^2)
+    at full width and depth over a synthetic SID tree (as path T's), for
+    ``A_STEPS`` iterations each: the launches per step of ``A_CONFIGS``
+    (NAFNetTPU's K1-K4 on the tensor cores by the device kernels of a
+    traced step, UNet's K8 named there too), finite logs, a checkpoint,
+    the validation with each config's metrics, then ``test.py`` on the
+    saved ``net_g_latest.pth``."""
+    import os
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_a_"))
+    os.environ["SID_ROOT"] = str(synthetic_sid_root(tmp / "sid"))
+    os.environ["LLIE_VGG19_NPZ"] = str(random_vgg19_npz(tmp / "vgg19.npz"))
+    out = {}
+    try:
+        for name, pool_impl, per_step in A_CONFIGS:
+            what = f"path A {name}"
+            if pool_impl:
+                os.environ["LLIE_MAXPOOL_IMPL"] = pool_impl
+            try:
+                trainer, opt, res = config_trainer_run(
+                    TRAIN_CONFIG.with_name(name), tmp / "exp", what, A_STEPS,
+                    per_step)
+            finally:
+                os.environ.pop("LLIE_MAXPOOL_IMPL", None)
+            check(trainer.net.dtype == torch.bfloat16,
+                  f"{what}: the network must train in bf16")
+            names = res["device_kernels"]
+            if name == "sid_nafnet_tpu.yml":
+                widths = [b.conv1.in_channels for b in trainer.net.blocks()]
+                res["blocks_per_width"] = {c: widths.count(c)
+                                           for c in sorted(set(widths))}
+                check(len(widths) == 36 and sorted(set(widths))
+                      == [64, 128, 256, 512, 1024],
+                      f"{what}: 36 NAFBlocks at C = 64 ... 1024")
+                expect_tensor_core_route(names, f"{what} traced step",
+                                         backward=True)
+            if name == "sid_unet.yml":
+                check("pool_bwd_kernel" in names,
+                      f"{what}: K8's device kernel missing from the trace")
+            res["test"] = run_test_cli(
+                opt, Path(opt["path"]["models"]) / "net_g_latest.pth", tmp,
+                what)
+            res["path_T_ms_per_step"] = path_t_ms
+            out[name.split(".")[0]] = res
+            print(f"{what}: {res['ms_per_step']:.1f} ms/step, data "
+                  f"{res['data_ms_per_step']:.2f} ms/step, device busy "
+                  f"{fmt_device(res['device_busy_ms'])}, idle share "
+                  f"{res['device_idle_share']}; path T "
+                  f"{path_t_ms:.1f} ms/step")
+            del trainer
+    finally:
+        os.environ.pop("SID_ROOT", None)
+        os.environ.pop("LLIE_VGG19_NPZ", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"path_A": {k: {kk: v[kk] for kk in (
+        "ms_per_step", "data_ms_per_step", "device_busy_ms",
+        "device_idle_share", "val_metrics", "test", "launches_per_step")}
+        for k, v in out.items()}}))
+    return out
+
+
+def tlc_path(gen: torch.Generator) -> dict:
+    """Path C: ``NAFNetLocal`` (TLC) at NAFNet's SID configuration (width
+    32, enc (2,2,4,8), 12 middle, dec (2,2,2,2)) in bf16 with seeded random
+    weights, on a 1x3x512^2 request through the eval forward: with a window
+    >= 2x the image (train_size 1024 -> 1536) it must equal the fused
+    ``NAFNet`` of the same weights (36 K1/K2 launches) within the served
+    bf16 bar, with no launch of K1-K4 (TLC blocks run the module graph, as
+    in JAX); at the recipe's window (train_size 256 -> 384) the output is
+    finite, again with no launch."""
+    base = {"width": 32, "enc_blk_nums": [2, 2, 4, 8], "middle_blk_num": 12,
+            "dec_blk_nums": [2, 2, 2, 2], "dtype": "bfloat16"}
+    fused = define_network({"type": "NAFNet", **base}, device="cuda")
+    randomize_(fused, gen, 0.1)
+    nets = {"fused": fused}
+    for what, side in (("global", 1024), ("local", 256)):
+        net = define_network({"type": "NAFNetLocal",
+                              "train_size": [side, side], **base},
+                             device="cuda")
+        net.load_state_dict(fused.state_dict())
+        nets[what] = net
+    check(nets["local"].blocks()[0].tlc_window == (384, 384),
+          "NAFNetLocal(train_size 256) must window at 384")
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0, 1, (1, 3, 512, 512)).astype(np.float32)).cuda()
+    outs, counts, ms = {}, {}, {}
+    for what, net in nets.items():
+        forward = make_eval_step(net)
+        forward(x)                                   # warm-up
+        reset_launches()
+        outs[what] = forward(x)
+        torch.cuda.synchronize()
+        counts[what] = launches()
+        check(tuple(outs[what].shape) == (1, 3, 512, 512)
+              and bool(torch.isfinite(outs[what]).all()),
+              f"path C {what}: bad output")
+        ms[what] = time_ms(lambda: forward(x), iters=5)
+    expect_launches(counts["fused"], "path C fused NAFNet", nafblk_a=36,
+                    nafblk_b=36)
+    expect_launches(counts["global"], "path C NAFNetLocal window 1536")
+    expect_launches(counts["local"], "path C NAFNetLocal window 384")
+    hwc = lambda t: t[0].permute(1, 2, 0).cpu().numpy()
+    e = served_err("NAFNetLocal window >= 2x image vs fused NAFNet",
+                   torch.bfloat16, [hwc(outs["global"])], [hwc(outs["fused"])])
+    diff = float((outs["local"] - outs["global"]).abs().max())
+    out = {"err_vs_fused": e, "local_vs_global_max_abs": diff,
+           "forward_ms": ms, "launches": counts}
+    print(f"path C: forward ms {ms}; window 384 vs global mean: max_abs "
+          f"{diff:.3e}")
+    print(json.dumps({"path_C": {k: out[k] for k in (
+        "err_vs_fused", "local_vs_global_max_abs", "forward_ms")}}))
+    return out
+
+
+def stereo_trainer_path() -> dict:
+    """Path R: ``Trainer(opt).train()`` on ``configs/stereo_nafssr.yml``
+    unchanged (width 48, 16 blocks, drop-path 0.1, batches of 16 60x180 HR
+    crops, fp32) with ``STEREO_ROOT`` at a synthetic stereo tree
+    (``make_synthetic_stereo``: 16 train and 2 val samples), 4 iterations:
+    32 launches of each of K1-K6 per step, finite logs, the PSNR of the
+    validation; then ``LowlightModel`` (the config's ``model_type``) for 2
+    ``optimize_parameters`` steps on the same loader and ``test()``
+    ([N, 6, 2H, 2W]); then ``demo_ssr`` in a subprocess on one L/R pair
+    with the trained weights (two PNGs at 2x)."""
+    import os
+    import tempfile
+
+    from lowlight_image_enhancement_tpu_torch.data import (
+        epochs, make_synthetic_stereo)
+    from lowlight_image_enhancement_tpu_torch.training.model_wrapper import (
+        create_model)
+    from lowlight_image_enhancement_tpu_torch.utils import imgio
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_r_"))
+    t0 = time.perf_counter()
+    tree = make_synthetic_stereo(str(tmp / "stereo"), seed=SEED)
+    t_data = time.perf_counter() - t0
+    os.environ["STEREO_ROOT"] = tree["root"]
+    per_step = dict(nafblk_a=32, nafblk_b=32, nafblk_p1=32, nafblk_p2=32,
+                    ln_fwd=32, ln_bwd=32)
+    try:
+        trainer, opt, res = config_trainer_run(
+            STEREO_CONFIG, tmp / "exp", "path R", A_STEPS, per_step)
+        net = trainer.net
+        check(len(net.blocks()) == 16 and net.blocks()[0].conv1.in_channels
+              == 48 and all(b.drop_path.rate == 0.1 for b in net.body)
+              and net.dtype == torch.float32
+              and net.generator.device.type == "cuda",
+              "path R: NAFSSR must be the config's network, its drop-path "
+              "drawn from a generator on the card")
+
+        model = create_model(opt)
+        check(type(model).__name__ == "LowlightModel",
+              "path R: the config's model_type is LowlightModel")
+        stream = epochs(trainer.train_loader)
+        logs = []
+        for _ in range(2):
+            model.feed_data(next(stream))
+            reset_launches()
+            model.optimize_parameters()
+            torch.cuda.synchronize()
+            expect_launches(launches(), "path R LowlightModel step",
+                            **per_step)
+            logs.append(model.get_current_log())
+            check(np.isfinite(logs[-1]["l_total"]),
+                  f"path R LowlightModel: {logs[-1]}")
+        model.test()
+        n, _, h, w = model.batch["lq"].shape
+        check(tuple(model.output.shape) == (n, 6, 2 * h, 2 * w),
+              f"path R LowlightModel test(): {tuple(model.output.shape)}")
+        res["wrapper_logs"] = logs
+
+        sample = Path(tree["val_lr"]) / "0001"
+        outs = [tmp / "out_l.png", tmp / "out_r.png"]
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                           else []))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "lowlight_image_enhancement_tpu_torch.demo_ssr", "-opt",
+             str(STEREO_CONFIG), "--input_l_path", str(sample / "lr0.png"),
+             "--input_r_path", str(sample / "lr1.png"),
+             "--output_l_path", str(outs[0]), "--output_r_path",
+             str(outs[1]), "--weights",
+             str(Path(opt["path"]["models"]) / "net_g_latest.pth")],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0,
+              f"demo_ssr failed:\n{(proc.stdout + proc.stderr)[-3000:]}")
+        lr = imgio.imread(str(sample / "lr0.png"))
+        for path in outs:
+            img = imgio.imread(str(path))
+            check(img.shape == (2 * lr.shape[0], 2 * lr.shape[1], 3)
+                  and img.dtype == np.uint8, f"demo_ssr {path.name}: "
+                  f"{img.shape} for an input of {lr.shape}")
+        print(f"path R demo_ssr: rc 0 in {time.perf_counter() - t0:.1f} s, "
+              f"{lr.shape[:2]} -> {img.shape[:2]} per view")
+    finally:
+        os.environ.pop("STEREO_ROOT", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["synthetic_data_s"] = t_data
+    print(json.dumps({"path_R": {k: res[k] for k in (
+        "ms_per_step", "data_ms_per_step", "device_busy_ms",
+        "device_idle_share", "val_metrics", "launches_per_step")}}))
+    return res
 
 
 # path M: the evaluation metrics; the slice's cut of a SID Sony frame
@@ -1944,6 +2308,11 @@ def pool_phase(gen: torch.Generator, rows: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+# path P's timed steps under each pool option (the flagship step itself is
+# timed by the training phase)
+P_STEPS = 2
+
+
 def perceptual_path() -> dict:
     batch = flagship_batch()
     four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
@@ -1953,7 +2322,7 @@ def perceptual_path() -> dict:
         net, loss, state, step = recipe(TRAIN_CONFIG, None, 0.01, impl)
         check(loss.perceptual.vgg.pool_impl == impl, "pool_impl not passed")
         res[impl] = run_steps(f"NewBPNAFNet pool_impl={impl}", step, state,
-                              batch, **four, **extra)
+                              batch, P_STEPS, **four, **extra)
         losses[impl] = loss
         del net, state, step
     losses["reduce_window"] = build_hybrid_loss(
@@ -2171,14 +2540,19 @@ def main() -> int:
     phase("narrow-channel phase (K1-K4 at C = 8, 24, 40, 12, 6, 10)",
           narrow_channels_phase, gen, rows)
     serve = phase("serving phase", serving_phase, gen)
+    tlc = phase("path C (NAFNetLocal, TLC)", tlc_path, gen)
     train = phase("training phase", training_phase)
     debug = phase("path D (the debug network in bf16)", debug_path)
     path_t = phase("path T (the Trainer on the flagship config)",
                    trainer_path, train["ms_per_step"])
+    path_a = phase("path A (the Trainer on sid_nafnet_tpu, sid_unet, "
+                   "sid_swinir)", architectures_path, path_t["ms_per_step"])
     cli = phase("CLI (train.py and test.py on the debug config)", cli_path)
     perc = phase("path P", perceptual_path)
     base = phase("path B", baseline_path)
     ssr = phase("path S", nafssr_path)
+    path_r = phase("path R (the Trainer, LowlightModel and demo_ssr on "
+                   "stereo_nafssr)", stereo_trainer_path)
     path_m = phase("path M (the evaluation metrics)", evaluation_path)
     path_l = phase("path L (LPIPS in the loss)", lpips_loss_path,
                    train["ms_per_step"])
@@ -2197,6 +2571,22 @@ def main() -> int:
                     nafssr_bound_ms=step["bound_ms"],
                     nafssr_library_ms=step["library_ms"])
 
+    def nafnet_tpu_keys(k):
+        """The kernel's bf16 times in one NAFNetTPU training step: its
+        trunk's blocks at each width, at the backward phase's shapes
+        (TRAIN_PATH's C=64@192^2 ... 512@24^2 and TPU_BOTTOM)."""
+        blocks = path_a["sid_nafnet_tpu"]["blocks_per_width"]
+        trunk = [dict(r, blocks=blocks[r["c"]]) for r in bf16(k)
+                 if (r["path"], r["c"]) in {("train", c) for c in blocks}
+                 | {("nafnet_tpu", TPU_BOTTOM[1])}]
+        check(sorted(r["c"] for r in trunk) == sorted(blocks),
+              f"{k}: no row for every NAFNetTPU width")
+        step = summary(k, trunk, 0, "")
+        return dict(nafnet_tpu_ms=step["ms"],
+                    nafnet_tpu_device_ms=step["device_ms"],
+                    nafnet_tpu_plain_ms=step["plain_ms"],
+                    nafnet_tpu_bound_ms=step["bound_ms"])
+
     for k in ("nafblk_a", "nafblk_b"):
         entry = summary(k, on(bf16(k), "serve"), serve["launches"][k],
                         "one 512x512 N=2 bf16 forward (36 blocks)")
@@ -2204,12 +2594,13 @@ def main() -> int:
         entry.update(train_launches=train["launches"][k],
                      train_ms=step["ms"], train_device_ms=step["device_ms"],
                      train_plain_ms=step["plain_ms"],
-                     train_bound_ms=step["bound_ms"], **nafssr_keys(k))
+                     train_bound_ms=step["bound_ms"], **nafssr_keys(k),
+                     **nafnet_tpu_keys(k))
         kernels.append(entry)
     for k in ("nafblk_p1", "nafblk_p2"):
         entry = summary(k, on(bf16(k), "train"), train["launches"][k],
                         "one 384x384 N=2 bf16 training step (36 blocks)")
-        entry.update(nafssr_keys(k))
+        entry.update(nafssr_keys(k), **nafnet_tpu_keys(k))
         kernels.append(entry)
     for k in ("ln_fwd", "ln_bwd"):
         entry = summary(k, on(bf16(k), "baseline"), base["launches"][k],
@@ -2235,8 +2626,29 @@ def main() -> int:
         entry.update(
             kernel_bwd_launches=perc["kernel_bwd"]["launches"][k])
         kernels.append(entry)
+    # launches of each kernel by the path that made them: a serving run of
+    # 8 requests, the timed training steps (3; path P's 2), or one step
+    # (per_step) or one forward of the paths that drive the user's entry
+    # points
+    by_path = {
+        "serve": serve["launches"], "train": train["launches"],
+        "D_step": debug["launches"],
+        "T_per_step": path_t["launches_per_step"],
+        "P_kernel_fused": perc["kernel_fused"]["launches"],
+        "P_kernel_bwd": perc["kernel_bwd"]["launches"],
+        "B": base["launches"], "B_serve": base["serve_launches"],
+        "S": ssr["launches"],
+        "C_fused_forward": tlc["launches"]["fused"],
+        "C_tlc_forward": tlc["launches"]["local"],
+        **{f"A_{k}_per_step": v["launches_per_step"]
+           for k, v in path_a.items()},
+        "R_per_step": path_r["launches_per_step"],
+        "L_per_step": path_l["launches_per_step"]}
     for entry in kernels:
         entry["per_width"] = rows[entry["name"]]
+        entry["path_launches"] = {p: c.get(entry["name"], 0)
+                                  for p, c in by_path.items()
+                                  if c.get(entry["name"], 0)}
     print(json.dumps({
         "kernels": kernels, "card": card,
         "train_ms_per_step": train["ms_per_step"],
@@ -2277,7 +2689,17 @@ def main() -> int:
             "fp32_tflop_s")},
         "path_L": {k: path_l[k] for k in (
             "ms_per_step", "ratio_to_train_phase", "device_busy_ms",
-            "device_idle_share", "l_lpips")}}))
+            "device_idle_share", "l_lpips")},
+        "path_A": {k: {kk: v[kk] for kk in (
+            "ms_per_step", "data_ms_per_step", "device_busy_ms",
+            "device_idle_share", "kernel_records", "val_metrics", "test",
+            "path_T_ms_per_step")} for k, v in path_a.items()},
+        "path_C": {k: tlc[k] for k in (
+            "err_vs_fused", "local_vs_global_max_abs", "forward_ms")},
+        "path_R": {k: path_r[k] for k in (
+            "ms_per_step", "data_ms_per_step", "device_busy_ms",
+            "device_idle_share", "kernel_records", "val_metrics",
+            "wrapper_logs")}}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

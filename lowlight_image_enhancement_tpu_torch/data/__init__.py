@@ -1,12 +1,12 @@
-"""Data layer: SIDPack records, the SID dataset, transforms, the input
-pipeline with device prefetch.
+"""Data layer: SIDPack records, the SID, paired-image and stereo datasets,
+transforms, the input pipeline with device prefetch.
 
 Counterpart of ``lowlight_image_enhancement_tpu/data/__init__.py``:
 ``create_dataset(opt)`` resolves ``{'type': Name, **kwargs}`` through the
 port's DATASET_REGISTRY (reference ``data/__init__.py:38-62``);
 ``create_loader`` builds the batching pipeline (``data/__init__.py:
-65-131``). The paired-image, raw-SID, stereo and video datasets are not
-ported yet (ROADMAP.md, queue 1).
+65-131``). The raw-SID and video datasets are not ported yet (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +17,13 @@ from typing import Any, Mapping
 from lowlight_image_enhancement_tpu_torch.data.debug_fixtures import (  # noqa: F401
     make_debug_sid,
     make_synthetic_sid,
+    make_synthetic_sid_tree,
+    make_synthetic_stereo,
+)
+from lowlight_image_enhancement_tpu_torch.data.paired_image_dataset import (  # noqa: F401
+    FFHQDataset,
+    PairedImageDataset,
+    SingleImageDataset,
 )
 from lowlight_image_enhancement_tpu_torch.data.pipeline import (  # noqa: F401
     Loader,
@@ -27,6 +34,11 @@ from lowlight_image_enhancement_tpu_torch.data.records import (  # noqa: F401
     SidPackReader,
     SidPackWriter,
     build_sidpack,
+)
+from lowlight_image_enhancement_tpu_torch.data.stereo_dataset import (  # noqa: F401
+    PairedImageSRLRDataset,
+    PairedImageSRLRFullImageMemoryDataset,
+    PairedStereoImageDataset,
 )
 from lowlight_image_enhancement_tpu_torch.data.sid_dataset import (  # noqa: F401
     SonySIDDataset,

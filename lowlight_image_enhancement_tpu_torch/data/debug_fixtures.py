@@ -183,3 +183,70 @@ def make_synthetic_sid(
         json.dump(records, f, indent=1)
     paths["manifest"] = manifest_path
     return paths
+
+
+def make_synthetic_stereo(
+    root: str,
+    n_train: int = 16,
+    n_val: int = 2,
+    train_hw: Tuple[int, int] = (96, 200),
+    val_hw: Tuple[int, int] = (96, 192),
+    seed: int = 0,
+) -> Dict[str, str]:
+    """A synthetic stereo SR set in the Flickr1024 layout that
+    ``configs/stereo_nafssr.yml`` reads (``STEREO_ROOT=root``)::
+
+        root/{train,val}/hr/<sample>/{hr0,hr1}.png
+        root/{train,val}/lr_x2/<sample>/{lr0,lr1}.png
+
+    Each sample is one natural-image-like scene (:func:`_natural_image`)
+    seen by two cameras: the right view is the left one shifted by a
+    disparity of 4-24 pixels. LR is the 2x2 mean of HR, so HR = 2 x LR.
+    All files are seeded uint8 RGB PNGs. Sample ``i`` of a subset is
+    ``8 (i % 4)`` pixels taller and ``16 (i % 4)`` wider than its ``*_hw``,
+    so the validation images differ in size. The default 16 training
+    samples fill one batch of the config (``batch_size_per_gpu: 16``, the
+    last partial batch dropped).
+
+    Returns ``{'root', 'train_hr', 'train_lr', 'val_hr', 'val_lr'}``."""
+    from lowlight_image_enhancement_tpu_torch.utils import imgio
+
+    rng = np.random.default_rng(seed)
+    paths: Dict[str, str] = {"root": root}
+    for subset, n, (h0, w0) in (("train", n_train, train_hw),
+                                ("val", n_val, val_hw)):
+        hr_dir = os.path.join(root, subset, "hr")
+        lr_dir = os.path.join(root, subset, "lr_x2")
+        for i in range(n):
+            h, w = h0 + 8 * (i % 4), w0 + 16 * (i % 4)
+            disp = int(rng.integers(4, 25))
+            scene = _natural_image(rng, max(h, w + disp))[:h]
+            views = (scene[:, disp:disp + w], scene[:, :w])
+            name = f"{i + 1:04d}"
+            for k, hr in enumerate(views):
+                hr8 = imgio.to_uint8(hr)
+                lr = hr8.astype(np.float32).reshape(
+                    h // 2, 2, w // 2, 2, 3).mean((1, 3))
+                lr8 = np.clip(lr + 0.5, 0, 255).astype(np.uint8)
+                imgio.imwrite(os.path.join(hr_dir, name, f"hr{k}.png"), hr8)
+                imgio.imwrite(os.path.join(lr_dir, name, f"lr{k}.png"), lr8)
+        paths[f"{subset}_hr"], paths[f"{subset}_lr"] = hr_dir, lr_dir
+    return paths
+
+
+def make_synthetic_sid_tree(root: str, n_train: int = 4, n_val: int = 2,
+                            size: int = 512, seed: int = 0) -> str:
+    """:func:`make_synthetic_sid` laid out as the SID configs'
+    ``${SID_ROOT}`` (``SID_assets/manifest_sid.json``,
+    ``SID_pack/{train,val}_{short,long}.pack``); returns ``root``."""
+    gen = os.path.join(root, "generated")
+    paths = make_synthetic_sid(gen, n_train=n_train, n_val=n_val, size=size,
+                               seed=seed)
+    os.makedirs(os.path.join(root, "SID_assets"), exist_ok=True)
+    os.makedirs(os.path.join(root, "SID_pack"), exist_ok=True)
+    os.replace(paths.pop("manifest"),
+               os.path.join(root, "SID_assets", "manifest_sid.json"))
+    for name, path in paths.items():
+        os.replace(path, os.path.join(root, "SID_pack", f"{name}.pack"))
+    os.rmdir(gen)
+    return root

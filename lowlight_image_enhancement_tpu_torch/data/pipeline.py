@@ -163,8 +163,10 @@ def prefetch_to_device(batches: Iterator[Mapping[str, Any]],
                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """Batches of NCHW tensors on ``device``, ``size`` batches ahead.
 
-    String entries (``drop_keys``) are dropped, as in the JAX prefetcher;
-    every 4-D array is an NHWC image batch and arrives NCHW.
+    String entries (``drop_keys``, as in the JAX prefetcher, and any other
+    entry that is no numeric array, such as the stereo sets' ``lq_path`` /
+    ``gt_path`` lists) are dropped; every 4-D array is an NHWC image batch
+    and arrives NCHW.
 
     On CUDA each array is copied into pinned host memory and from there to
     the device with ``non_blocking=True`` on a side stream, and permuted
@@ -179,7 +181,8 @@ def prefetch_to_device(batches: Iterator[Mapping[str, Any]],
 
     def numeric(batch) -> Dict[str, np.ndarray]:
         return {k: np.ascontiguousarray(v) for k, v in batch.items()
-                if k not in drop_keys}
+                if k not in drop_keys and isinstance(v, np.ndarray)
+                and v.dtype.kind in "biuf"}
 
     if dev.type != "cuda":
         for batch in batches:

@@ -25,7 +25,7 @@ from lowlight_image_enhancement_tpu_torch.training.validation import (
     tiled_inference,
 )
 from lowlight_image_enhancement_tpu_torch.utils import imgio
-from lowlight_image_enhancement_tpu_torch.weights import params_from_jax
+from lowlight_image_enhancement_tpu_torch.weights import bridge_for
 
 
 def read_image(path: str) -> np.ndarray:
@@ -53,9 +53,11 @@ def _flat_to_tree(flat: Dict[str, np.ndarray]) -> dict:
 
 
 def load_weights(net: torch.nn.Module, path: str) -> None:
-    """Load a ``.pth`` state_dict or a ``.npz`` of JAX params into ``net``."""
+    """Load a ``.pth`` state_dict or a ``.npz`` of JAX params (through the
+    bridge of ``net``'s architecture, :func:`...weights.bridge_for`) into
+    ``net``."""
     if path.endswith(".npz"):
-        sd = params_from_jax(_flat_to_tree(dict(np.load(path))), model=net)
+        sd = bridge_for(net)(_flat_to_tree(dict(np.load(path))), model=net)
     elif path.endswith((".pth", ".pt")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         sd = sd.get("params", sd)

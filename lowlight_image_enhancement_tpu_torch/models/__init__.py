@@ -3,7 +3,10 @@
 
 ``define_network(opt, device)`` instantiates a registered architecture from
 a config dict whose ``type:`` key names the class/factory, and moves it to
-``device`` (``"cuda"`` unless the caller asks for the CPU).
+``device`` (``"cuda"`` unless the caller asks for the CPU). Registered:
+``NAFNet``, ``NAFNetLocal``, ``NewBPNAFNet``, ``Baseline``, ``NAFSSR``,
+``NAFNetTPU``, ``UNetSID`` (also ``UNetSIDModel``) and ``SwinIR`` (also
+``SwinIRRestoration``): every ``network_g`` of ``configs/*.yml``.
 """
 
 from __future__ import annotations
@@ -17,12 +20,21 @@ from lowlight_image_enhancement_tpu_torch.models.baseline import (  # noqa: F401
     Baseline,
     BaselineBlock,
 )
+from lowlight_image_enhancement_tpu_torch.models.blocks import (  # noqa: F401
+    ResidualBlockNoBN,
+    UpsamplePixelShuffle,
+    make_layer,
+)
 from lowlight_image_enhancement_tpu_torch.models.nafnet import (  # noqa: F401
     NAFBlock,
     NAFNet,
     SimpleGate,
+    nafnet_local,
     pixel_shuffle,
     simple_gate,
+)
+from lowlight_image_enhancement_tpu_torch.models.nafnet_tpu import (  # noqa: F401
+    NAFNetTPU,
 )
 from lowlight_image_enhancement_tpu_torch.models.nafssr import (  # noqa: F401
     NAFSSR,
@@ -33,6 +45,12 @@ from lowlight_image_enhancement_tpu_torch.models.nafssr import (  # noqa: F401
 from lowlight_image_enhancement_tpu_torch.models.newbp import (  # noqa: F401
     as_dtype,
     create_newbp_net,
+)
+from lowlight_image_enhancement_tpu_torch.models.swinir import (  # noqa: F401
+    SwinIR,
+)
+from lowlight_image_enhancement_tpu_torch.models.unet import (  # noqa: F401
+    UNetSID,
 )
 from lowlight_image_enhancement_tpu_torch.utils.registry import ARCH_REGISTRY
 

@@ -11,12 +11,18 @@ Counterpart of ``lowlight_image_enhancement_tpu/models/nafnet.py``:
   of the JAX ``fused_blocks=True``. With ``fused=False``, and for any
   other ``dw_expand`` (which the JAX package leaves unfused too), it runs
   the eager module graph under autograd, the counterpart of the JAX
-  unfused ``NAFBlock``.
+  unfused ``NAFBlock``. ``tlc_window`` (the TLC windowed SCA mean,
+  :func:`...ops.tlc.windowed_mean`) and ``dropout_rate`` (dropout after
+  ``conv3`` and ``conv5``, masks drawn from :attr:`NAFBlock.generator`)
+  run the module graph too, as the JAX ``_fused_hw`` leaves such blocks
+  unfused.
 - :class:`UShapedNet` (shared with ``models/baseline.py``) and
   :class:`NAFNet` -- 3x3 intro, encoder stacks with 2x2 stride-2 downs,
   middle stack, decoder stacks with (1x1 no-bias conv + PixelShuffle(2))
   ups and skip-adds, 3x3 ending, global input residual; zero-pads to a
-  multiple of ``2**len(enc_blk_nums)`` and crops afterwards.
+  multiple of ``2**len(enc_blk_nums)`` and crops afterwards;
+  :func:`nafnet_local` (registered ``NAFNetLocal``) is a ``NAFNet`` whose
+  SCA means are TLC windows of ``tlc_ratio x train_size``.
 
 Parameter names are those of the reference torch NAFNet (``intro``,
 ``encoders.{s}.{b}.*``, ``downs.{s}``, ``middle_blks.{b}``, ``ups.{s}.0``,
@@ -27,7 +33,7 @@ Parameters stay fp32; ``dtype`` is the activation dtype.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +46,10 @@ from lowlight_image_enhancement_tpu_torch.ops.layernorm import (
 from lowlight_image_enhancement_tpu_torch.ops.nafblock import (
     nafblock_fwd,
     pack_params,
+)
+from lowlight_image_enhancement_tpu_torch.ops.tlc import (
+    tlc_window_from_train_size,
+    windowed_mean,
 )
 from lowlight_image_enhancement_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -67,17 +77,41 @@ def _conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     padding=m.padding, groups=m.groups)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Elementwise dropout as Flax ``nn.Dropout`` computes it: keep where a
+    uniform draw from ``generator`` is below ``1 - rate``, scaled by
+    ``1 / (1 - rate)``."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator, device=generator.device)
+    mask = draw.to(x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
 class NAFBlock(nn.Module):
-    """The NAFNet block (reference ``NAFNet_arch.py:27-80``), no dropout."""
+    """The NAFNet block (reference ``NAFNet_arch.py:27-80``).
+
+    ``tlc_window`` = (kh, kw) replaces the SCA global mean by the TLC
+    windowed mean; ``dropout_rate > 0`` drops after ``conv3`` and ``conv5``
+    in training mode, with masks from :attr:`generator` (set by the caller,
+    as ``NAFSSR.generator``). Either option runs :meth:`forward_eager`."""
 
     def __init__(self, c: int, dw_expand: int = 2, ffn_expand: int = 2,
-                 fused: bool = True, eps: float = 1e-6):
+                 fused: bool = True, eps: float = 1e-6,
+                 dropout_rate: float = 0.0,
+                 tlc_window: Optional[Tuple[int, int]] = None):
         super().__init__()
         dw = c * dw_expand
         ffn = c * ffn_expand
         self.dw_expand = dw_expand
         self.fused = fused
         self.eps = eps
+        self.dropout_rate = float(dropout_rate)
+        self.tlc_window = None if tlc_window is None else tuple(tlc_window)
+        self.generator: Optional[torch.Generator] = None
         self.conv1 = nn.Conv2d(c, dw, 1)
         self.conv2 = nn.Conv2d(dw, dw, 3, padding=1, groups=dw)
         self.conv3 = nn.Conv2d(dw // 2, c, 1)
@@ -104,11 +138,12 @@ class NAFBlock(nn.Module):
             self.beta, self.gamma)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and self.dw_expand == 2:
+        if (self.fused and self.dw_expand == 2 and self.tlc_window is None
+                and self.dropout_rate == 0.0):
             # NAFBlockFunction with or without grad (forward K1+K2 only
-            # under no_grad). A block with dw_expand != 2 runs the module
-            # graph on every device, as the JAX _fused_hw leaves it
-            # unfused (make_block_config gives no config for it).
+            # under no_grad). A block with dw_expand != 2, TLC or dropout
+            # runs the module graph on every device, as the JAX _fused_hw
+            # leaves it unfused.
             n, c, h, w = x.shape
             y = nafblock_fwd(x.contiguous().view(n, c, h * w), self.packed(),
                              (h, w), self.eps)
@@ -122,14 +157,22 @@ class NAFBlock(nn.Module):
         y = _conv(self.conv1, y)
         y = _conv(self.conv2, y)
         y = simple_gate(y)
-        att = y.float().mean((2, 3), keepdim=True).to(dt)
+        if self.tlc_window is not None:
+            att = windowed_mean(y, self.tlc_window)
+        else:
+            att = y.float().mean((2, 3), keepdim=True).to(dt)
         y = y * _conv(self.sca[1], att)
-        y = _conv(self.conv3, y)
+        y = self._dropout(_conv(self.conv3, y))
         z = x + y * self.beta.to(dt)
         y = layer_norm_2d(z, self.norm2.weight, self.norm2.bias, self.eps)
         y = simple_gate(_conv(self.conv4, y))
-        y = _conv(self.conv5, y)
+        y = self._dropout(_conv(self.conv5, y))
         return z + y * self.gamma.to(dt)
+
+    def _dropout(self, y: torch.Tensor) -> torch.Tensor:
+        if self.dropout_rate == 0.0 or not self.training:
+            return y
+        return dropout(y, self.dropout_rate, self.generator)
 
 
 class UShapedNet(nn.Module):
@@ -203,11 +246,36 @@ class NAFNet(UShapedNet):
                  middle_blk_num: int = 1, enc_blk_nums: Sequence[int] = (),
                  dec_blk_nums: Sequence[int] = (), dw_expand: int = 2,
                  ffn_expand: int = 2, dtype: torch.dtype = torch.float32,
-                 fused_blocks: bool = True):
+                 fused_blocks: bool = True, dropout_rate: float = 0.0,
+                 tlc_window: Optional[Tuple[int, int]] = None):
         super().__init__(
-            lambda ch: NAFBlock(ch, dw_expand, ffn_expand, fused_blocks),
+            lambda ch: NAFBlock(ch, dw_expand, ffn_expand, fused_blocks,
+                                dropout_rate=dropout_rate,
+                                tlc_window=tlc_window),
             img_channel, width, middle_blk_num, enc_blk_nums, dec_blk_nums,
             dtype)
 
     def blocks(self):
         return [m for m in self.modules() if isinstance(m, NAFBlock)]
+
+    @property
+    def generator(self) -> Optional[torch.Generator]:
+        """The dropout masks' ``torch.Generator``, shared by every block
+        (needed in training mode when ``dropout_rate > 0``)."""
+        blocks = self.blocks()
+        return blocks[0].generator if blocks else None
+
+    @generator.setter
+    def generator(self, gen: Optional[torch.Generator]) -> None:
+        for blk in self.blocks():
+            blk.generator = gen
+
+
+@ARCH_REGISTRY.register(name="NAFNetLocal")
+def nafnet_local(*, train_size: Sequence[int] = (256, 256),
+                 tlc_ratio: float = 1.5, **kwargs) -> NAFNet:
+    """Test-time Local Converter variant (reference ``NAFNetLocal`` +
+    ``Local_Base.convert``): NAFNet's parameters, SCA means over windows of
+    ``tlc_ratio x train_size``."""
+    window = tlc_window_from_train_size(tuple(train_size), tlc_ratio)
+    return NAFNet(tlc_window=window, **kwargs)

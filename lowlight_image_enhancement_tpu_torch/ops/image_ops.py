@@ -1,10 +1,13 @@
 """Image operations (NCHW).
 
 Counterpart of ``max_pool_2x2`` and ``pixel_unshuffle`` in
-``lowlight_image_enhancement_tpu/ops/image_ops.py``, and
+``lowlight_image_enhancement_tpu/ops/image_ops.py`` (the pools of the
+VGG19 trunk and of ``UNetSID``'s downs; NAFNetTPU's space-to-depth), and
 :func:`resize_bilinear`, the port's one counterpart of every
-``jax.image.resize(..., "bilinear")`` of the JAX metrics and models; the
-flow warps and the fps loop of that file are not ported yet.
+``jax.image.resize(..., "bilinear")`` of the JAX metrics and models
+(``UNetSID``'s upsampling among them). The flow warps and the fps loop of
+that file (``flow_warp``, ``resize_flow``, ``measure_inference_speed``,
+``:146-247``) are not ported yet.
 """
 
 from __future__ import annotations

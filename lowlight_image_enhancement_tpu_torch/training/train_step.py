@@ -151,6 +151,14 @@ def create_train_state(net: nn.Module, optimizer: ChainOptimizer,
                       log_sigma=log_sigma)
 
 
+def attach_generator(net: nn.Module, device, seed: int) -> None:
+    """Give a network that draws random masks in training mode (NAFSSR's
+    drop-path, NAFNet's dropout: the modules with a ``generator``
+    attribute) a ``torch.Generator`` on ``device`` seeded by ``seed``."""
+    if hasattr(net, "generator"):
+        net.generator = torch.Generator(device=device).manual_seed(int(seed))
+
+
 def hybrid_batch_kwargs(output: torch.Tensor, batch: Batch) -> Dict:
     """A batch dict -> ``HybridLossPlus`` keywords (reference wiring,
     ``image_restoration_model.py:289-303``)."""
@@ -180,6 +188,10 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
     gradients of every trainable tensor, ``logs['grad_norm']`` (before the
     clip), one optimizer step. ``batch`` holds NCHW ``lq`` and ``gt`` and
     optionally ``short_raw``, ``long_raw``, ``short_obs``, ``expo_ratio``.
+    The objective is ``pixel_loss(output, gt)`` plus ``loss`` (the
+    ``HybridLossPlus`` term; None leaves it out). ``pixel_loss`` returns a
+    tensor, logged as ``l_pix``, or a ``(total, logs)`` pair whose logs
+    are taken as they are.
     Logs are detached tensors (no host sync). ``mixup_alpha`` mixes each
     batch first (:func:`..training.augment.mixup_batch`), with draws from a
     host generator seeded by ``seed``.
@@ -201,12 +213,15 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
         logs: Dict[str, torch.Tensor] = {}
         if pixel_loss is not None:
             l_pix = pixel_loss(output, batch["gt"])
+            l_pix, pix_logs = (l_pix if isinstance(l_pix, tuple)
+                               else (l_pix, {"l_pix": l_pix}))
             total = total + l_pix
-            logs["l_pix"] = l_pix.detach()
-        h_total, h_logs = loss(**hybrid_batch_kwargs(output, batch),
-                               log_sigma=state.log_sigma or None)
-        total = total + h_total
-        logs.update(h_logs)
+            logs.update({k: v.detach() for k, v in pix_logs.items()})
+        if loss is not None:
+            h_total, h_logs = loss(**hybrid_batch_kwargs(output, batch),
+                                   log_sigma=state.log_sigma or None)
+            total = total + h_total
+            logs.update(h_logs)
         logs["l_total"] = total.detach()
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g

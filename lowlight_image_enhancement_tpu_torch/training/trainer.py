@@ -50,6 +50,7 @@ from lowlight_image_enhancement_tpu_torch.training.schedules import (
 )
 from lowlight_image_enhancement_tpu_torch.training.train_step import (
     TrainState,
+    attach_generator,
     create_train_state,
     make_eval_step,
     make_optimizer,
@@ -153,6 +154,7 @@ class Trainer:
         if train_opt.get("enable_amp"):
             net_opt.setdefault("dtype", "bfloat16")
         self.net = define_network(net_opt, device=self.device)
+        attach_generator(self.net, self.device, seed)
         self.loss, self.pixel_loss = build_training_losses(train_opt,
                                                            self.device)
         optim_opt = dict(train_opt.get("optim_g",

@@ -27,7 +27,18 @@ the Flax ``LPIPSNet`` (``trunk/conv*`` HWIO -> OIHW, ``lin{i}`` ``[C]`` ->
 ``bn_var`` -> ``<path>.conv.weight``, ``<path>.bn.weight``, ``.bias``,
 ``.running_mean``, ``.running_var``) into the port's modules.
 
-An unknown or missing key raises ``KeyError``.
+:func:`unet_params_from_jax`, :func:`swinir_params_from_jax` and
+:func:`nafnet_tpu_params_from_jax` carry the Flax ``UNetSID`` (``inc``,
+``down{i}``, ``bottom``, ``upconv{i}``, ``up{i}``, ``outc``; a
+ConvTranspose kernel HWIO -> ``[in, out, kh, kw]`` spatially flipped, as
+``tools/convert_torch_unet.py`` maps the other way), ``SwinIR``
+(``rstb{i}/blk{j}`` -> ``layers.{i}.residual_group.blocks.{j}``, Dense
+``[in, out]`` -> Linear ``[out, in]``, LayerNorm ``scale`` -> ``weight``)
+and ``NAFNetTPU`` (``trunk`` -> ``trunk.*``) into the port's modules.
+:func:`bridge_for` names the bridge of a port module.
+
+An unknown or missing key, or a tree that does not fit ``model``, raises
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -327,3 +338,155 @@ def inception_params_from_jax(variables: Mapping[str, Any]
     walk(_params(variables), ())
     _check_fit(sd, model)
     return sd
+
+
+def _dense(sub, where: str) -> Dict[str, torch.Tensor]:
+    """Flax Dense ``kernel [in, out]``, ``bias`` -> Linear ``weight [out,
+    in]``, ``bias``."""
+    k, b = _leaves(sub, where, ("kernel", "bias"))
+    return {"weight": torch.from_numpy(np.ascontiguousarray(k.T)),
+            "bias": torch.from_numpy(b)}
+
+
+def _layer_norm(sub, where: str) -> Dict[str, torch.Tensor]:
+    """Flax LayerNorm / GroupNorm ``scale``, ``bias`` -> ``weight``,
+    ``bias``."""
+    w, b = _leaves(sub, where, ("scale", "bias"))
+    return {"weight": torch.from_numpy(w), "bias": torch.from_numpy(b)}
+
+
+def _double_conv(sub, where: str) -> Dict[str, torch.Tensor]:
+    """A Flax ``DoubleConv`` (``conv1``, ``conv2``, with GroupNorm also
+    ``norm1``, ``norm2``) -> ``block.{i}`` of the port's ``DoubleConv``."""
+    group = isinstance(sub, Mapping) and "norm1" in sub
+    names = ("conv1", "conv2") + (("norm1", "norm2") if group else ())
+    _check_keys(sub, where, names)
+    step = 3 if group else 2
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(2):
+        _prefixed(sd, f"block.{step * i}",
+                  _conv(sub[f"conv{i + 1}"], f"{where}/conv{i + 1}"))
+        if group:
+            _prefixed(sd, f"block.{step * i + 1}",
+                      _layer_norm(sub[f"norm{i + 1}"], f"{where}/norm{i + 1}"))
+    return sd
+
+
+def unet_params_from_jax(tree: Mapping[str, Any],
+                         model: torch.nn.Module = None
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetSID`` params (numpy leaves) -> the port's ``UNetSID``
+    ``state_dict``; ``model`` as in :func:`params_from_jax`. An ``upconv``
+    kernel of 2x2 is the ConvTranspose of ``bilinear=False`` (flipped), one
+    of 1x1 the conv of ``bilinear=True``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key in ("inc", "bottom", "outc"):
+        if key not in tree:
+            raise KeyError(f"missing UNetSID parameter group {key!r}")
+    for key, sub in tree.items():
+        if key in ("inc", "bottom"):
+            _prefixed(sd, key, _double_conv(sub, key))
+        elif key == "outc":
+            _prefixed(sd, key, _conv(sub, key))
+        elif m := re.fullmatch(r"down(\d+)", key):
+            _prefixed(sd, f"down_layers.{int(m.group(1)) - 1}.block.1",
+                      _double_conv(sub, key))
+        elif m := re.fullmatch(r"up(\d+)", key):
+            _prefixed(sd, f"up_layers.{int(m.group(1)) - 1}.conv",
+                      _double_conv(sub, key))
+        elif m := re.fullmatch(r"upconv(\d+)", key):
+            k, b = _leaves(sub, key, ("kernel", "bias"))
+            if k.shape[:2] == (2, 2):   # ConvTranspose: [in, out, kh, kw]
+                w = torch.from_numpy(np.ascontiguousarray(
+                    k[::-1, ::-1].transpose(2, 3, 0, 1)))
+            else:
+                w = _oihw(k)
+            prefix = f"up_layers.{int(m.group(1)) - 1}.up"
+            sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = (
+                w, torch.from_numpy(b))
+        else:
+            raise KeyError(f"unknown UNetSID parameter group {key!r}")
+    _check_fit(sd, model)
+    return sd
+
+
+_SWIN_BLOCK = ("norm1", "attn", "norm2", "fc1", "fc2")
+
+
+def swinir_params_from_jax(tree: Mapping[str, Any],
+                           model: torch.nn.Module = None
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX ``SwinIR`` params (numpy leaves) -> the port's ``SwinIR``
+    ``state_dict`` (the official names); ``model`` as in
+    :func:`params_from_jax`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key in ("conv_first", "norm", "conv_after_body", "conv_last"):
+        if key not in tree:
+            raise KeyError(f"missing SwinIR parameter group {key!r}")
+    for key, sub in tree.items():
+        if key in ("conv_first", "conv_after_body", "conv_last"):
+            _prefixed(sd, key, _conv(sub, key))
+        elif key == "norm":
+            _prefixed(sd, key, _layer_norm(sub, key))
+        elif key == "patch_embed_norm":
+            _prefixed(sd, "patch_embed.norm", _layer_norm(sub, key))
+        elif m := re.fullmatch(r"rstb(\d+)", key):
+            layer = f"layers.{m.group(1)}"
+            blocks = [k for k in sub if k != "conv"] if isinstance(
+                sub, Mapping) else []
+            _check_keys(sub, key, ("conv", *blocks))
+            _prefixed(sd, f"{layer}.conv", _conv(sub["conv"], f"{key}/conv"))
+            for blk in blocks:
+                bm = re.fullmatch(r"blk(\d+)", blk)
+                if not bm:
+                    raise KeyError(f"unknown SwinIR group {key}/{blk}")
+                where = f"{key}/{blk}"
+                prefix = f"{layer}.residual_group.blocks.{bm.group(1)}"
+                b = sub[blk]
+                _check_keys(b, where, _SWIN_BLOCK)
+                _check_keys(b["attn"], f"{where}/attn",
+                            ("qkv", "proj", "relative_position_bias"))
+                for name in ("norm1", "norm2"):
+                    _prefixed(sd, f"{prefix}.{name}",
+                              _layer_norm(b[name], f"{where}/{name}"))
+                for name in ("qkv", "proj"):
+                    _prefixed(sd, f"{prefix}.attn.{name}",
+                              _dense(b["attn"][name], f"{where}/attn/{name}"))
+                sd[f"{prefix}.attn.relative_position_bias_table"] = (
+                    torch.from_numpy(np.array(
+                        b["attn"]["relative_position_bias"], np.float32)))
+                for name in ("fc1", "fc2"):
+                    _prefixed(sd, f"{prefix}.mlp.{name}",
+                              _dense(b[name], f"{where}/{name}"))
+        else:
+            raise KeyError(f"unknown SwinIR parameter group {key!r}")
+    _check_fit(sd, model)
+    return sd
+
+
+def nafnet_tpu_params_from_jax(tree: Mapping[str, Any],
+                               model: torch.nn.Module = None
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ``NAFNetTPU`` params (``trunk``: a NAFNet tree) -> the port's
+    ``NAFNetTPU`` ``state_dict`` (``trunk.*``); ``model`` as in
+    :func:`params_from_jax`."""
+    _check_keys(tree, "NAFNetTPU", ("trunk",))
+    sd: Dict[str, torch.Tensor] = {}
+    _prefixed(sd, "trunk", params_from_jax(tree["trunk"]))
+    _check_fit(sd, model)
+    return sd
+
+
+def bridge_for(model: torch.nn.Module):
+    """The ``*_params_from_jax`` function of a port model."""
+    from lowlight_image_enhancement_tpu_torch.models import (
+        NAFSSR, Baseline, NAFNetTPU, SwinIR, UNetSID)
+
+    for cls, bridge in ((Baseline, baseline_params_from_jax),
+                        (NAFSSR, nafssr_params_from_jax),
+                        (NAFNetTPU, nafnet_tpu_params_from_jax),
+                        (UNetSID, unet_params_from_jax),
+                        (SwinIR, swinir_params_from_jax)):
+        if isinstance(model, cls):
+            return bridge
+    return params_from_jax

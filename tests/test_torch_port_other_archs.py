@@ -9,6 +9,7 @@ every NAFSSR block the plain versions of K1-K4.
 """
 
 import importlib.util
+import os
 import sys
 from pathlib import Path
 
@@ -21,7 +22,12 @@ import torch
 from lowlight_image_enhancement_tpu.models.baseline import (
     Baseline as JaxBaseline,
 )
+from lowlight_image_enhancement_tpu.models.nafnet_tpu import (
+    NAFNetTPU as JaxNAFNetTPU,
+)
 from lowlight_image_enhancement_tpu.models.nafssr import NAFSSR as JaxNAFSSR
+from lowlight_image_enhancement_tpu.models.swinir import SwinIR as JaxSwinIR
+from lowlight_image_enhancement_tpu.models.unet import UNetSID as JaxUNetSID
 from lowlight_image_enhancement_tpu_torch.models import define_network
 from lowlight_image_enhancement_tpu_torch.models.nafssr import (
     DropPath,
@@ -40,7 +46,10 @@ from lowlight_image_enhancement_tpu_torch.training.trainer import (
 )
 from lowlight_image_enhancement_tpu_torch.weights import (
     baseline_params_from_jax,
+    nafnet_tpu_params_from_jax,
     nafssr_params_from_jax,
+    swinir_params_from_jax,
+    unet_params_from_jax,
 )
 
 TOL = 2e-4
@@ -251,6 +260,48 @@ def test_nafblocksr_draws_once_per_view():
     assert 0 < kept_l.sum() < 16 and not torch.equal(kept_l, kept_r)
 
 
+UNET_KW = dict(in_channels=3, out_channels=3, depths=(8, 16, 32),
+               bilinear=False, norm="group")
+SWIN_KW = dict(img_channel=3, embed_dim=12, depths=(2, 2), num_heads=(2, 2),
+               window_size=4, mlp_ratio=2.0)
+TPU_KW = dict(width=8, enc_blk_nums=(1, 1), middle_blk_num=1,
+              dec_blk_nums=(1, 1))
+
+
+def _net_opt_pair(net_opt, jnet, shape, seed):
+    """``(network_g, randomized JAX params)`` of a model whose bridge takes
+    the ``model`` to fit."""
+    params = jax.jit(jnet.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros(shape))["params"]
+    return net_opt, _randomized(params, seed)
+
+
+@pytest.fixture(scope="module")
+def unet_pair():
+    return _net_opt_pair({"type": "UNetSID", **UNET_KW},
+                         JaxUNetSID(**UNET_KW), (1, 16, 16, 3), 40)
+
+
+@pytest.fixture(scope="module")
+def swinir_pair():
+    return _net_opt_pair({"type": "SwinIR", **SWIN_KW},
+                         JaxSwinIR(**SWIN_KW), (1, 8, 8, 3), 41)
+
+
+@pytest.fixture(scope="module")
+def nafnet_tpu_pair():
+    return _net_opt_pair(
+        {"type": "NAFNetTPU", "dtype": "float32", **TPU_KW},
+        JaxNAFNetTPU(dtype=jnp.float32, **TPU_KW), (1, 16, 16, 3), 42)
+
+
+# the pairs whose bridges fit a model: the group each corruption reaches,
+# and options of a network the tree does not fit
+FIT_PAIRS = {"unet_pair": ("down1", {"norm": "none"}),
+             "swinir_pair": ("rstb1", {"depths": (2, 3)}),
+             "nafnet_tpu_pair": ("trunk", {"width": 16})}
+
+
 @pytest.mark.parametrize("bridge, pair, corrupt", [
     (baseline_params_from_jax, "baseline_pair", "unknown_group"),
     (baseline_params_from_jax, "baseline_pair", "missing_leaf"),
@@ -260,23 +311,43 @@ def test_nafblocksr_draws_once_per_view():
     (nafssr_params_from_jax, "nafssr_pair", "missing_leaf"),
     (nafssr_params_from_jax, "nafssr_pair", "missing_group"),
     (nafssr_params_from_jax, "nafssr_pair", "wrong_model"),
-])
+] + [(bridge, pair, corrupt)
+     for bridge, pair in ((unet_params_from_jax, "unet_pair"),
+                          (swinir_params_from_jax, "swinir_pair"),
+                          (nafnet_tpu_params_from_jax, "nafnet_tpu_pair"))
+     for corrupt in ("unknown_group", "missing_leaf", "missing_group",
+                     "wrong_model")])
 def test_bridges_reject_bad_trees(request, bridge, pair, corrupt):
-    _, params = request.getfixturevalue(pair)
-    bad = {k: dict(v) for k, v in params.items()}
-    blk = "mid_blk0" if pair == "baseline_pair" else "blk1"
+    """Every bridge raises on a tree with a group too many or too few, a
+    leaf missing, or a model of other shapes; the trees of the bridges
+    that fit a model fit it intact."""
+    net_opt, params = request.getfixturevalue(pair)
+    bad = {k: (dict(v) if isinstance(v, dict) else v)
+           for k, v in params.items()}
     model = None
+    if pair in FIT_PAIRS:
+        group, misfit = FIT_PAIRS[pair]
+        model = define_network(net_opt, device="cpu")
+        bridge(params, model=model)
+        top = blk = group
+    else:
+        top, blk = "intro", "mid_blk0" if pair == "baseline_pair" else "blk1"
     if corrupt == "unknown_group":
-        bad["side0"] = bad["intro"]
+        bad["side0"] = bad[top]
     elif corrupt == "missing_leaf":
-        inner = dict(bad[blk]["ca"] if pair == "baseline_pair"
-                     else bad[blk]["scam"])
-        inner.pop("down" if pair == "baseline_pair" else "norm_r")
-        bad[blk]["ca" if pair == "baseline_pair" else "scam"] = inner
+        sub = bad[blk]
+        key = {"baseline_pair": "ca", "nafssr_pair": "scam"}.get(
+            pair, next(k for k in sub if isinstance(sub[k], dict)))
+        inner = dict(sub[key])
+        inner.pop({"baseline_pair": "down", "nafssr_pair": "norm_r"}.get(
+            pair, next(iter(inner))))
+        sub[key] = inner
     elif corrupt == "missing_group":
-        del bad["intro"]
+        del bad[top]
     elif corrupt == "nafnet_block":
         bad[blk]["sca_conv"] = bad[blk].pop("ca")["up"]
+    elif pair in FIT_PAIRS:
+        model = define_network({**net_opt, **misfit}, device="cpu")
     else:
         model = define_network({"type": "NAFSSR", **SSR_KW, "num_blks": 3},
                                device="cpu")
@@ -284,10 +355,16 @@ def test_bridges_reject_bad_trees(request, bridge, pair, corrupt):
         bridge(bad, model=model)
 
 
-def test_stereo_config_parses_and_trains_on_the_pixel_loss(tmp_path):
+@pytest.mark.parametrize("source", ["hand_made_batch", "stereo_tree"])
+def test_stereo_config_parses_and_trains_on_the_pixel_loss(tmp_path,
+                                                           monkeypatch,
+                                                           source):
     """``configs/stereo_nafssr.yml`` parses with ``${STEREO_ROOT}`` unset;
     its train block builds a pixel-only objective that ``make_train_step``
-    runs (debug width), with drop-path masks from the model's generator."""
+    runs (debug width), with drop-path masks from the model's generator,
+    on a hand-made batch. With ``${STEREO_ROOT}`` at a synthetic stereo
+    tree (``make_synthetic_stereo``) the config's own train loader feeds the
+    ``Trainer`` (debug width, 2 steps, then the validation's PSNR)."""
     opt = parse("configs/stereo_nafssr.yml", root_dir=str(tmp_path))
     assert opt["datasets"]["train"]["dataroot_gt"].startswith("${STEREO_ROOT}")
     assert opt["network_g"]["type"] == "NAFSSR" and opt["scale"] == 2
@@ -295,6 +372,9 @@ def test_stereo_config_parses_and_trains_on_the_pixel_loss(tmp_path):
     loss, pixel_loss = build_training_losses(train, device="cpu")
     assert pixel_loss is not None and loss.w["l1_raw"] == 0.0
     assert not any(loss.use.values())
+    if source == "stereo_tree":
+        _stereo_tree_trains(tmp_path, monkeypatch)
+        return
 
     net = define_network({**opt["network_g"], "width": 8, "num_blks": 2},
                          device="cpu")
@@ -319,3 +399,32 @@ def test_stereo_config_parses_and_trains_on_the_pixel_loss(tmp_path):
         assert float(logs["l_total"]) == float(logs["l_pix"])
         history.append(float(logs["l_total"]))
     assert np.isfinite(history).all() and history[-1] < history[0]
+
+
+def _stereo_tree_trains(tmp_path, monkeypatch):
+    from lowlight_image_enhancement_tpu_torch.data import (
+        make_synthetic_stereo)
+    from lowlight_image_enhancement_tpu_torch.training.trainer import Trainer
+
+    monkeypatch.setenv("STEREO_ROOT", make_synthetic_stereo(
+        str(tmp_path / "stereo"))["root"])
+    opt = parse("configs/stereo_nafssr.yml", root_dir=str(tmp_path / "exp"))
+    opt["network_g"].update(width=8, num_blks=2)
+    opt["train"]["total_iter"] = 2
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=2,
+                         use_tb_logger=False)
+    opt["val"]["val_freq"] = 2
+    trainer = Trainer(opt, device="cpu")
+    ds = trainer.train_loader.dataset
+    assert type(ds).__name__ == "PairedStereoImageDataset" and ds.flip_RGB
+    assert len(trainer.train_loader) == 1 and len(trainer.val_loader) == 2
+    assert isinstance(trainer.net.generator, torch.Generator)
+    trainer.train()
+    hist = trainer.history
+    assert [h["iter"] for h in hist] == [1, 2]
+    assert all(h["l_total"] == h["l_pix"] and np.isfinite(h["l_total"])
+               for h in hist)
+    results = trainer.validate()
+    assert list(results) == ["psnr"] and np.isfinite(results["psnr"])
+    assert os.path.exists(os.path.join(opt["path"]["models"],
+                                       "net_g_latest.pth"))
