@@ -39,6 +39,15 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    counts) on the tensor-core route (the device kernels of one request
    under the profiler), and one request against the model's eager
    (plain) path;
+5a. path E (the export slice's main path): ``export_model`` of that
+   ``NewBPNAFNet`` (weights re-seeded) at buckets 256x384 and 512x512, a
+   fresh ``ExportedModel`` of the directory serving a 256x384 and a
+   500x500 request and ``predict_batch`` over both: 36 K1 and 36 K2 op
+   nodes in each program, 36 launches of each per exported forward on the
+   tensor-core route, exported against live (equal bits, else 2^-6 of
+   max|ref|, printed), a swapped ``params.npz`` giving the live output of
+   the re-seeded weights; export seconds, file sizes, ms per request
+   exported and live;
 5b. path C: ``NAFNetLocal`` (TLC) at NAFNet's SID configuration in bf16
    with seeded random weights on a 1x3x512^2 request: with a window >= 2x
    the image it equals the fused ``NAFNet`` of the same weights (36 K1/K2
@@ -114,13 +123,20 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    / MSE train block on a seeded synthetic 16x6x30x90 batch: training
    steps (32 launches of each of K1-K6 per step), one eval forward, and
    the same fp32 gradient check;
+9b. path B export: that ``Baseline`` through ``export_model`` at one
+   256x384 bucket and a fresh ``ExportedModel``: 72 K5 op nodes and 72
+   launches per forward, exported against live;
 10b. path R: ``Trainer(opt).train()`` on ``configs/stereo_nafssr.yml``
    unchanged, ``STEREO_ROOT`` at a synthetic stereo tree
-   (``make_synthetic_stereo``), 4 iterations: 32 launches of each of K1-K6
-   per step, finite logs, the validation's PSNR; ``LowlightModel`` (the
+   (``make_synthetic_stereo``, its PNG rows cycling through filters 0-4),
+   4 iterations: every view defiltered by the native
+   ``native/pngcodec.cpp`` (none by the Python fallback), 32 launches of
+   each of K1-K6 per step, finite logs, the validation's PSNR; ``LowlightModel`` (the
    config's ``model_type``) for 2 steps on the same loader and ``test()``
    (``[N, 6, 2H, 2W]``); ``demo_ssr`` in a subprocess on one L/R pair (two
    PNGs at 2x);
+10c. the video path on the card: ``flow_warp`` at 1x256x256x64 and
+   ``duf_downsample`` of a 7-frame 3x256x256 clip against the CPU (1e-5);
 11. path M: the evaluation metrics. The flagship ``NewBPNAFNet`` (bf16,
    seeded) through ``metrics.compute_metrics`` over the two 512^2
    validation pairs of path T's synthetic SID tree, with the P2 raw PSF,
@@ -1682,12 +1698,25 @@ def stereo_trainer_path() -> dict:
     t0 = time.perf_counter()
     tree = make_synthetic_stereo(str(tmp / "stereo"), seed=SEED)
     t_data = time.perf_counter() - t0
+    # the views' rows cycle through PNG filters 0-4; every one must be
+    # defiltered by native/pngcodec.cpp, none by the Python fallback
+    check(imgio.uses_native_defilter(), "path R: the native PNG defilter "
+          "did not load")
+    imgio.defilter.native = imgio.defilter.python = 0
     os.environ["STEREO_ROOT"] = tree["root"]
     per_step = dict(nafblk_a=32, nafblk_b=32, nafblk_p1=32, nafblk_p2=32,
                     ln_fwd=32, ln_bwd=32)
     try:
         trainer, opt, res = config_trainer_run(
             STEREO_CONFIG, tmp / "exp", "path R", A_STEPS, per_step)
+        defilter = {"native": imgio.defilter.native,
+                    "python": imgio.defilter.python}
+        check(defilter["native"] > 0 and defilter["python"] == 0,
+              f"path R: PNG views defiltered {defilter}")
+        res["defilter"] = defilter
+        print(f"path R: PNG views defiltered {defilter}; data ms/step "
+              f"{res['data_ms_per_step']:.2f} (167.3 over filter-0 views "
+              f"with the Python defilter, PR 10)")
         net = trainer.net
         check(len(net.blocks()) == 16 and net.blocks()[0].conv1.in_channels
               == 48 and all(b.drop_path.rate == 0.1 for b in net.body)
@@ -1750,8 +1779,236 @@ def stereo_trainer_path() -> dict:
     res["synthetic_data_s"] = t_data
     print(json.dumps({"path_R": {k: res[k] for k in (
         "ms_per_step", "data_ms_per_step", "device_busy_ms",
-        "device_idle_share", "val_metrics", "launches_per_step")}}))
+        "device_idle_share", "val_metrics", "launches_per_step",
+        "defilter")}}))
     return res
+
+
+# path E: the serving buckets of the exported NewBPNAFNet (one the size of
+# the mix's 256x384 request, one 512x512 for larger ones)
+EXPORT_BUCKETS = ((256, 384), (512, 512))
+K1_OP, K2_OP, K5_OP = ("llie_torch.nafblock_a.default",
+                       "llie_torch.nafblock_b.default",
+                       "llie_torch.ln_fwd.default")
+
+
+def op_nodes(path: Path) -> dict:
+    """Nodes of each registered kernel op in the saved program."""
+    program = torch.export.load(str(path))
+    nodes = [str(n.target) for n in program.graph.nodes
+             if n.op == "call_function"]
+    return {k: nodes.count(k) for k in (K1_OP, K2_OP, K5_OP)}
+
+
+def exported_vs_live(what: str, got: np.ndarray, ref: np.ndarray) -> float:
+    """An exported output against the live model's on the same padded
+    input: equal bits expected; else within 2^-6 of max|ref| (the bf16
+    bar of the kernel checks). Returns max|got - ref|."""
+    e = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    inside = float(((ref > 0) & (ref < 1)).mean())
+    print(f"{what}: exported vs live max_abs={e:.3e} (equal bits: "
+          f"{e == 0.0}) max|ref|={scale:.3e}, {inside:.3f} of the outputs "
+          f"inside (0, 1)")
+    check(got.shape == ref.shape and bool(np.isfinite(got).all())
+          and e <= TOL[torch.bfloat16] * scale,
+          f"{what}: exported output off the live model's")
+    return e
+
+
+def export_run(net, what: str, buckets, requests, **per_forward: int):
+    """``export_model`` of ``net`` into a temporary directory, then a
+    fresh ``ExportedModel`` of it: graph nodes, launches per forward on
+    the tensor-core route, exported against live on every request (padded
+    as the loader pads), ``predict_batch``, ms per request exported and
+    live. Returns ``(summary, model, directory, live)``."""
+    import tempfile
+
+    from lowlight_image_enhancement_tpu_torch.export import (
+        ClippedForward, ExportedModel, export_model, net_state)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_e_"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_model(net, str(tmp), buckets=buckets, batch=1, device="cuda")
+    export_s = time.perf_counter() - t0
+    sizes = {f.name: f.stat().st_size for f in sorted(tmp.iterdir())}
+    want_nodes = {K1_OP: per_forward.get("nafblk_a", 0),
+                  K2_OP: per_forward.get("nafblk_b", 0),
+                  K5_OP: per_forward.get("ln_fwd", 0)}
+    for name in sizes:
+        if name.endswith(".pt2"):
+            nodes = op_nodes(tmp / name)
+            check(nodes == want_nodes, f"{what} {name}: op nodes {nodes}, "
+                  f"expected {want_nodes}")
+    print(f"{what}: export {export_s:.1f} s, files {sizes}, op nodes per "
+          f"program {want_nodes}")
+
+    t0 = time.perf_counter()
+    model = ExportedModel(str(tmp))
+    load_s = time.perf_counter() - t0
+    state = net_state(net)
+    forward = ClippedForward(net)
+
+    def live(img):
+        """The live model on the input ``predict`` hands its program."""
+        h, w = img.shape[:2]
+        bh, bw = model._pick_bucket(h, w)
+        x = np.zeros((1, bh, bw, 3), np.float32)
+        x[0, :h, :w] = img
+        with torch.no_grad():
+            y = forward(state, torch.from_numpy(x).cuda())
+        return y.cpu().numpy()[0, :h, :w]
+
+    for img in requests:
+        model.predict(img)                 # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    errs, outs = {}, []
+    for img in requests:
+        reset_launches()
+        got = model.predict(img)
+        torch.cuda.synchronize()
+        expect_launches(launches(), f"{what} {img.shape[:2]} request",
+                        **per_forward)
+        outs.append(got)
+        errs[f"{img.shape[0]}x{img.shape[1]}"] = exported_vs_live(
+            f"{what} {img.shape[0]}x{img.shape[1]}", got, live(img))
+    reset_launches()
+    batch_outs = model.predict_batch(requests)
+    torch.cuda.synchronize()
+    expect_launches(launches(), f"{what} predict_batch",
+                    **{k: n * len(requests) for k, n in per_forward.items()})
+    for a, b in zip(batch_outs, outs):
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"{what}: predict_batch differs from predict")
+    ms = {"exported": wall_ms_median(lambda: model.predict(requests[0])),
+          "live": wall_ms_median(lambda: live(requests[0]))}
+    print(f"{what}: ExportedModel load {load_s:.1f} s; "
+          f"{requests[0].shape[0]}x{requests[0].shape[1]} request ms "
+          f"exported {ms['exported']:.2f}, live {ms['live']:.2f}")
+    res = {"export_s": export_s, "load_s": load_s, "file_bytes": sizes,
+           "op_nodes_per_program": {k.split(".")[1]: v
+                                    for k, v in want_nodes.items()},
+           "launches_per_forward": per_forward, "exported_vs_live": errs,
+           "ms_per_request": ms}
+    return res, model, tmp, live
+
+
+def wall_ms_median(fn, iters: int = 5) -> float:
+    """Median host-clock ms of ``fn()`` ending in a synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def export_path() -> dict:
+    """Path E, the slice's main path: ``export_model`` of ``NewBPNAFNet``
+    at the serving configuration (width 32, enc (2,2,4,8), 12 middle, dec
+    (2,2,2,2), bf16, seeded weights, residual scales 0.1) at buckets
+    256x384 and 512x512, then a fresh ``ExportedModel`` serving a 256x384
+    and a 500x500 request and ``predict_batch`` over both: 36 K1 and 36 K2
+    op nodes in each program, 36 launches of each per forward on the
+    tensor-core route, the exported output against the live model's, and
+    a ``params.npz`` swapped for re-seeded weights giving the live
+    model's output with those weights. Its weights come from a generator
+    of its own, so the paths after it draw what they drew before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lowlight_image_enhancement_tpu_torch.export import (
+        ExportedModel, flatten_params, net_state)
+
+    net = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
+                         device="cuda").eval()
+    check(len(net.blocks()) == 36, "NewBPNAFNet must hold 36 NAFBlocks")
+    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED + 11),
+               0.1)
+    rng = np.random.default_rng(SEED)
+    requests = [rng.uniform(0, 1, shape + (3,)).astype(np.float32)
+                for shape in ((256, 384), (500, 500))]
+    res, model, tmp, live = export_run(net, "path E", EXPORT_BUCKETS,
+                                       requests, nafblk_a=36, nafblk_b=36)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.predict(requests[0])
+            torch.cuda.synchronize()
+        expect_tensor_core_route(device_records(prof.key_averages()),
+                                 "path E exported 256x384 request")
+        before = model.predict(requests[0])
+        randomize_(net, torch.Generator(device="cuda").manual_seed(SEED + 1),
+                   0.1)
+        np.savez(tmp / "params.npz", **flatten_params(
+            {k: v.cpu().numpy() for k, v in net_state(net).items()}))
+        swapped = ExportedModel(str(tmp)).predict(requests[0])
+        moved = float(np.abs(swapped - before).max())
+        check(moved > 0.0, "path E: the swapped params.npz left the output "
+              "unchanged")
+        res["swap"] = {"moved_max_abs": moved,
+                       "exported_vs_live": exported_vs_live(
+                           "path E, re-seeded params.npz", swapped,
+                           live(requests[0]))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"path_E": res}))
+    return res
+
+
+def baseline_export_path() -> dict:
+    """``Baseline`` at path B's width-32 configuration (bf16, seeded
+    weights, residual scales 0.1) exported at one 256x384 bucket and
+    served by a fresh ``ExportedModel``: 72 K5 op nodes, 72 launches per
+    forward, the exported output against the live model's (weights from a
+    generator of its own)."""
+    net = define_network({**BASELINE_W32, "dtype": "bfloat16"},
+                         device="cuda").eval()
+    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED + 12),
+               0.1)
+    img = np.random.default_rng(SEED + 2).uniform(
+        0, 1, (256, 384, 3)).astype(np.float32)
+    res, _, tmp, _ = export_run(net, "Baseline export", EXPORT_BUCKETS[:1],
+                                [img], ln_fwd=72)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"path_B_export": res}))
+    return res
+
+
+def flow_device_check() -> dict:
+    """``flow_warp`` at 1x256x256x64 and ``duf_downsample`` of one 7-frame
+    3x256x256 clip on the card against the same calls on the CPU (fp32,
+    1e-5 of max|ref|). No kernel: a check that the video path runs on the
+    device."""
+    from lowlight_image_enhancement_tpu_torch.data import duf_downsample
+    from lowlight_image_enhancement_tpu_torch.ops.image_ops import flow_warp
+
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((1, 256, 256, 64)).astype(
+        np.float32))
+    flow = torch.from_numpy(rng.uniform(-8, 8, (1, 256, 256, 2)).astype(
+        np.float32))
+    clip = torch.from_numpy(rng.uniform(0, 1, (7, 256, 256, 3)).astype(
+        np.float32))
+    out = {}
+    calls = {f"flow_warp_{m}_{p}": (lambda t, m=m, p=p: flow_warp(
+                 t[0], t[1], m, p), (x, flow))
+             for m, p in (("bilinear", "zeros"), ("nearest", "border"))}
+    calls["duf_downsample_x4"] = (lambda t: duf_downsample(t[0], scale=4),
+                                  (clip,))
+    for name, (fn, args) in calls.items():
+        ref = fn(args)
+        got = fn(tuple(a.cuda() for a in args))
+        check(got.is_cuda, f"{name} left the card")
+        e, rel = err(got.cpu(), ref)
+        print(f"{name} card vs CPU: shape {tuple(got.shape)}, max_abs "
+              f"{e:.3e} ({rel:.3e} of max|ref|)")
+        check(rel <= 1e-5, f"{name}: card off the CPU")
+        out[name] = e
+    return out
 
 
 # path M: the evaluation metrics; the slice's cut of a SID Sony frame
@@ -2540,6 +2797,8 @@ def main() -> int:
     phase("narrow-channel phase (K1-K4 at C = 8, 24, 40, 12, 6, 10)",
           narrow_channels_phase, gen, rows)
     serve = phase("serving phase", serving_phase, gen)
+    path_e = phase("path E (export_model and ExportedModel of "
+                   "NewBPNAFNet)", export_path)
     tlc = phase("path C (NAFNetLocal, TLC)", tlc_path, gen)
     train = phase("training phase", training_phase)
     debug = phase("path D (the debug network in bf16)", debug_path)
@@ -2550,9 +2809,13 @@ def main() -> int:
     cli = phase("CLI (train.py and test.py on the debug config)", cli_path)
     perc = phase("path P", perceptual_path)
     base = phase("path B", baseline_path)
+    base_export = phase("path B export (Baseline through ExportedModel)",
+                        baseline_export_path)
     ssr = phase("path S", nafssr_path)
     path_r = phase("path R (the Trainer, LowlightModel and demo_ssr on "
                    "stereo_nafssr)", stereo_trainer_path)
+    flow = phase("video path on the card (flow_warp, duf_downsample)",
+                 flow_device_check)
     path_m = phase("path M (the evaluation metrics)", evaluation_path)
     path_l = phase("path L (LPIPS in the loss)", lpips_loss_path,
                    train["ms_per_step"])
@@ -2643,6 +2906,8 @@ def main() -> int:
         **{f"A_{k}_per_step": v["launches_per_step"]
            for k, v in path_a.items()},
         "R_per_step": path_r["launches_per_step"],
+        "E": path_e["launches_per_forward"],
+        "B_export": base_export["launches_per_forward"],
         "L_per_step": path_l["launches_per_step"]}
     for entry in kernels:
         entry["per_width"] = rows[entry["name"]]
@@ -2699,7 +2964,9 @@ def main() -> int:
         "path_R": {k: path_r[k] for k in (
             "ms_per_step", "data_ms_per_step", "device_busy_ms",
             "device_idle_share", "kernel_records", "val_metrics",
-            "wrapper_logs")}}))
+            "wrapper_logs", "defilter")},
+        "path_E": path_e, "path_B_export": base_export,
+        "flow_card_vs_cpu": flow}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

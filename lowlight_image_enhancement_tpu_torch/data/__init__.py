@@ -5,8 +5,8 @@ Counterpart of ``lowlight_image_enhancement_tpu/data/__init__.py``:
 ``create_dataset(opt)`` resolves ``{'type': Name, **kwargs}`` through the
 port's DATASET_REGISTRY (reference ``data/__init__.py:38-62``);
 ``create_loader`` builds the batching pipeline (``data/__init__.py:
-65-131``). The raw-SID and video datasets are not ported yet (ROADMAP.md,
-queue 1).
+65-131``). Since the video slice also the raw SID data set, the video test
+data sets and ``VideoFrameDataset``.
 """
 
 from __future__ import annotations
@@ -43,6 +43,26 @@ from lowlight_image_enhancement_tpu_torch.data.stereo_dataset import (  # noqa: 
 from lowlight_image_enhancement_tpu_torch.data.sid_dataset import (  # noqa: F401
     SonySIDDataset,
     load_manifest,
+)
+from lowlight_image_enhancement_tpu_torch.data.sid_raw_dataset import (  # noqa: F401
+    SIDPairMetadata,
+    SonySIDRawDataset,
+    find_sid_pairs,
+    parse_sid_filename,
+)
+from lowlight_image_enhancement_tpu_torch.data.video_dataset import (  # noqa: F401
+    VideoFrameDataset,
+    pad_frame_indices,
+)
+from lowlight_image_enhancement_tpu_torch.data.video_test_dataset import (  # noqa: F401
+    VideoRecurrentTestDataset,
+    VideoTestDataset,
+    VideoTestDUFDataset,
+    VideoTestVimeo90KDataset,
+    duf_downsample,
+    generate_frame_indices,
+    generate_gaussian_kernel,
+    read_img_seq,
 )
 from lowlight_image_enhancement_tpu_torch.utils.registry import (
     DATASET_REGISTRY,

@@ -185,6 +185,15 @@ def make_synthetic_sid(
     return paths
 
 
+def _write_filtered_png(path: str, arr: np.ndarray) -> None:
+    """``arr`` as a PNG whose rows cycle through filter types 0-4."""
+    from lowlight_image_enhancement_tpu_torch.utils import imgio
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(imgio.encode_png(arr, filter_types=range(5)))
+
+
 def make_synthetic_stereo(
     root: str,
     n_train: int = 16,
@@ -202,7 +211,11 @@ def make_synthetic_stereo(
     Each sample is one natural-image-like scene (:func:`_natural_image`)
     seen by two cameras: the right view is the left one shifted by a
     disparity of 4-24 pixels. LR is the 2x2 mean of HR, so HR = 2 x LR.
-    All files are seeded uint8 RGB PNGs. Sample ``i`` of a subset is
+    All files are seeded uint8 RGB PNGs whose scanlines cycle through the
+    five PNG filter types (None, Sub, Up, Average, Paeth), as encoders of
+    real photographs mix them (PIL and libpng write mostly Paeth rows), so
+    reading the set costs what decoding real views costs; the pixels are
+    those of unfiltered files. Sample ``i`` of a subset is
     ``8 (i % 4)`` pixels taller and ``16 (i % 4)`` wider than its ``*_hw``,
     so the validation images differ in size. The default 16 training
     samples fill one batch of the config (``batch_size_per_gpu: 16``, the
@@ -228,8 +241,10 @@ def make_synthetic_stereo(
                 lr = hr8.astype(np.float32).reshape(
                     h // 2, 2, w // 2, 2, 3).mean((1, 3))
                 lr8 = np.clip(lr + 0.5, 0, 255).astype(np.uint8)
-                imgio.imwrite(os.path.join(hr_dir, name, f"hr{k}.png"), hr8)
-                imgio.imwrite(os.path.join(lr_dir, name, f"lr{k}.png"), lr8)
+                _write_filtered_png(
+                    os.path.join(hr_dir, name, f"hr{k}.png"), hr8)
+                _write_filtered_png(
+                    os.path.join(lr_dir, name, f"lr{k}.png"), lr8)
         paths[f"{subset}_hr"], paths[f"{subset}_lr"] = hr_dir, lr_dir
     return paths
 

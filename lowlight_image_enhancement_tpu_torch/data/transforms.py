@@ -184,12 +184,12 @@ def decode_png_uint16(buf: bytes) -> Img:
 
     Mirrors reference ``_load_png_uint16`` (``sony_sid_lmdb_dataset.py:
     38-56``): uint8 images are promoted x257 to the uint16 scale. Decodes
-    via the port's :mod:`..utils.imgio` (numpy inflate + defilter), which returns
+    via the port's :mod:`..utils.imgio` (zlib inflate, C defilter), which returns
     RGB directly — no BGR swap needed here.
     """
     from lowlight_image_enhancement_tpu_torch.utils import imgio
 
-    img = imgio.decode_png(bytes(buf))
+    img = imgio.imdecode(bytes(buf))
     if img.ndim == 2:
         img = img[..., None].repeat(3, axis=-1)
     if img.dtype == np.uint8:

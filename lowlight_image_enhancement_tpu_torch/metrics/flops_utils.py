@@ -11,10 +11,12 @@ conventions:
 ``FlopCounterMode`` counts the products (convolutions, ``mm``, ``bmm``,
 ``addmm``, attention) at 2 per multiply-add, so ``fvcore_fma1`` is half
 its total. It counts what runs through PyTorch's dispatcher only: the
-port's hand-written kernels are ctypes calls it cannot see, so the count
-is taken on the plain path. ``count`` refuses CUDA tensors; pass CPU
-tensors, or meta tensors (``model.to("meta")``, no arithmetic at all),
-on which every wrapper runs its plain version. The JAX count (XLA's cost
+fused NAFBlock's registered ops (``llie_torch::nafblock_a``,
+``nafblock_b``) carry FLOP formulas equal to their plain versions'
+products, but the other hand-written kernels are ctypes calls it cannot
+see, so the count is taken on the plain path. ``count`` refuses CUDA
+tensors; pass CPU tensors, or meta tensors (``model.to("meta")``, no
+arithmetic at all), on which every wrapper runs its plain version. The JAX count (XLA's cost
 analysis) also includes elementwise work, so it is larger than this one
 for the same model.
 """

@@ -19,6 +19,12 @@ affine weight/bias per channel, result in the input's dtype.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
+
+K5 is also the registered op ``llie_torch::ln_fwd`` (:func:`ln_fwd`: the
+plain version on the CPU, :func:`call_ln_fwd` on CUDA, shapes only on fake
+tensors), which :class:`LayerNorm2dFunction` calls, so ``torch.export``
+keeps one node per LayerNorm. K6 is not registered: serving runs no
+backward.
 """
 
 from __future__ import annotations
@@ -246,15 +252,37 @@ def call_ln_bwd(g: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
 call_ln_bwd.launches = 0
 
 
+@torch.library.custom_op("llie_torch::ln_fwd", mutates_args=(),
+                         device_types="cpu")
+def ln_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5 on ``x: [N, C, H*W]`` -> ``(y like x, xhat fp32 like x, rstd fp32
+    [N, H*W])``; this CPU kernel is the plain version."""
+    return plain_ln_fwd(x, weight, bias, eps)
+
+
+@ln_fwd.register_kernel("cuda")
+def _ln_fwd_cuda(x, weight, bias, eps):
+    return call_ln_fwd(x, weight, bias, eps)
+
+
+@ln_fwd.register_fake
+def _ln_fwd_fake(x, weight, bias, eps):
+    n, c, s = x.shape
+    return (torch.empty_like(x), x.new_empty((n, c, s), dtype=torch.float32),
+            x.new_empty((n, s), dtype=torch.float32))
+
+
 class LayerNorm2dFunction(torch.autograd.Function):
-    """Channel LN on ``x: [N, C, ...]`` with K5 forward and K6 backward
+    """Channel LN on ``x: [N, C, ...]`` with K5 forward (the registered op
+    :func:`ln_fwd`) and K6 backward
     (the counterpart of the JAX ``layer_norm_2d_pallas`` custom VJP).
     ``apply(x, weight, bias, eps)``."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         flat = x.contiguous().view(x.shape[0], x.shape[1], -1)
-        y, xhat, rstd = call_ln_fwd(flat, weight, bias, eps)
+        y, xhat, rstd = ln_fwd(flat, weight, bias, eps)
         ctx.save_for_backward(xhat, rstd, weight)
         return y.view(x.shape)
 

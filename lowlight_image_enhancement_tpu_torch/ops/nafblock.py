@@ -45,6 +45,16 @@ failure:
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
 
+The forward kernels are also registered ``torch.library`` ops,
+``llie_torch::nafblock_a`` (K1 -> ``(g, sums)``) and
+``llie_torch::nafblock_b`` (K2 -> ``out``), each with a CPU kernel (the
+plain version), a CUDA kernel (:func:`call_a`, :func:`call_b`), a fake
+kernel that computes shapes only and a FLOP formula (what
+``torch.utils.flop_counter`` counts of the plain version's products).
+:class:`NAFBlockFunction` calls them, so
+``torch.export`` keeps one node of each per block where it would otherwise
+meet ctypes calls on ``data_ptr()`` that fake tensors cannot run.
+
 Numerics (as the TPU kernels): LN statistics and elementwise math in fp32,
 matrix-product operands rounded to the compute dtype (bf16 when the
 activations are bf16) with fp32 accumulation, weight grads in fp32; the
@@ -56,10 +66,11 @@ while ``bk == 0``, its initial value).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from lowlight_image_enhancement_tpu_torch.ops import _build
 from lowlight_image_enhancement_tpu_torch.ops.layernorm import (
@@ -958,13 +969,79 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
 
 call_p2.launches = 0
 
+# ---------------------------------------------------------------------------
+# K1 and K2 as registered ops (what torch.export sees of a fused block)
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("llie_torch::nafblock_a", mutates_args=(),
+                         device_types="cpu")
+def nafblock_a(x: torch.Tensor, params: List[torch.Tensor], h: int, w: int,
+               eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on ``x: [N, C, H*W]`` with ``params`` the views of
+    ``_A_PARAMS`` -> ``(g like x, sums [N, C] fp32)``; this CPU kernel is
+    the plain version."""
+    return plain_a(x, dict(zip(_A_PARAMS, params)), (h, w), eps)
+
+
+@nafblock_a.register_kernel("cuda")
+def _nafblock_a_cuda(x, params, h, w, eps):
+    return call_a(x, dict(zip(_A_PARAMS, params)), (h, w), eps)
+
+
+@nafblock_a.register_fake
+def _nafblock_a_fake(x, params, h, w, eps):
+    return (torch.empty_like(x),
+            x.new_empty((x.shape[0], x.shape[1]), dtype=torch.float32))
+
+
+@torch.library.custom_op("llie_torch::nafblock_b", mutates_args=(),
+                         device_types="cpu")
+def nafblock_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor,
+               params: List[torch.Tensor], eps: float) -> torch.Tensor:
+    """K2 on ``x, g: [N, C, H*W]``, ``att: [N, C]`` with ``params`` the
+    views of ``_B_PARAMS`` -> the block output like ``x``; this CPU kernel
+    is the plain version."""
+    return plain_b(x, g, att, dict(zip(_B_PARAMS, params)), eps)
+
+
+@nafblock_b.register_kernel("cuda")
+def _nafblock_b_cuda(x, g, att, params, eps):
+    return call_b(x, g, att, dict(zip(_B_PARAMS, params)), eps)
+
+
+@nafblock_b.register_fake
+def _nafblock_b_fake(x, g, att, params, eps):
+    return torch.empty_like(x)
+
+
+# FLOPs of the two ops for torch.utils.flop_counter (2 per multiply-add,
+# products only), as the counter counts their plain versions' aten ops: K1
+# conv1 [2C, C] and the depthwise 3x3 over 2C channels; K2 conv3 [C, C],
+# conv4 [2F, C], conv5 [C, F]. The counter cannot see inside an op.
+@register_flop_formula(torch.ops.llie_torch.nafblock_a)
+def _nafblock_a_flops(x_shape, params_shape, h, w, eps, *args,
+                      **kwargs) -> int:
+    n, c, s = x_shape
+    return 2 * n * s * (2 * c * c + 2 * c * 9)
+
+
+@register_flop_formula(torch.ops.llie_torch.nafblock_b)
+def _nafblock_b_flops(x_shape, g_shape, att_shape, params_shape, eps, *args,
+                      **kwargs) -> int:
+    n, c, s = x_shape
+    f = params_shape[_B_PARAMS.index("W4")][0] // 2
+    return 2 * n * s * (c * c + 2 * f * c + c * f)
+
+
 # the 18 packed views in pack_params order (NAFBlockFunction's inputs)
 PARAM_ORDER = ("w1n", "b1n", "W1", "b1", "kdw", "bk", "Wsca", "bsca", "W3",
                "b3", "w2n", "b2n", "W4", "b4", "W5", "b5", "beta", "gamma")
 
 
 class NAFBlockFunction(torch.autograd.Function):
-    """One NAFBlock with the fused forward (K1 -> SCA -> K2) and the fused
+    """One NAFBlock with the fused forward (K1 -> SCA -> K2, through the
+    registered ops :func:`nafblock_a`, :func:`nafblock_b`) and the fused
     backward (K3 -> SCA backward -> K4): the counterpart of the JAX
     ``fused_nafblock`` custom VJP. Saves ``(x, g, m, att)`` as the JAX
     ``_vjp_fwd`` does (and, in bf16, the four matrices as rounded once for
@@ -980,9 +1057,10 @@ class NAFBlockFunction(torch.autograd.Function):
         given = dict(zip(PARAM_ORDER, params))
         p = padded_matrices(rounded_matrices(given, x.dtype))
         area = hw[0] * hw[1]
-        g, sums = call_a(x, p, hw, eps)
+        g, sums = nafblock_a(x, [p[k] for k in _A_PARAMS], hw[0], hw[1],
+                             eps)
         att = sca_attention(sums, p, area)
-        out = call_b(x, g, att, p, eps)
+        out = nafblock_b(x, g, att, [p[k] for k in _B_PARAMS], eps)
         # the rounded (padded) matrices go to the backward beside the
         # parameters
         rounded = [] if p is given else [p[k] for k in _MATRICES]

@@ -2,22 +2,63 @@
 ``lowlight_image_enhancement_tpu/utils/imgio.py``.
 
 PNG is decoded and encoded here (8- and 16-bit, gray/gray+alpha/RGB/RGBA/
-palette, non-interlaced; scanline defiltering in numpy); other formats and
-interlaced PNGs go through PIL. Every function takes and returns **RGB**
-channel order, HWC uint8/uint16 (or HW for grayscale).
+palette, non-interlaced): chunk parsing and zlib in Python, the scanline
+defilter in C (``native/pngcodec.cpp:png_defilter``, from the library
+:mod:`..data.native_loader` builds into ``build/torch_native/``), with the
+numpy :func:`_defilter` where that library cannot be built. Other formats
+and interlaced PNGs go through PIL; there is no cv2 branch. Every function
+takes and returns **RGB** channel order, HWC uint8/uint16 (or HW for
+grayscale).
+
+:func:`defilter` counts the images each route defiltered
+(``defilter.native``, ``defilter.python``), so a silent fallback to the
+Python loop can be seen.
 """
 
 from __future__ import annotations
 
+import ctypes
 import io
 import os
 import struct
 import zlib
+from typing import Optional, Sequence
 
 import numpy as np
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CT_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colortype -> channels
+
+_DEFILTER: Optional[ctypes.CDLL] = None
+_DEFILTER_TRIED = False
+
+
+def _native_defilter() -> Optional[ctypes.CDLL]:
+    """``png_defilter`` of the port's native library, or None where it
+    cannot be built (no g++ or zlib)."""
+    global _DEFILTER, _DEFILTER_TRIED
+    if _DEFILTER_TRIED:
+        return _DEFILTER
+    _DEFILTER_TRIED = True
+    from lowlight_image_enhancement_tpu_torch.data.native_loader import (
+        _load_library,
+    )
+
+    lib = _load_library()
+    if lib is None or not hasattr(lib, "png_defilter"):
+        return None
+    lib.png_defilter.restype = ctypes.c_int
+    lib.png_defilter.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_int,
+                                 ctypes.c_char_p]
+    _DEFILTER = lib
+    return _DEFILTER
+
+
+def uses_native_defilter() -> bool:
+    """Whether :func:`decode_png` defilters in C (loading the library on
+    first call)."""
+    return _native_defilter() is not None
 
 
 def _paeth(a, b, c):
@@ -27,7 +68,8 @@ def _paeth(a, b, c):
 
 
 def _defilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """PNG scanline defilter (PNG spec 4.5.4)."""
+    """PNG scanline defilter in numpy (PNG spec 4.5.4): the fallback of
+    :func:`defilter` and the version the tests hold the C one against."""
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     for r in range(h):
@@ -58,6 +100,25 @@ def _defilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
         else:
             raise ValueError(f"invalid PNG filter type {ft}")
     return out
+
+
+def defilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """``h`` filtered scanlines -> ``[h, stride]`` uint8: C's
+    ``png_defilter`` where the library loads, else :func:`_defilter`."""
+    lib = _native_defilter()
+    if lib is None:
+        defilter.python += 1
+        return _defilter(raw, h, stride, bpp)
+    out = np.empty((h, stride), np.uint8)
+    if lib.png_defilter(raw, h, stride, bpp,
+                        out.ctypes.data_as(ctypes.c_char_p)) != 0:
+        raise ValueError("invalid PNG filter type")
+    defilter.native += 1
+    return out
+
+
+defilter.native = 0
+defilter.python = 0
 
 
 def _decode_via_pil(buf: bytes) -> np.ndarray:
@@ -107,7 +168,7 @@ def decode_png(buf: bytes) -> np.ndarray:
     raw = zlib.decompress(b"".join(idat))
     if len(raw) != height * (stride + 1):
         raise ValueError("PNG data length mismatch")
-    out = _defilter(raw, height, stride, bpp)
+    out = defilter(raw, height, stride, bpp)
     if bitdepth == 16:
         img = out.reshape(height, stride).view(">u2").astype(np.uint16)
         img = img.reshape(height, width, channels)
@@ -127,8 +188,39 @@ def decode_png(buf: bytes) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def encode_png(arr: np.ndarray, compress_level: int = 6) -> bytes:
-    """Gray/gray+alpha/RGB/RGBA uint8 or uint16 array -> PNG bytes."""
+def _filter_rows(rows: np.ndarray, bpp: int,
+                 filter_types: Sequence[int]) -> np.ndarray:
+    """The PNG forward filters (PNG spec 9.2) of ``rows [h, stride]``:
+    row ``r`` takes ``filter_types[r % len]``; returns ``[h, 1 + stride]``
+    with each row's type byte in front. Every filter predicts from the
+    unfiltered bytes, so all rows are filtered at once."""
+    x = rows.astype(np.int16)
+    h, stride = x.shape
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    upl = np.zeros_like(x)
+    upl[1:, bpp:] = x[:-1, :-bpp]
+    preds = (np.zeros_like(x), left, up, (left + up) >> 1,
+             _paeth(left, up, upl))
+    types = np.asarray([filter_types[r % len(filter_types)]
+                        for r in range(h)], np.uint8)
+    if types.max(initial=0) > 4:
+        raise ValueError(f"invalid PNG filter type in {filter_types}")
+    pred = np.stack(preds)[types, np.arange(h)]
+    body = ((x - pred) % 256).astype(np.uint8)
+    return np.concatenate([types[:, None], body], axis=1)
+
+
+def encode_png(arr: np.ndarray, compress_level: int = 6,
+               filter_types: Sequence[int] = (0,)) -> bytes:
+    """Gray/gray+alpha/RGB/RGBA uint8 or uint16 array -> PNG bytes.
+
+    Scanline ``r`` gets filter ``filter_types[r % len(filter_types)]``
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); the default is filter 0 on
+    every row, as the JAX codec writes. The pixels decode the same
+    whatever the filters."""
     arr = np.asarray(arr)
     if arr.ndim == 2:
         arr = arr[..., None]
@@ -149,40 +241,55 @@ def encode_png(arr: np.ndarray, compress_level: int = 6) -> bytes:
     ihdr = struct.pack(">IIBBBBB", w, h, bitdepth, {1: 0, 2: 4, 3: 2, 4: 6}[c],
                        0, 0, 0)
     rows = body.reshape(h, -1).view(np.uint8).reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    if tuple(filter_types) == (0,):
+        raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    else:
+        raw = _filter_rows(rows, c * bitdepth // 8, filter_types)
     return (_PNG_SIG + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(raw, compress_level))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), compress_level))
             + chunk(b"IEND", b""))
+
+
+def imdecode(buf: bytes) -> np.ndarray:
+    """Decode an encoded image buffer -> RGB (or gray) uint8/uint16 HWC."""
+    buf = bytes(buf)
+    return decode_png(buf) if buf[:8] == _PNG_SIG else _decode_via_pil(buf)
 
 
 def imread(path: str) -> np.ndarray:
     """Read an image file -> RGB (or gray) uint8/uint16 HWC."""
     with open(path, "rb") as f:
-        buf = f.read()
-    return decode_png(buf) if buf[:8] == _PNG_SIG else _decode_via_pil(buf)
+        return imdecode(f.read())
+
+
+def imencode(arr: np.ndarray, ext: str = ".png") -> bytes:
+    """Encode an RGB (or gray) uint8/uint16 array: PNG natively, other
+    formats through PIL (8-bit)."""
+    ext = ext.lower()
+    arr = np.asarray(arr)
+    if ext == ".png":
+        return encode_png(arr)
+    from PIL import Image
+
+    if arr.dtype != np.uint8:
+        raise ValueError(f"{ext} encode requires uint8")
+    fmt = Image.registered_extensions().get(ext)
+    if fmt is None:
+        raise ValueError(f"unsupported image extension: {ext}")
+    bio = io.BytesIO()
+    Image.fromarray(arr).save(bio, format=fmt)
+    return bio.getvalue()
 
 
 def imwrite(path: str, arr: np.ndarray) -> None:
-    """Write an RGB (or gray) uint8/uint16 array; PNG natively, other
-    extensions through PIL (uint8)."""
+    """Write an RGB (or gray) uint8/uint16 array; format from the
+    extension (PNG without one)."""
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
-    ext = (os.path.splitext(path)[1] or ".png").lower()
-    arr = np.asarray(arr)
-    if ext == ".png":
-        data = encode_png(arr)
-    else:
-        from PIL import Image
-
-        fmt = Image.registered_extensions().get(ext)
-        if fmt is None or arr.dtype != np.uint8:
-            raise ValueError(f"cannot write {ext} from {arr.dtype}")
-        bio = io.BytesIO()
-        Image.fromarray(arr).save(bio, format=fmt)
-        data = bio.getvalue()
+    ext = os.path.splitext(path)[1] or ".png"
     with open(path, "wb") as f:
-        f.write(data)
+        f.write(imencode(np.asarray(arr), ext))
 
 
 def to_uint8(img01: np.ndarray) -> np.ndarray:
