@@ -22,7 +22,8 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
 4. backward kernel phase: the same for K1, K2, K3 (``nafblk_p1``), K4
    (``nafblk_p2``) and the whole block backward (``NAFBlockFunction`` vs
    the plain backward) at every width of a 384x384, N=2 training crop
-   (C=32@384^2 ... C=512@24^2), at the width-64 configuration's
+   (C=32@384^2 ... C=512@24^2) and of one N=1 image, a data-parallel
+   rank's share of it (path DP), at the width-64 configuration's
    C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles),
    at NAFSSR's C=48 with 30x90 pixels and N=16 and at the bottom of
    NAFNetTPU's trunk, C=1024@12^2, checking dz, da, dx and every weight
@@ -153,7 +154,43 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    ``l_lpips``, 36 launches of each of K1-K4 per step on the tensor
    cores, a falling loss, ms/step beside the training phase's, and the
    LPIPS term's input gradient on the card against the CPU in fp64 (the
-   fp32 readings printed).
+   fp32 readings printed);
+13. paths DP and SP (``parallel/``; this slice's main path is DP):
+   (a) the flagship step in this process without a mesh, then in a
+   ``torch.distributed`` world of 1 on NCCL (``init_multihost``), 1 warm-up,
+   3 timed and 1 traced step each: equal parameters bit for bit, 36
+   launches of each of K1-K4 a step on the tensor cores, 1-8 bulk
+   all-reduces of 0.95-1.10x the fp32 gradient bytes and no bulk
+   all-gather (``parallel.introspect.collective_stats`` of the traced
+   step); SP at world 1: ``nafnet_apply_spatial`` of the serving
+   ``NewBPNAFNet`` in fp32 (seeded) on one SID Sony frame, 1x3x2848x4256,
+   against the single-device forward of the unfused blocks (1e-4 of
+   max|ref|), 72 K5 launches a forward. Then one spawned world of two
+   ranks over gloo on the one card (NCCL refuses two ranks on one GPU)
+   runs in turn: (b) the same steps with one image a rank (equal
+   parameters on both, the first step's all-reduced gradients equal, bit
+   for bit in every leaf, to the mean of the two single-image steps of
+   one process -- K1-K4 at N=1 are held against their plain versions in
+   the backward phase -- their distance from the one-process 2-image
+   step per leaf printed, l_total within 1e-2 of its); (c) ZeRO-1 (parameters within 2e-6 of (b)'s, the
+   optimizer state per rank against (b)'s, a bulk all-gather); SP (each
+   rank's output against world 1's, 72 K5 launches, peak memory against
+   world 1's); ``Trainer(opt).train()`` of the flagship config with
+   ``train.zero1`` over path T's synthetic tree (center crops, 2
+   iterations an epoch): 4 iterations, checkpoints at 2, validation at 4
+   through ``dist_validate``, a resume at 2 that gives iterations 3-4's
+   l_total again; ms per step of (a)-(c) by the host clock (no speed
+   claimed: the gloo ranks stage every collective through host memory);
+14. ``torchrun --standalone --nproc_per_node=1 -m
+   lowlight_image_enhancement_tpu_torch.train -opt
+   configs/debug/sid_newbp_mono_debug.yml --launcher pytorch`` (as
+   ``python -m torch.distributed.run``): a world of 1 on NCCL, rc 0;
+15. the serving mesh and the sharded export at one device:
+   ``RestorationServer(mesh=create_mesh(devices=["cuda:0"]))`` serves the 8
+   requests equal to the server without a mesh (36 K1/K2 launches a
+   forward); ``export_model(..., mesh=)`` records ``{"axis": "data",
+   "size": 1}`` and a fresh ``ExportedModel`` serves ``predict_batch``
+   against live.
 
 Every kernel row carries two times: ``ms``, CUDA events around the
 wrapper (host time included), and ``device_ms``, the kernel's own device
@@ -714,7 +751,9 @@ def backward_checks(x, dout, p, pk, shw, dt) -> tuple:
     return checks, g, att, dz, dgc
 
 
+# the training crop at N=2, then one image of it, a rank's share on path DP
 BACKWARD_WIDTHS = ([(BATCH, c, s, s, n, "train") for c, s, n in TRAIN_PATH]
+                   + [(1, c, s, s, n, "dp") for c, s, n in TRAIN_PATH]
                    + [(BATCH, *WIDE, WIDE[1], 0, "w64"),
                       (BATCH, *RAGGED, RAGGED[1], 0, "ragged"), NAFSSR_BLOCK,
                       TPU_BOTTOM])
@@ -905,10 +944,11 @@ def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
         del blk, x32, d32
 
 
-def serve_mix(net, what: str, **per_forward: int) -> dict:
-    """The 8-request mix through ``RestorationServer``: shapes, finiteness,
-    4 forward batches and ``per_forward`` launches in each."""
-    server = RestorationServer(net, device="cuda")
+def serve_mix(net, what: str, mesh=None, **per_forward: int) -> dict:
+    """The 8-request mix through ``RestorationServer`` (over ``mesh`` when
+    given): shapes, finiteness, 4 forward batches and ``per_forward``
+    launches in each."""
+    server = RestorationServer(net, device="cuda", mesh=mesh)
     rng = np.random.default_rng(SEED)
     images = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
               for h, w in SERVE_SHAPES]
@@ -2728,6 +2768,454 @@ def nafssr_path() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# parallel paths: DP (data-parallel training), SP (the spatial forward),
+# the two-rank Trainer, the torchrun CLI, the serving mesh and the sharded
+# export
+# ---------------------------------------------------------------------------
+# 1 warm-up, 3 timed and 1 traced step
+DP_STEPS = 5
+DP_TRACED = DP_STEPS - 1
+# one SID Sony frame: 2848 = 89 * 32 and 4256 = 266 * 16, so the height
+# splits into 2 shards that stay even through NewBPNAFNet's 4 downs
+SP_FRAME = (1, 3, 2848, 4256)
+# the bf16 gradients of 1 + 1 images against one process's 2, per leaf
+# against its own max|g|: a reading beside this share (dp_grad_checks);
+# ZeRO-1 against replicated: JAX's bar
+DP_GRAD_TOL = 2.0 ** -6
+ZERO1_TOL = 2e-6
+SP_TOL = 1e-4
+
+
+def short_kernel_name(name: str) -> str:
+    """A device kernel's identifier as :func:`device_records` keys it."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = re.sub(r"<.*", "", name)
+    return re.sub(r"^void\s+", "", name.split("(")[0]).strip()
+
+
+def dp_spec() -> dict:
+    """The flagship recipe's step as ``parallel.launch.train_steps`` takes
+    it: ``network_g`` in bf16 with seeded random weights (residual scales
+    0.01, as the training phase), the config's ``train`` block, the seeded
+    2x3x384^2 batch."""
+    opt = parse(str(TRAIN_CONFIG), is_train=True)
+    network_g = {**opt["network_g"], "dtype": "bfloat16"}
+    net = define_network(network_g, device="cuda")
+    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED), 0.01)
+    state_dict = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    batch = {k: v.cpu().numpy() for k, v in flagship_batch().items()}
+    return dict(network_g=network_g, train=copy.deepcopy(opt["train"]),
+                state_dict=state_dict, batch=batch, steps=DP_STEPS,
+                trace_step=DP_TRACED, grads=True, device="cuda")
+
+
+def dp_checks(what: str, run: dict, per_step: dict) -> float:
+    """Every step's launches, finite logs, the tensor-core route of the
+    traced step; returns the median ms of the timed steps."""
+    for i, counts in enumerate(run["launches"]):
+        expect_launches(counts, f"{what} step {i}", **per_step)
+        assert_finite_logs(run["logs"][i])
+    expect_tensor_core_route({short_kernel_name(k)
+                              for k in run["device_kernels"]},
+                             f"{what} traced step", backward=True)
+    ms = statistics.median(run["ms"][1:DP_TRACED])
+    print(f"{what}: ms/step {ms:.1f} (host clock; steps "
+          f"{[round(t, 1) for t in run['ms']]}, step {DP_TRACED} traced), "
+          f"l_total {[round(lg['l_total'], 6) for lg in run['logs']]}")
+    return ms
+
+
+def dp_grad_checks(rank: dict, ref: dict, singles: list) -> tuple:
+    """The first step's all-reduced gradients of a rank of (b) against the
+    mean of the two single-image steps of one process (what the ranks
+    compute alone, then average): equal bits in every leaf. Printed
+    beside it: how far they lie from the one-process 2-image step, per
+    leaf against its own max|g| and against the gradient's max|g| -- in
+    bf16 a batch of 1 rounds otherwise than a batch of 2, which moves
+    the deep, small gradients most. Returns (the largest leaf difference
+    from the 2-image step over the gradient's max|g|, the largest over
+    its own leaf's max|g|)."""
+    names = rank["names"] + ["log_sigma"] * len(rank["grads"])
+    means = [(a + c) / np.float32(2) for a, c in zip(*singles)]
+    gmax = max(float(np.abs(w).max()) for w in ref["grads"])
+    equal = [k for g, m, k in zip(rank["grads"], means, names)
+             if g.shape == m.shape and np.array_equal(g, m)]
+    rows = sorted(((float(np.abs(g - w).max()), float(np.abs(w).max()), k)
+                   for g, w, k in zip(rank["grads"], ref["grads"], names)),
+                  key=lambda r: r[0] / max(r[1], 1e-30), reverse=True)
+    own = [r[0] / max(r[1], 1e-30) for r in rows]
+    worst = max(r[0] for r in rows) / gmax
+    print(f"DP (b): first step's all-reduced gradients equal the mean of "
+          f"the two single-image steps, bit for bit, in {len(equal)} of "
+          f"{len(means)} leaves; against the one-process 2-image step "
+          f"(a reading): largest leaf difference / its own max|g| "
+          f"{own[0]:.3e} ({rows[0][2]}, max|g| {rows[0][1]:.3e}), "
+          f"{sum(o > DP_GRAD_TOL for o in own)} of {len(own)} leaves above "
+          f"{DP_GRAD_TOL:.3e}; / the gradient's max|g| ({gmax:.3e}) "
+          f"{worst:.3e}")
+    check(len(rank["grads"]) == len(means) == len(equal),
+          "DP (b): the all-reduced gradients are not the mean of the "
+          "single-image steps")
+    return worst, own[0]
+
+
+def collective_line(what: str, stats: dict, grad_bytes: int) -> dict:
+    from lowlight_image_enhancement_tpu_torch.parallel.introspect import (
+        bulk_and_scalar)
+
+    split = bulk_and_scalar(stats)
+    ar = split.get("all-reduce", {"bulk_count": 0, "bulk_bytes": 0})
+    print(f"{what} collectives of one step: {json.dumps(split)}; bulk "
+          f"all-reduce bytes {ar['bulk_bytes']} = "
+          f"{ar['bulk_bytes'] / grad_bytes:.4f} x the fp32 gradient bytes "
+          f"{grad_bytes}")
+    check(1 <= ar["bulk_count"] <= 8 and 0.95 * grad_bytes
+          <= ar["bulk_bytes"] <= 1.10 * grad_bytes,
+          f"{what}: bulk all-reduces {ar}, gradient bytes {grad_bytes}")
+    return split
+
+
+def sp_inputs() -> tuple:
+    """The serving ``NewBPNAFNet`` in fp32 with seeded random weights (the
+    serving phase's residual scale 0.1), one seeded SID-frame-sized input,
+    and the single-device forward of the unfused blocks
+    (``NAFBlock.forward_eager``) on it."""
+    network_g = {"type": "NewBPNAFNet", "dtype": "float32"}
+    net = define_network(network_g, device="cuda")
+    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED), 0.1)
+    x = np.random.default_rng(SEED).uniform(0, 1, SP_FRAME).astype(
+        np.float32)
+    for b in net.blocks():
+        b.fused = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = net(torch.from_numpy(x).cuda()).cpu().numpy()
+    torch.cuda.synchronize()
+    print(f"path SP: single-device forward (unfused blocks) of "
+          f"{'x'.join(map(str, SP_FRAME))} fp32 in "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    spec = dict(network_g=network_g, state_dict={
+        k: v.detach().cpu() for k, v in net.state_dict().items()}, x=x)
+    del net
+    return spec, ref
+
+
+def sp_check(what: str, run: dict, ref: np.ndarray) -> float:
+    e = float(np.abs(run["out"] - ref).max())
+    scale = float(np.abs(ref).max())
+    print(f"{what}: max_abs={e:.3e} max|ref|={scale:.3e} (tol {SP_TOL:.0e} "
+          f"* max|ref|), {run['ln_fwd_launches']} K5 launches, "
+          f"{run['ms']:.0f} ms, peak {run['peak_bytes'] / 2**30:.2f} GiB")
+    check(run["out"].shape == ref.shape and bool(np.isfinite(run["out"]).all())
+          and e <= SP_TOL * scale, f"{what}: off the single-device forward")
+    check(run["ln_fwd_launches"] == 72,
+          f"{what}: {run['ln_fwd_launches']} K5 launches, expected 72")
+    return e
+
+
+def parallel_trainer_opt(tmp: Path) -> dict:
+    """The flagship config over path T's synthetic SID tree for the
+    two-rank Trainer: 4 iterations, ``train.zero1``, checkpoints every 2,
+    validation at 4; center crops and 2 samples a pair, so that each rank
+    has 2 iterations an epoch and the resume at 2 starts epoch 1, whose
+    batches are iterations 3-4's."""
+    import os
+
+    os.environ["SID_ROOT"] = str(synthetic_sid_root(tmp / "sid"))
+    opt = parse(str(TRAIN_CONFIG), is_train=True, root_dir=str(tmp / "exp"))
+    opt["train"].update(total_iter=T_STEPS, zero1=True)
+    opt["datasets"]["train"].update(samples_per_pair=2, random_crop=False)
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=T_SAVE,
+                         use_tb_logger=False)
+    opt["val"]["val_freq"] = T_STEPS
+    return opt
+
+
+def trainer_checks(outs: list, metrics) -> dict:
+    for r, out in enumerate(outs):
+        hist = out["history"]
+        check(out["zero1"] and out["step"] == T_STEPS
+              and [h["iter"] for h in hist] == list(range(1, T_STEPS + 1))
+              and all(np.isfinite(list(h.values())).all() for h in hist),
+              f"two-rank Trainer rank {r}: {hist}")
+        check(sorted(out["val"]) == sorted(metrics)
+              and all(np.isfinite(v) for v in out["val"].values()),
+              f"two-rank Trainer rank {r}: validation {out['val']}")
+        got = [h["l_total"] for h in out["resumed_history"]]
+        want = [h["l_total"] for h in hist[T_SAVE:]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"two-rank Trainer rank {r}: l_total {[h['l_total'] for h in hist]}"
+              f", resumed at {out['resumed_from']}: {got} (max rel "
+              f"{rel:.2e}), validation {out['val']}, optimizer state "
+              f"{out['state_bytes'] / 2**20:.1f} MiB")
+        check(out["resumed_from"] == T_SAVE and len(got) == len(want)
+              and rel <= 1e-3, f"two-rank Trainer rank {r}: the resume at "
+              f"{T_SAVE} gives {got}, not {want}")
+    check([h["l_total"] for h in outs[0]["history"]]
+          == [h["l_total"] for h in outs[1]["history"]],
+          "two-rank Trainer: the ranks logged different losses")
+    check(outs[0]["val"] == outs[1]["val"],
+          "two-rank Trainer: the ranks validated differently")
+    return {"l_total": [h["l_total"] for h in outs[0]["history"]],
+            "resumed_l_total": [h["l_total"]
+                                for h in outs[0]["resumed_history"]],
+            "val_metrics": outs[0]["val"],
+            "state_bytes_per_rank": outs[0]["state_bytes"]}
+
+
+def parallel_path() -> dict:
+    """Paths DP and SP and the two-rank Trainer.
+
+    DP (a): the flagship step in this process, first without a mesh, then
+    in a world of 1 on NCCL (``init_multihost``): equal parameters, bit
+    for bit, 36 launches of K1-K4 a step on the tensor cores, 1-8 bulk
+    all-reduces of the fp32 gradient bytes and no bulk all-gather.
+    SP at world 1: ``nafnet_apply_spatial`` of a SID frame, 72 K5 launches,
+    against the single-device forward of the unfused blocks.
+    Then one spawned world of 2 ranks over gloo on the one card runs, in
+    turn: DP (b), each rank one image of the batch (both ranks equal, the
+    first step's all-reduced gradients against the one-process step's,
+    l_total); DP (c), the same with ZeRO-1 (parameters against (b)'s,
+    moment bytes, a bulk all-gather); SP (each rank's output against
+    world 1's, its peak memory); the Trainer on path T's tree with
+    ``train.zero1`` and its resume."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lowlight_image_enhancement_tpu_torch.parallel import launch
+    from lowlight_image_enhancement_tpu_torch.parallel.multihost import (
+        init_multihost)
+
+    four = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
+    # cuDNN's deterministic algorithms (two runs of a step give equal
+    # bits) and no TF32 (the fp32 convolutions stay fp32), here and in the
+    # spawned ranks, which start from PyTorch's defaults
+    cudnn = {"deterministic": True, "allow_tf32": False}
+    saved = {k: getattr(torch.backends.cudnn, k) for k in cudnn}
+    for k, v in cudnn.items():
+        setattr(torch.backends.cudnn, k, v)
+    spec = dp_spec()
+    sp_spec, sp_ref = sp_inputs()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        ref = launch.train_steps(spec)
+        ms_ref = dp_checks("DP one process, no mesh", ref, four)
+        grad_bytes = sum(p.size * 4 for p in ref["params"])
+        # the first step of each image alone: what each rank of (b) takes
+        singles = [launch.train_steps(dict(
+            spec, steps=1, trace_step=None,
+            batch={k: v[i:i + 1] for k, v in spec["batch"].items()}))
+            ["grads"] for i in range(2)]
+        init_multihost(f"file://{tmp / 'rendezvous'}", 1, 0,
+                       backend="nccl", device="cuda:0")
+        try:
+            check(dist.get_backend() == "nccl" and dist.get_world_size()
+                  == 1, "DP (a): a world of 1 on NCCL")
+            w1 = launch.train_steps(spec)
+            sp1 = launch.spatial_run(sp_spec)
+        finally:
+            dist.destroy_process_group()
+        ms_a = dp_checks("DP (a) world 1 on NCCL", w1, four)
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(w1["params"], ref["params"]))
+        check(same, "DP (a): parameters differ from the steps without a "
+              "mesh")
+        print(f"DP (a): parameters after {DP_STEPS} steps equal those "
+              f"without a mesh, bit for bit")
+        split_a = collective_line("DP (a)", w1["stats"], grad_bytes)
+        check(split_a.get("all-gather", {}).get("bulk_count", 0) == 0,
+              f"DP (a): a bulk all-gather {split_a}")
+        sp1_err = sp_check("path SP world 1 (NCCL)", sp1, sp_ref)
+        torch.cuda.empty_cache()
+
+        opt = parallel_trainer_opt(tmp)
+        calls = [(launch.train_steps, (spec,)),
+                 (launch.train_steps, (dict(spec, zero1=True),)),
+                 (launch.spatial_run, (sp_spec,)),
+                 (launch.run_trainer, (opt, T_SAVE))]
+        t0 = time.perf_counter()
+        outs = launch.spawn(launch.sequence, 2, backend="gloo",
+                            device="cuda:0", args=(calls,), cudnn=cudnn)
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(torch.backends.cudnn, k, v)
+        os.environ.pop("SID_ROOT", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"two ranks over gloo on cuda:0: {wall:.1f} s (process start "
+          f"included)")
+    b = [o[0] for o in outs]
+    z = [o[1] for o in outs]
+    sp2 = [o[2] for o in outs]
+
+    # DP (b): each rank one image
+    ms_b = [dp_checks(f"DP (b) rank {r} (gloo)", run, four)
+            for r, run in enumerate(b)]
+    check(all(np.array_equal(x, y) for x, y in
+              zip(b[0]["params"], b[1]["params"])),
+          "DP (b): the ranks' parameters differ")
+    worst, leaf_worst = dp_grad_checks(b[0], ref, singles)
+    lt = [(run["logs"][0]["l_total"], ref["logs"][0]["l_total"]) for run in b]
+    rel_l = max(abs(a - r) / abs(r) for a, r in lt)
+    print(f"DP (b): first step's l_total {lt} (max rel {rel_l:.2e}, tol "
+          f"1e-2)")
+    check(rel_l <= 1e-2, "DP (b): l_total off the one-process step")
+    split_b = collective_line("DP (b) rank 0", b[0]["stats"], grad_bytes)
+
+    # DP (c): ZeRO-1
+    ms_c = [dp_checks(f"DP (c) ZeRO-1 rank {r} (gloo)", run, four)
+            for r, run in enumerate(z)]
+    diff = max(float(np.abs(x - y).max()) for x, y in
+               zip(z[0]["params"], b[0]["params"]))
+    print(f"DP (c): parameters after {DP_STEPS} steps vs the replicated "
+          f"two-rank run: max_abs {diff:.3e} (tol {ZERO1_TOL:.0e}); "
+          f"optimizer state per rank {z[0]['state_bytes'] / 2**20:.1f} MiB "
+          f"against {b[0]['state_bytes'] / 2**20:.1f} MiB replicated "
+          f"({z[0]['state_bytes'] / b[0]['state_bytes']:.3f})")
+    for x, y in zip(z[0]["params"], b[0]["params"]):
+        check(bool(np.allclose(x, y, atol=ZERO1_TOL, rtol=ZERO1_TOL)),
+              "DP (c): ZeRO-1 parameters off the replicated run's")
+    check(z[0]["state_bytes"] < 0.6 * b[0]["state_bytes"],
+          "DP (c): the moments are not sharded")
+    split_c = collective_line("DP (c) rank 0", z[0]["stats"], grad_bytes)
+    check(split_c.get("all-gather", {}).get("bulk_count", 0) >= 1,
+          f"DP (c): no bulk all-gather {split_c}")
+
+    # SP over the two ranks
+    for r, run in enumerate(sp2):
+        sp_check(f"path SP rank {r} of 2 (gloo)", run, sp_ref)
+        e = float(np.abs(run["out"] - sp1["out"]).max())
+        print(f"path SP rank {r}: vs world 1 max_abs={e:.3e}; peak "
+              f"{run['peak_bytes'] / 2**30:.2f} GiB against world 1's "
+              f"{sp1['peak_bytes'] / 2**30:.2f} GiB "
+              f"({run['peak_bytes'] / sp1['peak_bytes']:.3f})")
+        check(e <= SP_TOL * float(np.abs(sp_ref).max()),
+              f"path SP rank {r}: off the world-1 output")
+    trainer = trainer_checks([o[3] for o in outs],
+                             list(opt["val"]["metrics"]))
+    return {
+        "launches_per_step": four, "sp_launches_per_forward": {"ln_fwd": 72},
+        "ms_per_step": {"one_process": ms_ref, "a_world1_nccl": ms_a,
+                        "b_gloo_2ranks": ms_b, "c_zero1_2ranks": ms_c},
+        "collectives": {"a": split_a, "b": split_b, "c": split_c},
+        "grad_bytes": grad_bytes, "b_grad_worst": worst,
+        "b_grad_worst_of_own_leaf": leaf_worst,
+        "b_l_total_rel": rel_l, "c_params_max_abs": diff,
+        "state_bytes": {"replicated": b[0]["state_bytes"],
+                        "zero1": z[0]["state_bytes"]},
+        "sp": {"world1_err": sp1_err, "world1_ms": sp1["ms"],
+               "world1_peak_bytes": sp1["peak_bytes"],
+               "rank_ms": [r["ms"] for r in sp2],
+               "rank_peak_bytes": [r["peak_bytes"] for r in sp2]},
+        "trainer": trainer, "two_rank_wall_s": wall}
+
+
+def torchrun_cli_path() -> dict:
+    """``torchrun --standalone --nproc_per_node=1 -m
+    lowlight_image_enhancement_tpu_torch.train -opt <debug config>
+    --launcher pytorch`` (``python -m torch.distributed.run``) from a
+    temporary working directory: a world of 1 on NCCL, rc 0, 16
+    iterations and the final validation."""
+    import os
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_torchrun_"))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DEBUG_SID_ROOT", "SID_ROOT")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "lowlight_image_enhancement_tpu_torch.train",
+         "-opt", str(DEBUG_CONFIG), "--launcher", "pytorch"], cwd=work,
+        env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    iters = [int(m.replace(",", ""))
+             for m in re.findall(r"iter:\s*([\d,]+), lr", log)]
+    print(f"torchrun CLI: rc {proc.returncode} in {wall:.1f} s, iterations "
+          f"{sorted(set(iters))[-1:] or 'none'}")
+    check(proc.returncode == 0, f"torchrun CLI failed:\n{log[-4000:]}")
+    check(sorted(set(iters)) == list(range(1, 17))
+          and "final validation" in log, "torchrun CLI: 16 iterations and "
+          "the final validation")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"rc": proc.returncode, "wall_s": wall, "iterations": max(iters)}
+
+
+def mesh_serving_path(gen: torch.Generator) -> dict:
+    """The serving mesh and the sharded export at one device:
+    ``RestorationServer(mesh=create_mesh(devices=["cuda:0"]))`` serves the
+    8-request mix equal to the server without a mesh (36 K1/K2 launches a
+    forward); ``export_model(..., mesh=)`` records the mesh, and a fresh
+    ``ExportedModel`` serves ``predict_batch`` against the live forward
+    (36 K1/K2 launches per exported forward)."""
+    import tempfile
+
+    from lowlight_image_enhancement_tpu_torch.export import (
+        ClippedForward, ExportedModel, export_model, net_state)
+    from lowlight_image_enhancement_tpu_torch.parallel import create_mesh
+
+    net = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
+                         device="cuda")
+    randomize_(net, gen, 0.1)
+    mesh = create_mesh(devices=["cuda:0"])
+    plain = serve_mix(net, "NewBPNAFNet without a mesh", nafblk_a=36,
+                      nafblk_b=36)
+    meshed = serve_mix(net, "NewBPNAFNet on a 1-device mesh", mesh=mesh,
+                       nafblk_a=36, nafblk_b=36)
+    equal = all(np.array_equal(a, b) for a, b in
+                zip(plain["outputs"], meshed["outputs"]))
+    check(equal, "serving mesh: outputs differ from the server's without")
+    print("serving mesh: the 8 requests equal the server without a mesh, "
+          "bit for bit")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_export_"))
+    export_model(net, str(tmp), buckets=[(256, 384)], batch=1, mesh=mesh,
+                 network_opt={"type": "NewBPNAFNet"})
+    with open(tmp / "manifest.json") as fh:
+        manifest = json.load(fh)
+    check(manifest["mesh"] == {"axis": "data", "size": 1},
+          f"sharded export: manifest mesh {manifest['mesh']}")
+    model = ExportedModel(str(tmp))
+    check(model.mesh is not None and model.mesh.size == 1,
+          "sharded export: ExportedModel has no mesh of 1")
+    rng = np.random.default_rng(SEED)
+    imgs = [rng.uniform(0, 1, (256, 384, 3)).astype(np.float32),
+            rng.uniform(0, 1, (200, 300, 3)).astype(np.float32)]
+    model.predict_batch(imgs[:1])          # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    got = model.predict_batch(imgs)
+    torch.cuda.synchronize()
+    expect_launches(launches(), "sharded export predict_batch of 2",
+                    nafblk_a=72, nafblk_b=72)
+    errs = []
+    for g, im in zip(got, imgs):
+        x = np.zeros((1, 256, 384, 3), np.float32)
+        x[0, :im.shape[0], :im.shape[1]] = im
+        with torch.no_grad():
+            want = ClippedForward(net)(net_state(net),
+                                       torch.from_numpy(x).cuda())
+        want = want.cpu().numpy()[0, :im.shape[0], :im.shape[1]]
+        errs.append(exported_vs_live(
+            f"sharded export (mesh of 1) {im.shape[0]}x{im.shape[1]}", g,
+            want))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": meshed["launches"], "wall_s": meshed["wall_s"],
+            "unmeshed_wall_s": plain["wall_s"],
+            "export_launches_per_forward": {"nafblk_a": 36, "nafblk_b": 36},
+            "export_err": errs}
+
+
 def summary(k: str, rows: list, launches_: int, unit: str) -> dict:
     """One kernels-line entry: times summed over the calls of one pass of
     ``unit`` (``blocks`` calls at each row's shape)."""
@@ -2792,7 +3280,8 @@ def main() -> int:
     phase("pool kernel phase (K7/K8)", pool_phase, gen, rows)
     phase("forward kernel phase (batch 2, serving widths and C=1024)",
           forward_phase, gen, rows)
-    phase("backward kernel phase (batch 2, 384x384 training widths)",
+    phase("backward kernel phase (batches 2 and 1, 384x384 training "
+          "widths)",
           backward_phase, gen, rows)
     phase("narrow-channel phase (K1-K4 at C = 8, 24, 40, 12, 6, 10)",
           narrow_channels_phase, gen, rows)
@@ -2819,6 +3308,11 @@ def main() -> int:
     path_m = phase("path M (the evaluation metrics)", evaluation_path)
     path_l = phase("path L (LPIPS in the loss)", lpips_loss_path,
                    train["ms_per_step"])
+    par = phase("paths DP and SP (data-parallel training, ZeRO-1, the "
+                "spatial forward, the two-rank Trainer)", parallel_path)
+    trun = phase("torchrun CLI (a world of 1 on NCCL)", torchrun_cli_path)
+    mesh_serve = phase("serving mesh and sharded export (one device)",
+                       mesh_serving_path, gen)
 
     kernels = []
     bf16 = lambda k: [r for r in rows[k] if r["dtype"] == "bfloat16"]
@@ -2850,6 +3344,15 @@ def main() -> int:
                     nafnet_tpu_plain_ms=step["plain_ms"],
                     nafnet_tpu_bound_ms=step["bound_ms"])
 
+    def dp_keys(k):
+        """The kernel's bf16 times in one step of a rank of path DP (one
+        384x384 image, 36 blocks), at the backward phase's N=1 shapes."""
+        step = summary(k, on(bf16(k), "dp"), 0, "")
+        return dict(dp_launches=par["launches_per_step"][k],
+                    dp_ms=step["ms"], dp_device_ms=step["device_ms"],
+                    dp_plain_ms=step["plain_ms"],
+                    dp_bound_ms=step["bound_ms"])
+
     for k in ("nafblk_a", "nafblk_b"):
         entry = summary(k, on(bf16(k), "serve"), serve["launches"][k],
                         "one 512x512 N=2 bf16 forward (36 blocks)")
@@ -2858,12 +3361,12 @@ def main() -> int:
                      train_ms=step["ms"], train_device_ms=step["device_ms"],
                      train_plain_ms=step["plain_ms"],
                      train_bound_ms=step["bound_ms"], **nafssr_keys(k),
-                     **nafnet_tpu_keys(k))
+                     **nafnet_tpu_keys(k), **dp_keys(k))
         kernels.append(entry)
     for k in ("nafblk_p1", "nafblk_p2"):
         entry = summary(k, on(bf16(k), "train"), train["launches"][k],
                         "one 384x384 N=2 bf16 training step (36 blocks)")
-        entry.update(nafssr_keys(k), **nafnet_tpu_keys(k))
+        entry.update(nafssr_keys(k), **nafnet_tpu_keys(k), **dp_keys(k))
         kernels.append(entry)
     for k in ("ln_fwd", "ln_bwd"):
         entry = summary(k, on(bf16(k), "baseline"), base["launches"][k],
@@ -2908,7 +3411,12 @@ def main() -> int:
         "R_per_step": path_r["launches_per_step"],
         "E": path_e["launches_per_forward"],
         "B_export": base_export["launches_per_forward"],
-        "L_per_step": path_l["launches_per_step"]}
+        "L_per_step": path_l["launches_per_step"],
+        "DP": par["launches_per_step"],
+        "SP": par["sp_launches_per_forward"],
+        "mesh_serve": mesh_serve["launches"],
+        "mesh_export_per_forward":
+            mesh_serve["export_launches_per_forward"]}
     for entry in kernels:
         entry["per_width"] = rows[entry["name"]]
         entry["path_launches"] = {p: c.get(entry["name"], 0)
@@ -2966,7 +3474,8 @@ def main() -> int:
             "device_idle_share", "kernel_records", "val_metrics",
             "wrapper_logs", "defilter")},
         "path_E": path_e, "path_B_export": base_export,
-        "flow_card_vs_cpu": flow}))
+        "flow_card_vs_cpu": flow, "path_DP_SP": par, "torchrun": trun,
+        "mesh_serving": mesh_serve}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

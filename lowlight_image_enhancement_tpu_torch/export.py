@@ -4,7 +4,8 @@ bucket. Counterpart of ``lowlight_image_enhancement_tpu/export.py``.
 The artifact is a directory:
 
 - ``manifest.json``: format version, buckets, batch, platforms (the one
-  device the programs were exported for), network options, torch version;
+  device type the programs were exported for), the device they were
+  exported on, network options, torch version;
 - ``bucket_{B}x{H}x{W}.pt2``: one ``torch.export.save`` program per
   bucket, taking ``(params, x[B, H, W, 3] float32)`` -> the forward
   clipped to [0, 1], float32 NHWC (NCHW inside, the net's own dtype);
@@ -19,13 +20,22 @@ holds one node per kernel call and, on the card, launches the kernels.
 :class:`ExportedModel` serves from the artifact alone: it imports the two
 modules that register those ops (``ops/nafblock.py``,
 ``ops/layernorm.py``) and no model code. Bucket choice, zero padding and
-crop-back are JAX's. Sharded export (JAX's ``mesh=``) is not ported.
+crop-back are JAX's.
+
+Sharded export (``mesh=``, an in-process mesh of ``n`` local devices):
+``batch`` must divide by ``n``; each program takes the per-device batch
+``batch / n`` and the manifest records ``"mesh": {"axis": ..., "size":
+n}``. :class:`ExportedModel` of such an artifact needs ``n`` devices: it
+loads the programs and the parameters on each and splits every
+``batch`` across them, in order. A program names the device it was
+exported on in its graph; one loaded on another device is moved there
+(``torch.export.passes.move_to_device_pass``).
 
 CLI::
 
     python -m lowlight_image_enhancement_tpu_torch.export -opt <yaml> \\
-        --out <dir> --buckets 256,512x768 [--batch 1] [--device cuda] \\
-        [--smoke]
+        --out <dir> --buckets 256,512x768 [--batch 1] [--mesh N] \\
+        [--device cuda] [--smoke]
 """
 
 from __future__ import annotations
@@ -114,10 +124,24 @@ def export_model(
     batch: int = 1,
     device: Any = "cuda",
     network_opt: Optional[dict] = None,
+    mesh=None,
 ) -> str:
     """Export the clipped forward of ``net`` at each static bucket shape
-    on ``device`` (the programs run there only). Returns ``out_dir``."""
+    on ``device`` (the programs run there only). With ``mesh`` (an
+    in-process mesh) the programs take ``batch / mesh.size`` images and
+    are exported on the mesh's first device. Returns ``out_dir``."""
+    per = batch
+    if mesh is not None:
+        if mesh.distributed:
+            raise ValueError("export takes an in-process mesh of local "
+                             "devices (create_mesh(devices=[...]))")
+        if batch % mesh.size:
+            raise ValueError(
+                f"batch {batch} not divisible by mesh size {mesh.size}")
+        per = batch // mesh.size
+        device = mesh.devices[0]
     dev = resolve_device(device)
+    made_on = _placed(dev)
     os.makedirs(out_dir, exist_ok=True)
     net = net.to(dev).eval()
     state = net_state(net)
@@ -126,11 +150,11 @@ def export_model(
     forward = ClippedForward(net)
     bucket_files = {}
     for h, w in buckets:
-        x = torch.zeros((batch, int(h), int(w), 3), device=dev)
+        x = torch.zeros((per, int(h), int(w), 3), device=dev)
         with torch.no_grad():
             program = torch.export.export(forward, (state, x), strict=False)
         program.example_inputs = None   # else saved with the program
-        name = f"bucket_{batch}x{int(h)}x{int(w)}.pt2"
+        name = f"bucket_{per}x{int(h)}x{int(w)}.pt2"
         torch.export.save(program, os.path.join(out_dir, name))
         bucket_files[f"{int(h)}x{int(w)}"] = name
 
@@ -141,9 +165,11 @@ def export_model(
         "buckets": sorted([list(map(int, b)) for b in buckets]),
         "bucket_files": bucket_files,
         "platforms": [dev.type],
+        "device": made_on,
         "torch_version": torch.__version__,
         "network_opt": network_opt or {},
-        "mesh": None,
+        "mesh": ({"axis": mesh.axis_name, "size": mesh.size}
+                 if mesh is not None else None),
         "io": "forward(params, x[B,H,W,3] float32 RGB [0,1]) -> "
               "float32 clipped [0,1]",
     }
@@ -161,9 +187,12 @@ class ExportedModel:
 
     Runs on the device the manifest names (``device`` may only name the
     same) and raises where it is absent. Bucket choice, zero padding and
-    crop-back are those of the JAX ``ExportedModel``."""
+    crop-back are those of the JAX ``ExportedModel``. A sharded artifact
+    runs on ``devices`` (default: the first ``n`` CUDA devices, or ``n``
+    times the CPU), ``mesh`` then being their in-process mesh."""
 
-    def __init__(self, path: str, device: Any = None):
+    def __init__(self, path: str, device: Any = None,
+                 devices: Optional[Sequence[Any]] = None):
         with open(os.path.join(path, "manifest.json")) as f:
             self.manifest = json.load(f)
         if self.manifest.get("format_version") != _FORMAT_VERSION:
@@ -177,16 +206,50 @@ class ExportedModel:
             raise ValueError(f"the export at {path} runs on {platform}, "
                              f"not on {self.device}")
         self.batch = int(self.manifest["batch"])
+        self.mesh = None
+        devs = [self.device]
+        mesh_info = self.manifest.get("mesh")
+        if mesh_info:
+            from lowlight_image_enhancement_tpu_torch.parallel.mesh import (
+                create_mesh,
+            )
+
+            n = int(mesh_info["size"])
+            if devices is None and platform == "cuda":
+                if torch.cuda.device_count() < n:
+                    raise ValueError(
+                        f"sharded export needs {n} devices, "
+                        f"{torch.cuda.device_count()} visible")
+                devices = [f"cuda:{i}" for i in range(n)]
+            elif devices is None:
+                devices = [platform] * n
+            self.mesh = create_mesh(n, mesh_info["axis"], devices)
+            devs = list(self.mesh.devices)
+            if len(devs) != n or any(d.type != platform for d in devs):
+                raise ValueError(f"the export at {path} runs on {n} "
+                                 f"{platform} devices, not on {devs}")
+            self.device = devs[0]
+        # artifacts without "device" were all exported on the first card
+        made_on = self.manifest.get(
+            "device", "cuda:0" if platform == "cuda" else platform)
         with np.load(os.path.join(path, "params.npz")) as flat:
-            self.params = {k: torch.from_numpy(flat[k]).to(self.device)
-                           for k in flat.files}
-        self._fns: Dict[Tuple[int, int], Any] = {}
-        for key, fname in self.manifest["bucket_files"].items():
-            h, w = map(int, key.split("x"))
-            program = torch.export.load(os.path.join(path, fname))
-            self._fns[(h, w)] = program.module()
-        if not self._fns:
+            host = {k: torch.from_numpy(flat[k]) for k in flat.files}
+        # (device, params, {bucket: program}) per device of the mesh
+        self._replicas: List[Tuple[torch.device, Dict[str, torch.Tensor],
+                                   Dict[Tuple[int, int], Any]]] = []
+        files = {tuple(map(int, key.split("x"))): os.path.join(path, fname)
+                 for key, fname in self.manifest["bucket_files"].items()}
+        if not files:
             raise ValueError(f"export at {path} contains no buckets")
+        for dev in devs:
+            # each device loads its own programs: the move changes the
+            # program it is given
+            self._replicas.append((
+                dev, {k: v.to(dev) for k, v in host.items()},
+                {b: _on_device(torch.export.load(f), dev, made_on).module()
+                 for b, f in files.items()}))
+        self.params = self._replicas[0][1]
+        self._fns = self._replicas[0][2]
 
     @property
     def buckets(self) -> List[Tuple[int, int]]:
@@ -202,10 +265,13 @@ class ExportedModel:
         return min(fits, key=lambda b: b[0] * b[1])
 
     def _call(self, bucket: Tuple[int, int], x: np.ndarray) -> np.ndarray:
-        xt = torch.from_numpy(x).to(self.device)
+        """``x`` (``batch`` images) split in order over the devices."""
+        parts = np.split(x, len(self._replicas))
+        ys = []
         with torch.no_grad():
-            y = self._fns[bucket](self.params, xt)
-        return y.cpu().numpy()
+            for (dev, params, fns), part in zip(self._replicas, parts):
+                ys.append(fns[bucket](params, torch.from_numpy(part).to(dev)))
+        return np.concatenate([y.cpu().numpy() for y in ys])
 
     def predict(self, img: np.ndarray) -> np.ndarray:
         """float [0,1] HWC RGB -> restored float32 HWC, same H x W."""
@@ -234,6 +300,24 @@ class ExportedModel:
             out.extend(y[i, :im.shape[0], :im.shape[1], :]
                        for i, im in enumerate(chunk))
         return out
+
+
+def _placed(dev: torch.device) -> str:
+    """The device a tensor put on ``dev`` lies on (``cuda`` names the
+    current card by its index)."""
+    return str(torch.empty(0, device=dev).device)
+
+
+def _on_device(program, dev: torch.device, made_on: str):
+    """``program``, exported on ``made_on``, with every device its graph
+    names moved to ``dev`` (in place); as it is where ``dev`` is
+    ``made_on``."""
+    target = _placed(dev)
+    if target == made_on:
+        return program
+    from torch.export.passes import move_to_device_pass
+
+    return move_to_device_pass(program, target)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +349,10 @@ def main(argv=None) -> str:
     ap.add_argument("--out", required=True, help="output directory")
     ap.add_argument("--buckets", default="256,512")
     ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="shard each batch over N local devices (the "
+                         "first N CUDA devices; N times the CPU with "
+                         "--device cpu)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="reload the artifact and check it against the "
@@ -284,8 +372,16 @@ def main(argv=None) -> str:
     if pretrain:
         load_weights(net, pretrain)
     buckets = parse_buckets(args.buckets)
+    mesh = None
+    if args.mesh:
+        from lowlight_image_enhancement_tpu_torch.parallel.mesh import (
+            create_mesh,
+        )
+
+        mesh = create_mesh(args.mesh, devices=(
+            [dev] * args.mesh if dev.type == "cpu" else None))
     export_model(net, args.out, buckets=buckets, batch=args.batch,
-                 device=dev, network_opt=network_opt)
+                 device=dev, network_opt=network_opt, mesh=mesh)
     sizes = {f: os.path.getsize(os.path.join(args.out, f))
              for f in sorted(os.listdir(args.out))}
     print(f"exported {len(buckets)} bucket(s) -> {args.out} "

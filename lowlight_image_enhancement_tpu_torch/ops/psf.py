@@ -12,7 +12,9 @@ Counterpart of ``lowlight_image_enhancement_tpu/ops/psf.py`` (reference
   conv of the cotangent with the flipped kernel (its exact adjoint), and
   no kernel grad;
 - :class:`CrosstalkPSF`: the loss-path PSF, its kernel a buffer (state,
-  never optimised), applied to the prediction only.
+  never optimised), applied to the prediction only;
+- :class:`NewBPLayer`: the reference's deprecated input-side layer, a
+  guard that raises.
 """
 
 from __future__ import annotations
@@ -172,3 +174,26 @@ def create_crosstalk_psf(mode: str = "mono",
     if kernel_spec is None:
         kernel_spec = "P2" if mode == "mono" else "B2"
     return CrosstalkPSF(mode, build_psf_kernels(mode, kernel_spec))
+
+
+class NewBPLayer:
+    """Deprecated input-side crosstalk layer (API-compat error stub).
+
+    The reference keeps a legacy layer that raises when used with
+    ``deprecated=True`` (default) because Scenario B forbids input-side
+    crosstalk (``newbp_layer.py:24-85``). The guard is kept, with the
+    JAX package's messages.
+    """
+
+    def __init__(self, *args, deprecated: bool = True, **kwargs):
+        self.deprecated = deprecated
+        if not deprecated:
+            raise NotImplementedError(
+                "Input-side NewBPLayer is not supported in the TPU rebuild; "
+                "use CrosstalkPSF in the loss path (Scenario B)."
+            )
+
+    def __call__(self, x):
+        raise RuntimeError(
+            "Deprecated: use CrosstalkPSF in loss path (Scenario B)"
+        )

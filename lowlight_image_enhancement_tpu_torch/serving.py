@@ -13,6 +13,11 @@ Counterpart of ``lowlight_image_enhancement_tpu/serving.py``:
 - **Tiling**: inputs larger than ``max_bucket`` go through overlapping
   tiled inference (:func:`...training.validation.tiled_inference`), with
   its ``batch_tiles`` padding kept.
+- **Mesh**: with ``mesh`` (an in-process mesh of local devices,
+  ``parallel.create_mesh(devices=[...])``) every device holds a replica
+  of the network, each forward batch is split along dim 0 across them
+  and the results are gathered in order; no collective is needed. The
+  tiled path rounds ``batch_tiles`` up to a multiple of the mesh size.
 
 Example::
 
@@ -22,6 +27,7 @@ Example::
 
 from __future__ import annotations
 
+import copy
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -49,9 +55,19 @@ class RestorationServer:
         max_batch: int = 8,
         tile_overlap: float = 0.5,
         device: Any = "cuda",
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and mesh.distributed:
+            raise ValueError("RestorationServer takes an in-process mesh of "
+                             "local devices (create_mesh(devices=[...]))")
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.net = net.to(self.device).eval()
+        # (device, replica) per mesh device; the first replica is the net
+        self.replicas = [(self.device, self.net)] + [
+            (dev, copy.deepcopy(self.net).to(dev).eval())
+            for dev in (mesh.devices[1:] if mesh is not None else ())]
         self.bucket_step = bucket_step
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket
@@ -60,12 +76,18 @@ class RestorationServer:
         self.forward_batches = 0   # model forwards run so far
 
     def _forward(self, batch_nhwc: np.ndarray) -> np.ndarray:
+        """One forward batch, split along dim 0 over the replicas (all
+        enqueued before any result is read back)."""
         x = torch.from_numpy(np.ascontiguousarray(batch_nhwc, np.float32))
-        x = x.to(self.device).permute(0, 3, 1, 2).contiguous()
+        parts = [p for p in torch.tensor_split(x, len(self.replicas))
+                 if p.shape[0]]
+        ys = []
         with torch.inference_mode():
-            y = self.net(x)
+            for (dev, net), part in zip(self.replicas, parts):
+                ys.append(net(part.to(dev).permute(0, 3, 1, 2).contiguous()))
         self.forward_batches += 1
-        return y.permute(0, 2, 3, 1).float().cpu().numpy()
+        return np.concatenate([y.permute(0, 2, 3, 1).float().cpu().numpy()
+                               for y in ys])
 
     def _predict_bucket(self, imgs: List[np.ndarray], indices: List[int],
                         out: List[Optional[np.ndarray]]) -> None:
@@ -88,8 +110,10 @@ class RestorationServer:
             tiled_inference,
         )
 
+        nd = len(self.replicas)
+        bt = -(-max(8, nd) // nd) * nd
         out = tiled_inference(self._forward, img[None], self.max_bucket,
-                              self.tile_overlap, batch_tiles=8)
+                              self.tile_overlap, batch_tiles=bt)
         return out[0]
 
     def predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:

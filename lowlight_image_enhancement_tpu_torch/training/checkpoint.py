@@ -17,6 +17,12 @@ semantics and PyTorch files in place of orbax directories:
 
 A restore copies into the tensors of the state it is given, so the
 optimizer stays bound to the network's parameters.
+
+Under a ``torch.distributed`` world every rank calls
+:func:`save_training_state` (with ZeRO-1 the moments are gathered from
+every rank's slices, so the file is the one a replicated run writes) and
+rank 0 writes it; a restore cuts the moments again into this rank's
+slices.
 """
 
 from __future__ import annotations
@@ -29,28 +35,40 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from lowlight_image_enhancement_tpu_torch.training.train_step import TrainState
+from lowlight_image_enhancement_tpu_torch.parallel.multihost import host_info
+from lowlight_image_enhancement_tpu_torch.training.train_step import (
+    STATE_KEYS,
+    TrainState,
+)
 
 
 def _optimizer_state(opt) -> dict:
-    lists = {k: (None if getattr(opt, k) is None
-                 else [t.detach().cpu() for t in getattr(opt, k)])
-             for k in ("mu", "nu", "acc")}
+    lists = {k: (None if v is None else [t.detach().cpu() for t in v])
+             for k, v in opt.full_state().items()}
     return {"count": int(opt.count), "mini_step": int(opt.mini_step),
             **lists}
 
 
+def training_state_path(root: str, step: int) -> str:
+    """``root/<step:08d>.pth``: where step ``step``'s train state lies."""
+    return os.path.join(os.path.abspath(root), f"{int(step):08d}.pth")
+
+
 def save_training_state(root: str, state: TrainState) -> str:
-    """Write the whole train state to ``root/<step:08d>.pth``."""
+    """Write the whole train state to :func:`training_state_path` (on
+    rank 0; every rank of a world calls it)."""
+    path = training_state_path(root, state.step)
+    optimizer = _optimizer_state(state.optimizer)
+    if not host_info()[2]:
+        return path
     os.makedirs(root, exist_ok=True)
-    path = os.path.join(os.path.abspath(root), f"{int(state.step):08d}.pth")
     torch.save({
         "step": int(state.step),
         "params": {k: v.detach().cpu()
                    for k, v in state.model.state_dict().items()},
         "log_sigma": {k: v.detach().cpu()
                       for k, v in state.log_sigma.items()},
-        "optimizer": _optimizer_state(state.optimizer),
+        "optimizer": optimizer,
     }, path)
     return path
 
@@ -80,8 +98,7 @@ def latest_training_state(root: str) -> Optional[str]:
     return os.path.join(os.path.abspath(root), best) if best else None
 
 
-@torch.no_grad()
-def _copy_into(dst, src, what: str) -> None:
+def _check_fit(dst, src, what: str) -> None:
     if len(dst) != len(src):
         raise ValueError(f"{what}: {len(src)} saved tensors, the state has "
                          f"{len(dst)}")
@@ -89,6 +106,12 @@ def _copy_into(dst, src, what: str) -> None:
         if d.shape != s.shape:
             raise ValueError(f"{what}: saved {tuple(s.shape)}, the state has "
                              f"{tuple(d.shape)}")
+
+
+@torch.no_grad()
+def _copy_into(dst, src, what: str) -> None:
+    _check_fit(dst, src, what)
+    for d, s in zip(dst, src):
         d.copy_(s)
 
 
@@ -100,12 +123,14 @@ def restore_training_state(path: str, state: TrainState) -> TrainState:
     _copy_into(list(state.log_sigma.values()),
                [ckpt["log_sigma"][k] for k in state.log_sigma], "log_sigma")
     opt, saved = state.optimizer, ckpt["optimizer"]
-    for k in ("mu", "nu", "acc"):
+    for k in STATE_KEYS:
         if (getattr(opt, k) is None) != (saved[k] is None):
             raise ValueError(f"optimizer state {k!r} does not match the "
                              "optimizer's configuration")
         if saved[k] is not None:
-            _copy_into(getattr(opt, k), saved[k], f"optimizer {k}")
+            # full-size moments (a ZeRO-1 rank keeps its slices of them)
+            _check_fit(opt.params, saved[k], f"optimizer {k}")
+    opt.load_state(saved)
     opt.count = int(saved["count"])
     opt.mini_step = int(saved["mini_step"])
     state.step = int(ckpt["step"])

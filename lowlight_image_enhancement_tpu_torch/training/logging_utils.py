@@ -49,8 +49,14 @@ def init_wandb_logger(opt: Mapping[str, Any]) -> None:
     wandb only mirrors the TensorBoard event stream; ``resume_id`` in
     ``logger.wandb`` resumes an existing run. Import-guarded — a missing
     wandb package logs a warning instead of failing the run. Main-process
-    only (the reference's ``@master_only``): the port runs one process
-    (its parallelism is ROADMAP.md queue 1 item 7)."""
+    only (the reference's ``@master_only``): other ranks of a
+    ``torch.distributed`` world return at once."""
+    from lowlight_image_enhancement_tpu_torch.parallel.multihost import (
+        host_info,
+    )
+
+    if not host_info()[2]:
+        return
     logger = get_root_logger()
     try:
         import wandb

@@ -38,6 +38,7 @@ from lowlight_image_enhancement_tpu_torch import resolve_device
 from lowlight_image_enhancement_tpu_torch.losses import build_loss
 from lowlight_image_enhancement_tpu_torch.losses.hybrid import HybridLossPlus
 from lowlight_image_enhancement_tpu_torch.models import define_network
+from lowlight_image_enhancement_tpu_torch.parallel.multihost import host_info
 from lowlight_image_enhancement_tpu_torch.training import checkpoint as ckpt
 from lowlight_image_enhancement_tpu_torch.training.schedules import (
     make_schedule,
@@ -53,6 +54,7 @@ from lowlight_image_enhancement_tpu_torch.training.trainer import (
     build_hybrid_loss,
 )
 from lowlight_image_enhancement_tpu_torch.training.validation import (
+    allreduce_metric_sums,
     compute_metrics,
     save_result_image,
     tiled_inference,
@@ -234,13 +236,19 @@ class ImageRestorationModel(_BaseWrapper):
     def validation(self, dataloader, current_iter: int = 0, tb_logger=None,
                    save_img: bool = False, **kwargs) -> Dict[str, float]:
         """The mean of the config's ``val.metrics`` over the loader's
-        batches (one process); ``save_img`` writes each result under
+        batches; under a ``torch.distributed`` world each process takes
+        the batches ``bidx % world == rank`` and the sums are all-reduced
+        (reference ``dist_validation``, ``image_restoration_model.py:
+        344-468``). ``save_img`` writes each result under
         ``path.visualization/<name>/<name>[_<iter>].png``."""
         metrics_opt = (self.opt.get("val") or {}).get("metrics") or {}
         vis_dir = (self.opt.get("path") or {}).get("visualization")
+        rank, world, _ = host_info()
         sums: Dict[str, float] = {}
         n = 0
         for bidx, batch in enumerate(dataloader):
+            if bidx % world != rank:
+                continue
             self.feed_data(batch, is_val=True)
             self.test()
             if save_img:
@@ -256,6 +264,7 @@ class ImageRestorationModel(_BaseWrapper):
                                         metrics_opt).items():
                 sums[k] = sums.get(k, 0.0) + v
             n += 1
+        sums, n = allreduce_metric_sums(sums, n)
         results = {k: v / n for k, v in sums.items()} if n else {}
         self.log_dict.update({f"m_{k}": v for k, v in results.items()})
         return results

@@ -28,13 +28,22 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from lowlight_image_enhancement_tpu_torch.parallel.mesh import (  # noqa: F401  (put_replicated: JAX's train_step exports it)
+    BUCKET_BYTES,
+    all_reduce_mean_,
+    buckets,
+    put_replicated,
+)
 from lowlight_image_enhancement_tpu_torch.training.augment import mixup_batch
 
 Batch = Mapping[str, torch.Tensor]
 # Adam's denominator epsilon, added outside the square root (optax's default)
 ADAM_EPS = 1e-8
+# the optimizer-state leaf lists of ChainOptimizer
+STATE_KEYS = ("mu", "nu", "acc")
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -49,7 +58,9 @@ class ChainOptimizer:
     :meth:`init` binds the parameters and zeroes the state; :meth:`step`
     takes one gradient per parameter and updates the parameters in
     place (every ``accum_steps``-th call, with the running mean of the
-    last ``accum_steps`` gradients)."""
+    last ``accum_steps`` gradients). After :meth:`shard_` (ZeRO-1,
+    ``parallel/zero.py``) the moments and the accumulator hold this rank's
+    slices only."""
 
     def __init__(self, learning_rate, optim_type: str = "AdamW",
                  betas=(0.9, 0.999), weight_decay: float = 0.01,
@@ -66,6 +77,7 @@ class ChainOptimizer:
         self.max_norm = float(grad_clip_norm) if use_grad_clip else None
         self.accum_steps = int(accum_steps)
         self.params: List[torch.Tensor] = []
+        self.zero = None
 
     def init(self, params) -> "ChainOptimizer":
         self.params = list(params)
@@ -75,26 +87,128 @@ class ChainOptimizer:
         self.mu = zeros() if self.optim_type != "SGD" else None
         self.nu = zeros() if self.optim_type != "SGD" else None
         self.acc = zeros() if self.accum_steps > 1 else None
+        self.zero = None      # (mesh, dim per leaf) under ZeRO-1
         return self
+
+    # -- ZeRO-1 ---------------------------------------------------------
+    def shard_(self, mesh, dims: Sequence[Optional[int]]) -> None:
+        """Keep only this rank's slice, along ``dims[i]``, of leaf ``i`` of
+        the moments and the accumulator (None: whole)."""
+        if not mesh.distributed:
+            raise ValueError("ZeRO-1 shards over the ranks of a "
+                             "torch.distributed world")
+        self.zero = (mesh, list(dims))
+        for k in STATE_KEYS:
+            full = getattr(self, k)
+            if full is not None:
+                setattr(self, k, [t.clone() for t in self._local(full)])
+
+    def _local(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's slices (views) of full per-leaf tensors."""
+        if self.zero is None:
+            return list(tensors)
+        mesh, dims = self.zero
+        out = []
+        for t, d in zip(tensors, dims):
+            if d is not None:
+                k = t.shape[d] // mesh.size
+                t = t.narrow(d, mesh.index * k, k)
+            out.append(t)
+        return out
+
+    def _gather(self, local: Sequence[torch.Tensor],
+                full: Sequence[torch.Tensor]) -> None:
+        """Write every rank's slices of the sharded leaves into ``full``:
+        one flat ``all_gather_into_tensor`` per bucket."""
+        mesh, dims = self.zero
+        n = mesh.size
+        sharded = [i for i, d in enumerate(dims) if d is not None]
+        for bucket in buckets([local[i] for i in sharded], BUCKET_BYTES):
+            idx = [sharded[j] for j in bucket]
+            send = torch.cat([local[i].reshape(-1) for i in idx])
+            recv = send.new_empty(n * send.numel())
+            dist.all_gather_into_tensor(recv, send, group=mesh.group)
+            recv = recv.view(n, -1)
+            off = 0
+            for i in idx:
+                k = local[i].numel()
+                parts = recv[:, off:off + k].reshape(n, *local[i].shape)
+                full[i].copy_(torch.cat(list(parts), dim=dims[i]))
+                off += k
+
+    def full_state(self) -> Dict[str, Optional[List[torch.Tensor]]]:
+        """``mu``, ``nu``, ``acc`` at full size (gathered from every rank
+        under ZeRO-1: a collective that every rank must call)."""
+        out = {}
+        for k in STATE_KEYS:
+            lst = getattr(self, k)
+            if lst is None or self.zero is None:
+                out[k] = lst
+                continue
+            full = [torch.empty_like(p) if d is not None else t
+                    for p, t, d in zip(self.params, lst, self.zero[1])]
+            self._gather(lst, full)
+            out[k] = full
+        return out
+
+    @torch.no_grad()
+    def load_state(self, state: Mapping[str, Optional[Sequence[torch.Tensor]]]
+                   ) -> None:
+        """Copy full-size ``mu``/``nu``/``acc`` into the state (this rank's
+        slices of them under ZeRO-1)."""
+        for k in STATE_KEYS:
+            if state.get(k) is not None:
+                for d, s in zip(getattr(self, k), self._local(state[k])):
+                    d.copy_(s)
+
+    def state_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds."""
+        return sum(t.numel() * t.element_size() for k in STATE_KEYS
+                   for t in (getattr(self, k) or []))
+
+    # -- update ---------------------------------------------------------
+    def _norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradient whose (local) leaves are
+        ``grads``: under ZeRO-1 the sharded leaves' squares are summed
+        over the ranks (one scalar all-reduce)."""
+        if self.zero is None:
+            return global_norm(grads)
+        mesh, dims = self.zero
+
+        def sq(ts):
+            return sum(((t.float() * t.float()).sum() for t in ts),
+                       torch.zeros((), device=grads[0].device))
+
+        part = sq([g for g, d in zip(grads, dims) if d is not None])
+        dist.all_reduce(part, group=mesh.group)
+        return torch.sqrt(part + sq([g for g, d in zip(grads, dims)
+                                     if d is None]))
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         grads = [g.float() for g in grads]
-        if self.acc is not None:
-            n = self.mini_step
-            for a, g in zip(self.acc, grads):
-                a.add_((g - a) / (n + 1))
-            self.mini_step = (n + 1) % self.accum_steps
-            if self.mini_step:
-                return
-            grads = [a.clone() for a in self.acc]
-            for a in self.acc:
-                a.zero_()
-        self._apply(grads)
+        if self.acc is None:
+            # the clip reads the full gradient, then each rank its slices
+            g_norm = (global_norm(grads) if self.max_norm is not None
+                      else None)
+            self._apply(self._local(grads), g_norm)
+            return
+        grads = self._local(grads)
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / (n + 1))
+        self.mini_step = (n + 1) % self.accum_steps
+        if self.mini_step:
+            return
+        grads = [a.clone() for a in self.acc]
+        for a in self.acc:
+            a.zero_()
+        self._apply(grads, self._norm(grads) if self.max_norm is not None
+                    else None)
 
-    def _apply(self, grads: List[torch.Tensor]) -> None:
-        if self.max_norm is not None:
-            g_norm = global_norm(grads)
+    def _apply(self, grads: List[torch.Tensor],
+               g_norm: Optional[torch.Tensor]) -> None:
+        if g_norm is not None:
             scale = torch.where(g_norm < self.max_norm,
                                 torch.ones_like(g_norm),
                                 self.max_norm / g_norm)
@@ -102,21 +216,24 @@ class ChainOptimizer:
                 g.mul_(scale)
         lr = float(self.schedule(self.count))
         self.count += 1
+        params = self._local(self.params)
         if self.optim_type == "SGD":
-            for p, g in zip(self.params, grads):
+            for p, g in zip(params, grads):
                 p.add_(g, alpha=-lr)
-            return
-        # bias corrections in fp32, as optax computes 1 - decay**count
-        one = np.float32(1.0)
-        c1 = float(one - np.float32(self.b1) ** np.float32(self.count))
-        c2 = float(one - np.float32(self.b2) ** np.float32(self.count))
-        for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
-            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            u = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(u, alpha=-lr)
+        else:
+            # bias corrections in fp32, as optax computes 1 - decay**count
+            one = np.float32(1.0)
+            c1 = float(one - np.float32(self.b1) ** np.float32(self.count))
+            c2 = float(one - np.float32(self.b2) ** np.float32(self.count))
+            for p, g, m, v in zip(params, grads, self.mu, self.nu):
+                m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+                v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+                u = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p
+                p.add_(u, alpha=-lr)
+        if self.zero is not None:
+            self._gather(params, self.params)
 
 
 def make_optimizer(learning_rate, optim_type: str = "AdamW",
@@ -183,7 +300,8 @@ def hybrid_batch_kwargs(output: torch.Tensor, batch: Batch) -> Dict:
 
 def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
                     pixel_loss: Optional[Callable] = None,
-                    mixup_alpha: Optional[float] = None, seed: int = 0):
+                    mixup_alpha: Optional[float] = None, seed: int = 0,
+                    mesh=None):
     """``train_step(state, batch) -> (state, logs)``: forward, loss,
     gradients of every trainable tensor, ``logs['grad_norm']`` (before the
     clip), one optimizer step. ``batch`` holds NCHW ``lq`` and ``gt`` and
@@ -199,7 +317,22 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
     Every call puts ``net`` in train mode and leaves it there (a module
     with drop-path then draws from its generator): call ``net.eval()``, or
     go through ``make_eval_step``, before using the bare ``net`` for
-    inference between steps."""
+    inference between steps.
+
+    With ``mesh`` (a process-group mesh, ``parallel/mesh.py``) each rank
+    steps on its part of the global batch: the gradients of every
+    trainable tensor are averaged over the ranks in flat buckets right
+    after ``torch.autograd.grad`` (before ``grad_norm`` and the clip), and
+    the logged losses with one small all-reduce, so every rank updates
+    with the global gradient and logs the global-batch means (for equal
+    parts and loss terms that are means over the batch, as every
+    ``HybridLossPlus`` term is)."""
+    if mesh is not None and not mesh.distributed and mesh.size > 1:
+        raise ValueError(
+            f"a training mesh of {mesh.size} devices in one process: launch "
+            "one process per device (torchrun --nproc_per_node, "
+            "parallel.init_multihost) and pass their world's mesh")
+    dp = mesh is not None and mesh.distributed
     mixup_gen = (torch.Generator().manual_seed(int(seed)) if mixup_alpha
                  else None)
 
@@ -226,12 +359,26 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if dp:
+            all_reduce_mean_(grads, mesh)
+            logs = _mean_logs(logs, mesh)
         logs["grad_norm"] = global_norm(grads).detach()
         state.optimizer.step(grads)
         state.step += 1
         return state, logs
 
     return train_step
+
+
+def _mean_logs(logs: Dict[str, torch.Tensor], mesh
+               ) -> Dict[str, torch.Tensor]:
+    """The logs' means over the ranks: one all-reduce of the stacked
+    scalars."""
+    keys = list(logs)
+    stacked = torch.stack([logs[k].float().reshape(()) for k in keys])
+    dist.all_reduce(stacked, group=mesh.group)
+    stacked = stacked / mesh.size
+    return dict(zip(keys, stacked.unbind()))
 
 
 def make_eval_step(net: nn.Module) -> Callable:

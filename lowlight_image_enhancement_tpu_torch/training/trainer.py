@@ -8,10 +8,22 @@ loss, schedule and optimizer from a parsed config, auto-resumes, and runs
 the iteration loop with periodic logging, checkpoints and validation, on
 ``device`` ("cuda" unless the caller asks for the CPU). Batches reach the
 step through the loader's device prefetcher, NCHW.
+
+Under a ``torch.distributed`` world (``parallel.init_multihost``; one
+process per device) the Trainer trains data-parallel over the world's
+mesh: each rank loads ``batch_size_per_gpu`` items of its stride of the
+data (per rank, as the reference's DDP; JAX's one-process mesh splits
+that batch instead), starts from rank 0's parameters, seeds its drop-path
+generator and mixup with ``manual_seed + rank`` (BasicSR's
+``set_random_seed(seed + rank)``), all-reduces the gradients in the step,
+shards the optimizer state with ``train.zero1`` (``parallel/zero.py``),
+logs and writes checkpoints on rank 0 and validates with
+``dist_validate``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -32,6 +44,14 @@ from lowlight_image_enhancement_tpu_torch.losses import (
 )
 from lowlight_image_enhancement_tpu_torch.losses.hybrid import HybridLossPlus
 from lowlight_image_enhancement_tpu_torch.models import define_network
+from lowlight_image_enhancement_tpu_torch.parallel.mesh import (
+    create_mesh,
+    put_replicated,
+)
+from lowlight_image_enhancement_tpu_torch.parallel.multihost import host_info
+from lowlight_image_enhancement_tpu_torch.parallel.zero import (
+    zero1_device_put,
+)
 from lowlight_image_enhancement_tpu_torch.ops.psf import (
     build_psf_kernels,
     create_crosstalk_psf,
@@ -56,7 +76,9 @@ from lowlight_image_enhancement_tpu_torch.training.train_step import (
     make_optimizer,
     make_train_step,
 )
-from lowlight_image_enhancement_tpu_torch.training.validation import validate
+from lowlight_image_enhancement_tpu_torch.training.validation import (
+    dist_validate,
+)
 
 
 def build_hybrid_loss(train_opt: Mapping[str, Any],
@@ -116,70 +138,100 @@ def build_training_losses(train_opt: Mapping[str, Any], device: Any = "cuda"
     return loss, pixel_loss
 
 
+def optimizer_from_config(train_opt: Mapping[str, Any]):
+    """``(optimizer, schedule)`` from a ``train`` block: ``optim_g`` (AdamW
+    at lr 1e-3 by default), ``scheduler`` (a constant lr without one),
+    ``use_grad_clip`` and ``accum_steps``."""
+    optim_opt = dict(train_opt.get("optim_g", {"type": "AdamW", "lr": 1e-3}))
+    base_lr = float(optim_opt.pop("lr", 1e-3))
+    sched_opt = train_opt.get("scheduler")
+    schedule = (make_schedule(sched_opt, base_lr,
+                              warmup_iter=train_opt.get("warmup_iter", -1))
+                if sched_opt else (lambda step: base_lr))
+    optimizer = make_optimizer(
+        schedule,
+        optim_type=optim_opt.pop("type", "AdamW"),
+        betas=tuple(optim_opt.pop("betas", (0.9, 0.999))),
+        weight_decay=float(optim_opt.pop("weight_decay", 0.01)),
+        use_grad_clip=bool(train_opt.get("use_grad_clip", True)),
+        accum_steps=int(train_opt.get("accum_steps", 1)))
+    return optimizer, schedule
+
+
 class Trainer:
     """End-to-end experiment runner over a parsed config dict.
 
     ``history`` keeps one dict per printed iteration (``iter``, ``lr``,
     ``time``, ``data_time`` and the step's logs as floats). The step's
     logs stay device tensors between prints: an iteration that does not
-    print does not wait for the device."""
+    print does not wait for the device. ``last_val`` holds the latest
+    validation's results.
 
-    def __init__(self, opt: Mapping[str, Any], device: Any = "cuda"):
+    ``mesh``: a process-group mesh (``parallel.create_mesh``); by default
+    the world's when ``torch.distributed`` is initialised. Its device
+    replaces ``device``."""
+
+    def __init__(self, opt: Mapping[str, Any], device: Any = "cuda",
+                 mesh=None):
         self.opt = dict(opt)
-        self.device = resolve_device(device)
+        if mesh is None and torch.distributed.is_initialized():
+            mesh = create_mesh()
+        if mesh is not None and not mesh.distributed:
+            raise ValueError("the Trainer runs one process per device: "
+                             "pass the mesh of a torch.distributed world")
+        self.mesh = mesh
+        self.rank, self.world, self.is_main = host_info()
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.logger = get_root_logger(
             os.path.join(opt["path"]["log"], "train.log")
-            if (opt.get("path") or {}).get("log") else None)
+            if (opt.get("path") or {}).get("log") and self.is_main
+            else None, level=logging.INFO if self.is_main else logging.WARNING)
         seed = int(opt.get("manual_seed", 0))
         np.random.seed(seed)
         torch.manual_seed(seed)
 
         # --- data -----------------------------------------------------
+        # train: this rank's stride, batch_size_per_gpu items per rank;
+        # val: every image, strided by dist_validate
         ds_opts = opt.get("datasets") or {}
         self.train_loader = self.val_loader = None
         if "train" in ds_opts:
             self.train_loader = create_loader(
-                create_dataset(ds_opts["train"]), ds_opts["train"], seed=seed)
+                create_dataset(ds_opts["train"]), ds_opts["train"], seed=seed,
+                num_hosts=self.world, host_id=self.rank)
         if "val" in ds_opts:
             self.val_loader = create_loader(
                 create_dataset(ds_opts["val"]), ds_opts["val"], seed=seed)
 
         # --- model / loss / optimizer ---------------------------------
         train_opt = opt.get("train") or {}
-        if train_opt.get("zero1"):
-            raise NotImplementedError(
-                "train.zero1 (ZeRO-1 optimizer-state sharding) waits for the "
-                "port's parallelism: ROADMAP.md, queue 1 item 7")
         net_opt = dict(opt["network_g"])
         if train_opt.get("enable_amp"):
             net_opt.setdefault("dtype", "bfloat16")
         self.net = define_network(net_opt, device=self.device)
-        attach_generator(self.net, self.device, seed)
+        attach_generator(self.net, self.device, seed + self.rank)
         self.loss, self.pixel_loss = build_training_losses(train_opt,
                                                            self.device)
-        optim_opt = dict(train_opt.get("optim_g",
-                                       {"type": "AdamW", "lr": 1e-3}))
-        base_lr = float(optim_opt.pop("lr", 1e-3))
-        sched_opt = train_opt.get("scheduler")
-        self.schedule = (
-            make_schedule(sched_opt, base_lr,
-                          warmup_iter=train_opt.get("warmup_iter", -1))
-            if sched_opt else (lambda step: base_lr))
-        self.optimizer = make_optimizer(
-            self.schedule,
-            optim_type=optim_opt.pop("type", "AdamW"),
-            betas=tuple(optim_opt.pop("betas", (0.9, 0.999))),
-            weight_decay=float(optim_opt.pop("weight_decay", 0.01)),
-            use_grad_clip=bool(train_opt.get("use_grad_clip", True)),
-            accum_steps=int(train_opt.get("accum_steps", 1)))
+        self.optimizer, self.schedule = optimizer_from_config(train_opt)
         self.state = create_train_state(self.net, self.optimizer, self.loss)
+        self._zero1_shardings = None
+        if mesh is not None:
+            put_replicated(self.state, mesh)
+            if train_opt.get("zero1"):
+                _, self._zero1_shardings = zero1_device_put(self.state, mesh)
+        elif train_opt.get("zero1"):
+            self.logger.warning("train.zero1 needs a torch.distributed "
+                                "world; one process trains unsharded")
         self.total_iters = int(train_opt.get("total_iter", 1000))
         mixup = train_opt.get("mixup", False)
         self.step_fn = make_train_step(
             self.net, self.loss, self.optimizer, pixel_loss=self.pixel_loss,
-            mixup_alpha=(1.2 if mixup is True else mixup) or None, seed=seed)
+            mixup_alpha=(1.2 if mixup is True else mixup) or None,
+            seed=seed + self.rank, mesh=mesh)
         self.eval_fn = make_eval_step(self.net)
         self.history: List[Dict[str, float]] = []
+        self.last_val: Dict[str, float] = {}
 
         # --- resume ---------------------------------------------------
         self.start_iter = 0
@@ -201,11 +253,13 @@ class Trainer:
 
         # wandb before the TB writer, so that sync_tensorboard hooks the
         # event stream (reference train.py:109-115)
-        if (logger_opt.get("wandb") or {}).get("project") is not None:
+        main = self.is_main
+        if main and (logger_opt.get("wandb") or {}).get("project") is not None:
             init_wandb_logger(opt)
         tb = (init_tb_logger(opt["path"]["log"])
-              if logger_opt.get("use_tb_logger") else None)
-        msg_logger = MessageLogger(opt, self.start_iter + 1, tb)
+              if main and logger_opt.get("use_tb_logger") else None)
+        msg_logger = (MessageLogger(opt, self.start_iter + 1, tb) if main
+                      else (lambda log_vars: None))
         self.logger.info("config:\n%s", dict2str(self.opt))
 
         # resume the shuffle sequence at the epoch the run left off in
@@ -256,26 +310,33 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _save(self) -> None:
+        """Checkpoints on rank 0 (under ZeRO-1 every rank first gives its
+        moment slices), the other ranks waiting behind a barrier."""
         paths = self.opt.get("path") or {}
         if paths.get("training_states"):
             ckpt.save_training_state(paths["training_states"], self.state)
-        if paths.get("models"):
+        if paths.get("models") and self.is_main:
             ckpt.save_network(paths["models"], self.state)
+        if self.mesh is not None:
+            torch.distributed.barrier(group=self.mesh.group)
 
     def validate(self) -> Dict[str, float]:
         """The config's ``val.metrics`` over the val loader, the network in
-        eval mode on the device (tiled when ``val.crop_size`` is set)."""
+        eval mode on the device (tiled when ``val.crop_size`` is set); under
+        a world each rank takes its stride of the images and every rank
+        gets the global means."""
         if self.val_loader is None:
             return {}
         val_opt = self.opt.get("val") or {}
-        return validate(
+        self.last_val = dist_validate(
             self.eval_fn, self.val_loader, val_opt.get("metrics") or {},
             device=self.device, tile_size=val_opt.get("crop_size"),
             max_images=val_opt.get("max_images"),
             save_dir=((self.opt.get("path") or {}).get("visualization")
                       if val_opt.get("save_img") else None))
+        return self.last_val
 
 
-def train_from_config(opt: Mapping[str, Any],
+def train_from_config(opt: Mapping[str, Any], mesh=None,
                       device: Any = "cuda") -> TrainState:
-    return Trainer(opt, device=device).train()
+    return Trainer(opt, device=device, mesh=mesh).train()

@@ -12,21 +12,26 @@ Counterpart of ``lowlight_image_enhancement_tpu/training/validation.py``
   resolved by name through ``METRIC_REGISTRY``;
 - :func:`validate` / :func:`strided_metric_sums` -- a val loader's images
   through the network on the device (NCHW), per-image metrics, means;
+- :func:`allreduce_metric_sums` / :func:`dist_validate` -- each process of
+  a ``torch.distributed`` world takes its stride of the images and one
+  all-reduce sums the metric sums and counts (reference
+  ``dist_validation``, ``image_restoration_model.py:344-468``);
 - :func:`save_result_image`.
-
-The multi-process reduction (``allreduce_metric_sums``, ``dist_validate``)
-waits for the port's parallelism (ROADMAP.md, queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from lowlight_image_enhancement_tpu_torch import metrics as _metrics  # noqa: F401  (registers the bridge names)
+from lowlight_image_enhancement_tpu_torch.parallel.multihost import (
+    host_info,
+    rank_device,
+)
 from lowlight_image_enhancement_tpu_torch.utils.registry import METRIC_REGISTRY
 
 
@@ -168,3 +173,42 @@ def strided_metric_sums(forward: Callable[[torch.Tensor], torch.Tensor],
             if max_images and count >= max_images:
                 return sums, count
     return sums, count
+
+
+def allreduce_metric_sums(sums: Dict[str, float], count: int):
+    """Sum per-rank metric sums and image counts over the processes of the
+    ``torch.distributed`` world: one all-reduce of the stacked sums and
+    count (fp64, on this rank's device). Every rank gets the global
+    result. Identity for one process.
+
+    The metric names are gathered first: a rank whose stride holds no
+    image (fewer images than ranks) has no sums, and a stack of another
+    length would fail the all-reduce or hang it."""
+    _, world, _ = host_info()
+    if world == 1:
+        return dict(sums), count
+    names: List[Optional[List[str]]] = [None] * world
+    torch.distributed.all_gather_object(names, sorted(sums))
+    keys = sorted(set().union(*names))
+    local = torch.tensor([sums.get(k, 0.0) for k in keys] + [float(count)],
+                         dtype=torch.float64, device=rank_device())
+    torch.distributed.all_reduce(local)
+    total = local.cpu().tolist()
+    return {k: total[i] for i, k in enumerate(keys)}, int(round(total[-1]))
+
+
+def dist_validate(forward: Callable[[torch.Tensor], torch.Tensor],
+                  loader: Iterable[Mapping[str, Any]],
+                  metrics_opt: Mapping[str, Mapping[str, Any]],
+                  **kwargs) -> Dict[str, float]:
+    """Validation over the processes of the world: each takes the images
+    at global index ``i % world == rank``, the sums are all-reduced and
+    every process returns the global means (``validate`` for one
+    process). ``kwargs`` go to :func:`strided_metric_sums`."""
+    rank, world, _ = host_info()
+    sums, count = strided_metric_sums(forward, loader, metrics_opt,
+                                      rank=rank, world=world, **kwargs)
+    sums, count = allreduce_metric_sums(sums, count)
+    if count == 0:
+        return {}
+    return {k: v / count for k, v in sums.items()}

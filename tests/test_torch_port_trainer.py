@@ -15,7 +15,8 @@
   the resumed JAX ``Trainer``; ``save_network``'s files load through
   ``demo.load_weights``;
 - the ``${DEBUG_SID_ROOT}`` self-provisioning writes the JAX package's
-  fixture bytes; ``train.zero1`` raises;
+  fixture bytes; a training mesh of several devices in one process
+  raises (``train.zero1`` in one process trains unsharded);
 - ``train.main`` and ``test.main`` with ``--device cpu``.
 
 Both loaders run with ``num_workers=0`` (the crop draws are then in item
@@ -225,10 +226,17 @@ def test_debug_root_self_provisioning_matches_jax(tmp_path, monkeypatch):
 
 
 def test_zero1_raises(runs):
+    """``train.zero1`` shards over the ranks of a torch.distributed world
+    (tests/test_torch_port_zero1.py); a training mesh of several devices
+    in one process raises, and one process trains unsharded."""
+    from lowlight_image_enhancement_tpu_torch.parallel import create_mesh
+
     opt = dict(runs["opt"], path={})
     opt["train"] = dict(opt["train"], zero1=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        Trainer(opt, device="cpu")
+    with pytest.raises(ValueError, match="one process per device"):
+        Trainer(opt, device="cpu", mesh=create_mesh(devices=["cpu", "cpu"]))
+    trainer = Trainer(opt, device="cpu")
+    assert trainer.mesh is None and trainer._zero1_shardings is None
 
 
 def test_train_and_test_cli_on_cpu(debug_root, tmp_path, monkeypatch):
