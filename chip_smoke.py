@@ -190,7 +190,24 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    requests equal to the server without a mesh (36 K1/K2 launches a
    forward); ``export_model(..., mesh=)`` records ``{"axis": "data",
    "size": 1}`` and a fresh ``ExportedModel`` serves ``predict_batch``
-   against live.
+   against live;
+16. path U (the user's tools, ``lowlight_image_enhancement_tpu_torch/
+   tools``): a seeded PNG tree of 4 SID-named 512^2 pairs ->
+   ``tools/prepare_sid_manifest.py`` -> ``create_sid_pack`` ->
+   ``debug_dataset``, and ``SonySIDDataset`` reading every val pair back
+   equal to its PNGs; ``evaluate`` of the serving ``NewBPNAFNet`` (full
+   width and depth, bf16, seeded, a ``.pth``) over the 2 val pairs: 36 K1
+   and 36 K2 launches a forward on the tensor cores, the report within
+   1e-6 of a direct ``compute_metrics`` with the same weights, and
+   ``--identity``; ``profile_train`` at its defaults (2x512^2, width 32,
+   bf16; 36 launches of each of K1-K4 a step, a traced run on the tensor
+   cores only); ``profile_step_families`` naming K1-K4's device kernels;
+   ``debug_overfit --steps 50`` (both phases falling; K1-K4 on the FMA
+   route in fp32); ``train_pipeline_e2e --steps 30 --workers 2`` (its
+   three rates; 36 launches of K1-K4 a step); ``make_grain_loader(
+   worker_count=2)`` over the packs into ``prefetch_to_device``, equal to
+   the host batches; ``probe_backend() == "cuda"``. Prints a path_U JSON
+   line.
 
 Every kernel row carries two times: ``ms``, CUDA events around the
 wrapper (host time included), and ``device_ms``, the kernel's own device
@@ -3216,6 +3233,295 @@ def mesh_serving_path(gen: torch.Generator) -> dict:
             "export_err": errs}
 
 
+# path U: the user's tools (lowlight_image_enhancement_tpu_torch/tools), the
+# multi-worker loader and the backend probe
+U_PAIRS = 4        # pair ids of the PNG tree: half train, half val
+U_SIDE = 512
+U_E2E_STEPS = 30   # train_pipeline_e2e --steps
+OVERFIT_BLOCKS = 5  # debug_overfit's NAFNet: (1,1)/1/(1,1)
+OVERFIT_STEPS = 50  # a phase (the tool's default is 200)
+
+
+def png_tree(root: Path) -> Path:
+    """A SID-named tree of 16-bit PNGs (``short/<id>_00_0.1s.png``,
+    ``long/<id>_00_10s.png``: ratio 100), ``U_PAIRS`` seeded 512^2 pairs:
+    a smooth long frame and its dark, noisy short."""
+    from lowlight_image_enhancement_tpu_torch.utils import imgio
+
+    rng = np.random.default_rng(SEED)
+    for sub in ("short", "long"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(U_PAIRS):
+        base = rng.uniform(0.05, 0.9, (U_SIDE // 64, U_SIDE // 64, 3))
+        long_img = np.clip(np.kron(base, np.ones((64, 64, 1)))
+                           + rng.normal(0, 0.02, (U_SIDE, U_SIDE, 3)), 0, 1)
+        short = np.clip(long_img / 100.0
+                        + rng.normal(0, 0.002, long_img.shape), 0, 1)
+        imgio.imwrite(str(root / "long" / f"{i:05d}_00_10s.png"),
+                      (long_img * 65535).astype(np.uint16))
+        imgio.imwrite(str(root / "short" / f"{i:05d}_00_0.1s.png"),
+                      (short * 65535).astype(np.uint16))
+    return root
+
+
+def profiled(fn):
+    """``(fn(), device kernel records)`` of one call under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, device_records(prof.key_averages())
+
+
+def tools_path() -> dict:
+    """Path U: the user's tools on the card. A PNG tree ->
+    ``tools/prepare_sid_manifest.py`` (no package) -> the port's
+    ``create_sid_pack`` -> ``debug_dataset`` and ``SonySIDDataset`` reading
+    the packs back against the PNGs; ``evaluate`` of the serving
+    ``NewBPNAFNet`` (full width and depth, bf16, seeded, weights as
+    ``.pth``) over the val split against a direct ``compute_metrics``
+    (36 K1/K2 launches a forward on the tensor cores) and ``--identity``;
+    ``profile_train`` at its defaults (36 launches of K1-K4 a step, the
+    tensor-core route in a traced run); ``profile_step_families`` naming
+    K1-K4's device kernels; ``debug_overfit --steps 50`` (both phases
+    fall, K1-K4 on the FMA route at C = 8, 16, 32); ``train_pipeline_e2e --steps 30
+    --workers 2``; ``make_grain_loader(worker_count=2)`` over the packs
+    into ``prefetch_to_device``; ``probe_backend() == "cuda"``."""
+    import os
+    import tempfile
+
+    import yaml
+
+    from lowlight_image_enhancement_tpu_torch.data import (
+        SonySIDDataset, create_dataset, create_loader, prefetch_to_device)
+    from lowlight_image_enhancement_tpu_torch.data.grain_pipeline import (
+        make_grain_loader)
+    from lowlight_image_enhancement_tpu_torch.data.transforms import (
+        decode_png_uint16, uint16_to_float01)
+    from lowlight_image_enhancement_tpu_torch.demo import load_weights
+    from lowlight_image_enhancement_tpu_torch.metrics import compute_metrics
+    from lowlight_image_enhancement_tpu_torch.tools import (
+        create_sid_pack, debug_dataset, debug_overfit, evaluate,
+        profile_step_families, profile_train, train_pipeline_e2e)
+    from lowlight_image_enhancement_tpu_torch.utils.backend_probe import (
+        probe_backend)
+
+    repo = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_u_"))
+    secs: dict = {}
+    t0 = time.perf_counter()
+
+    # 1. PNG tree -> manifest -> packs -> read back
+    tree = png_tree(tmp / "png")
+    sid = tmp / "sid"
+    manifest = sid / "SID_assets" / "manifest_sid.json"
+    res = subprocess.run(
+        [sys.executable, str(repo / "tools" / "prepare_sid_manifest.py"),
+         "--root", str(tree), "--output", str(manifest),
+         "--val-fraction", "0.5", "--test-fraction", "0"],
+        capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"prepare_sid_manifest: {res.stderr[-2000:]}")
+    packs = sid / "SID_pack"
+    written = create_sid_pack.main(["--manifest", str(manifest), "--root",
+                                    str(tree), "--output", str(packs)])
+    check({k: v["shorts"] for k, v in written.items()}
+          == {"train": U_PAIRS // 2, "val": U_PAIRS // 2},
+          f"path U create_sid_pack: {written}")
+    sanity = debug_dataset.check(str(manifest),
+                                 str(packs / "train_short.pack"),
+                                 str(packs / "train_long.pack"), "train")
+    check(not sanity["missing_short"] and not sanity["missing_long"]
+          and sanity["aligned_err"] < 1e-6,
+          f"path U debug_dataset: {sanity}")
+    val_ds = SonySIDDataset(
+        str(manifest), subset="val", phase="val",
+        io_backend={"type": "pack", "short_path": str(packs /
+                                                     "val_short.pack"),
+                    "long_path": str(packs / "val_long.pack")})
+    for idx, rec in enumerate(val_ds.records):
+        item = val_ds[idx]
+        for which, key in (("short_raw", "short"), ("gt", "long")):
+            png = (tree / key / f"{rec[key + '_key']}.png").read_bytes()
+            check(np.array_equal(item[which],
+                                 uint16_to_float01(decode_png_uint16(png))),
+                  f"path U: {rec[key + '_key']} read back from the pack")
+    print(f"path U packs: {written}; debug_dataset {sanity}; "
+          f"{len(val_ds)} val pairs read back equal to their PNGs")
+    secs["packs"] = time.perf_counter() - t0
+
+    # 2. evaluate against a direct compute_metrics
+    t0 = time.perf_counter()
+    with open(TRAIN_CONFIG) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["network_g"]["dtype"] = "bfloat16"
+    cfg_path = tmp / "evaluate.yml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    old_root = os.environ.get("SID_ROOT")
+    os.environ["SID_ROOT"] = str(sid)
+    net = define_network({"type": "NewBPNAFNet", "dtype": "bfloat16"},
+                         device="cuda")
+    randomize_(net, torch.Generator(device="cuda").manual_seed(SEED), 0.1)
+    weights = tmp / "net_g.pth"
+    torch.save({k: v.cpu() for k, v in net.state_dict().items()}, weights)
+    reset_launches()
+    report, names = profiled(lambda: evaluate.main(
+        ["-opt", str(cfg_path), "--checkpoint", str(weights)]))
+    eval_counts = launches()
+    n_val = report["num_items"]
+    expect_launches(eval_counts, "path U evaluate", nafblk_a=36 * n_val,
+                    nafblk_b=36 * n_val)
+    expect_tensor_core_route(names, "path U evaluate")
+    opt = parse(str(cfg_path), is_train=False)
+    val_opt = opt["datasets"]["val"]
+    load_weights(net, str(weights))
+    direct = compute_metrics(
+        make_eval_step(net),
+        create_loader(create_dataset(val_opt), {**val_opt, "phase": "val"}),
+        psf_kernel=evaluate.physics_kernel(opt).cuda(), use_lpips=True,
+        lpips_net="vgg", device="cuda")
+    got = report["metrics"]
+    eval_diff = {k: abs(got[k] - direct[k]) for k in direct}
+    check(set(got) == set(direct) and {"lpips", "phys_mae"} <= set(got)
+          and n_val == U_PAIRS // 2
+          and all(np.isfinite(v) for v in got.values())
+          and all(d <= 1e-6 * max(1.0, abs(direct[k]))
+                  for k, d in eval_diff.items()),
+          f"path U evaluate {got} against compute_metrics {direct}")
+    reset_launches()
+    identity = evaluate.main(["-opt", str(cfg_path), "--identity"])
+    expect_launches(launches(), "path U evaluate --identity")
+    check(all(np.isfinite(v) for v in identity["metrics"].values()),
+          f"path U evaluate --identity {identity}")
+    if old_root is None:
+        os.environ.pop("SID_ROOT")
+    else:
+        os.environ["SID_ROOT"] = old_root
+    print(f"path U evaluate: {got}; |report - compute_metrics| "
+          f"{max(eval_diff.values())}; 36 launches of K1 and K2 in each of "
+          f"{n_val} forwards; --identity {identity['metrics']}")
+    secs["evaluate"] = time.perf_counter() - t0
+
+    # 3. profile_train at its defaults
+    t0 = time.perf_counter()
+    reset_launches()
+    pt = profile_train.main([])
+    pt_counts = launches()
+    steps = sum(pt["calls"][k] for k in profile_train.LOSSES)
+    fwd = pt["calls"]["fwd"] + pt["calls"]["gl1"] + steps
+    bwd = pt["calls"]["gl1"] + steps
+    expect_launches(pt_counts, "path U profile_train", nafblk_a=36 * fwd,
+                    nafblk_b=36 * fwd, nafblk_p1=36 * bwd,
+                    nafblk_p2=36 * bwd)
+    check(all(np.isfinite(v) for v in pt["first_l_total"].values()),
+          f"path U profile_train l_total {pt['first_l_total']}")
+    _, names = profiled(lambda: profile_train.main(
+        ["--only", "full", "--runs", "1"]))
+    expect_tensor_core_route(names, "path U profile_train traced run",
+                             backward=True)
+    secs["profile_train"] = time.perf_counter() - t0
+
+    # 4. profile_step_families
+    t0 = time.perf_counter()
+    fam = profile_step_families.main(["--top", "64"])
+    families = list(fam["families_ms_per_step"])
+    missing = [k for k in K12_TENSOR_CORES + K34_TENSOR_CORES
+               if not any(k in f for f in families)]
+    check(not missing, f"path U profile_step_families: no family names "
+          f"{missing} in {families}")
+    secs["profile_step_families"] = time.perf_counter() - t0
+
+    # 5. debug_overfit (fp32: the FMA route at C = 8, 16, 32)
+    t0 = time.perf_counter()
+    reset_launches()
+    overfit = debug_overfit.main(["--steps", str(OVERFIT_STEPS)])
+    ov_counts = launches()
+    per_run = OVERFIT_BLOCKS * (len(overfit["l1"]) + len(overfit["hybrid"]))
+    expect_launches(ov_counts, "path U debug_overfit", nafblk_a=per_run,
+                    nafblk_b=per_run, nafblk_p1=per_run, nafblk_p2=per_run)
+    check(all(v[-1] < v[0] for v in overfit.values()),
+          f"path U debug_overfit did not fall: "
+          f"{ {k: (v[0], v[-1]) for k, v in overfit.items()} }")
+    _, names = profiled(lambda: debug_overfit.run(
+        "l1", 2, 32, torch.device("cuda")))
+    wrong = [k for k in K12_TENSOR_CORES + K34_TENSOR_CORES if k in names]
+    missing = [k for k in K12_FMA + K34_FMA if k not in names]
+    check(not wrong and not missing, f"path U debug_overfit: FMA kernels "
+          f"{missing} missing, tensor-core kernels {wrong} ran")
+    secs["debug_overfit"] = time.perf_counter() - t0
+
+    # 6. train_pipeline_e2e
+    t0 = time.perf_counter()
+    reset_launches()
+    e2e = train_pipeline_e2e.main(["--steps", str(U_E2E_STEPS),
+                                   "--workers", "2"])
+    e2e_counts = launches()
+    e2e_steps = 3 + min(U_E2E_STEPS, 60) + 2 + U_E2E_STEPS
+    expect_launches(e2e_counts, "path U train_pipeline_e2e",
+                    **{k: 36 * e2e_steps for k in
+                       ("nafblk_a", "nafblk_b", "nafblk_p1", "nafblk_p2")})
+    rates = ("host_only_steps_per_sec", "device_only_steps_per_sec",
+             "end_to_end_steps_per_sec")
+    check(all(e2e[k] > 0 for k in rates) and np.isfinite(e2e["l_total"]),
+          f"path U train_pipeline_e2e {e2e}")
+    secs["train_pipeline_e2e"] = time.perf_counter() - t0
+
+    # 7. the two-worker loader into the device prefetcher
+    t0 = time.perf_counter()
+    train_ds = SonySIDDataset(
+        str(manifest), subset="train", phase="train", patch_size=384,
+        samples_per_pair=4,
+        io_backend={"type": "pack",
+                    "short_path": str(packs / "train_short.pack"),
+                    "long_path": str(packs / "train_long.pack")})
+    host = []
+
+    def kept(batches):
+        for b in batches:
+            host.append(b)
+            yield b
+
+    fed = list(prefetch_to_device(kept(make_grain_loader(
+        train_ds, 2, seed=SEED, num_epochs=1, worker_count=2)),
+        device="cuda"))
+    check(len(host) == 2 * U_PAIRS // 2 and all(
+        isinstance(b["lq"], np.ndarray) and b["lq"].shape == (2, 384, 384, 3)
+        and b["lq"].flags["C_CONTIGUOUS"] and isinstance(b["key"], list)
+        and np.allclose(b["lq"], np.clip(
+            b["short_raw"] * b["expo_ratio"][:, None, None, None], 0, 1),
+            atol=1e-6) for b in host),
+        "path U make_grain_loader: the batch contract")
+    check(len(fed) == len(host) and all(
+        d["lq"].is_cuda and tuple(d["lq"].shape) == (2, 3, 384, 384)
+        and torch.equal(d["lq"].cpu(), torch.from_numpy(h["lq"]).permute(
+            0, 3, 1, 2)) for d, h in zip(fed, host)),
+        "path U make_grain_loader -> prefetch_to_device")
+    secs["grain_loader"] = time.perf_counter() - t0
+
+    # 8. the backend probe
+    platform = probe_backend()
+    check(platform == "cuda", f"path U probe_backend() = {platform!r}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {
+        "seconds": secs, "evaluate_metrics": got,
+        "evaluate_max_abs_diff_vs_compute_metrics": max(eval_diff.values()),
+        "evaluate_identity_metrics": identity["metrics"],
+        "evaluate_launches": eval_counts,
+        "profile_train": {k: pt[k] for k in (
+            "forward_ms", "grad_l1_ms", "train_step_ms", "first_l_total",
+            "calls")},
+        "profile_train_launches": pt_counts,
+        "step_families_ms_per_step": fam["ms_per_step"],
+        "step_families_top": dict(list(
+            fam["families_ms_per_step"].items())[:12]),
+        "debug_overfit": {k: (v[0], v[-1]) for k, v in overfit.items()},
+        "debug_overfit_launches": ov_counts,
+        "train_pipeline_e2e": e2e, "train_pipeline_e2e_launches": e2e_counts,
+        "grain_batches": len(fed), "probe_backend": platform}
+    print("path_U " + json.dumps(out))
+    return out
+
+
 def summary(k: str, rows: list, launches_: int, unit: str) -> dict:
     """One kernels-line entry: times summed over the calls of one pass of
     ``unit`` (``blocks`` calls at each row's shape)."""
@@ -3313,6 +3619,8 @@ def main() -> int:
     trun = phase("torchrun CLI (a world of 1 on NCCL)", torchrun_cli_path)
     mesh_serve = phase("serving mesh and sharded export (one device)",
                        mesh_serving_path, gen)
+    path_u = phase("path U (the user's tools, the two-worker loader, the "
+                   "backend probe)", tools_path)
 
     kernels = []
     bf16 = lambda k: [r for r in rows[k] if r["dtype"] == "bfloat16"]
@@ -3416,7 +3724,11 @@ def main() -> int:
         "SP": par["sp_launches_per_forward"],
         "mesh_serve": mesh_serve["launches"],
         "mesh_export_per_forward":
-            mesh_serve["export_launches_per_forward"]}
+            mesh_serve["export_launches_per_forward"],
+        "U_evaluate": path_u["evaluate_launches"],
+        "U_profile_train": path_u["profile_train_launches"],
+        "U_debug_overfit": path_u["debug_overfit_launches"],
+        "U_train_pipeline_e2e": path_u["train_pipeline_e2e_launches"]}
     for entry in kernels:
         entry["per_width"] = rows[entry["name"]]
         entry["path_launches"] = {p: c.get(entry["name"], 0)
@@ -3475,7 +3787,7 @@ def main() -> int:
             "wrapper_logs", "defilter")},
         "path_E": path_e, "path_B_export": base_export,
         "flow_card_vs_cpu": flow, "path_DP_SP": par, "torchrun": trun,
-        "mesh_serving": mesh_serve}))
+        "mesh_serving": mesh_serve, "path_U": path_u}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

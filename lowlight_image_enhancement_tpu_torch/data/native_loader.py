@@ -156,6 +156,11 @@ class NativeSidPack:
         # concurrently
         self._tls = threading.local()
 
+    def __reduce__(self):
+        """Pickled as its path: a copy in another process opens the pack
+        anew (worker processes of ``data/grain_pipeline.py``)."""
+        return type(self), (self._py.path,)
+
     @property
     def uses_native(self) -> bool:
         """True when the C library serves the reads."""

@@ -116,6 +116,16 @@ class SonySIDDataset:
             )
 
     # ------------------------------------------------------------------
+    def __getstate__(self) -> Dict[str, Any]:
+        """Picklable for worker processes: the lock is made anew."""
+        state = dict(self.__dict__)
+        del state["_rng_lock"]
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._rng_lock = threading.Lock()
+
     def __len__(self) -> int:
         return len(self.records) * self.samples_per_pair
 

@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: neither the port package nor
-``chip_smoke.py`` loads ``jax`` or anything of the JAX package, and the
-kernels are built for Hopper at first use (never at import)."""
+"""The PyTorch port stands alone: neither the port package (its
+``tools/`` subpackage, multi-worker loader and backend probe included)
+nor ``chip_smoke.py`` loads ``jax``, ``grain`` or anything of the JAX
+package, and the kernels are built for Hopper at first use (never at
+import)."""
 
 import json
 import os
@@ -21,11 +23,20 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "grain")
              or m == "lowlight_image_enhancement_tpu"
              or m.startswith("lowlight_image_enhancement_tpu."))
-print(json.dumps({"bad": bad, "n": len(sys.modules)}))
+print(json.dumps({"bad": bad, "n": len(sys.modules), "port": sorted(
+    m for m in sys.modules if m.startswith(port.__name__ + "."))}))
 """
+
+# modules of the tools slice that the walk must reach
+TOOLS_SLICE = ["tools." + name for name in (
+    "bench_input_pipeline", "common", "convert_sid_raw_to_png",
+    "create_sid_pack", "debug_dataset", "debug_losses", "debug_overfit",
+    "evaluate", "make_niqe_params", "profile_step_families",
+    "profile_train", "train_pipeline_e2e")] + [
+    "data.grain_pipeline", "utils.backend_probe"]
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -35,6 +46,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
+    port = {m.split(".", 1)[1] for m in out["port"]}
+    assert set(TOOLS_SLICE) <= port, sorted(set(TOOLS_SLICE) - port)
 
 
 def test_chip_smoke_fails_without_cuda():
