@@ -27,7 +27,11 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles),
    at NAFSSR's C=48 with 30x90 pixels and N=16 and at the bottom of
    NAFNetTPU's trunk, C=1024@12^2, checking dz, da, dx and every weight
-   grad;
+   grad; K3 and K4 on the tensor cores at every one of these shapes in
+   both types (named by their device kernels: bf16 products in bf16,
+   3xTF32 in fp32, ``K34_TF32``), their fp32 shared memory and blocks per
+   SM held against the built kernels, and in fp32 the FMA kernels of the
+   first port run and timed beside them on the same inputs;
 4b. narrow-channel phase: the same at C = 8, 24, 40, 12, 6 and 10 (no
    multiples of 16: in bf16 all four kernels take the FMA route; 6 and
    10 are no multiples of 4 either, and the matrices' rows are padded),
@@ -122,8 +126,9 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
 10. path S: ``NAFSSR`` of ``configs/stereo_nafssr.yml`` (width 48, 16
    blocks, drop-path 0.1 from a seeded generator) with its AdamW / cosine
    / MSE train block on a seeded synthetic 16x6x30x90 batch: training
-   steps (32 launches of each of K1-K6 per step), one eval forward, and
-   the same fp32 gradient check;
+   steps (32 launches of each of K1-K6 per step; K3 and K4 on the tensor
+   cores as 3xTF32 in the traced step, 32 device records of each), one
+   eval forward, and the same fp32 gradient check;
 9b. path B export: that ``Baseline`` through ``export_model`` at one
    256x384 bucket and a fresh ``ExportedModel``: 72 K5 op nodes and 72
    launches per forward, exported against live;
@@ -132,7 +137,8 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    (``make_synthetic_stereo``, its PNG rows cycling through filters 0-4),
    4 iterations: every view defiltered by the native
    ``native/pngcodec.cpp`` (none by the Python fallback), 32 launches of
-   each of K1-K6 per step, finite logs, the validation's PSNR; ``LowlightModel`` (the
+   each of K1-K6 per step (K3 and K4 as 3xTF32 in the traced step),
+   finite logs, the validation's PSNR; ``LowlightModel`` (the
    config's ``model_type``) for 2 steps on the same loader and ``test()``
    (``[N, 6, 2H, 2W]``); ``demo_ssr`` in a subprocess on one L/R pair (two
    PNGs at 2x);
@@ -202,8 +208,9 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    ``--identity``; ``profile_train`` at its defaults (2x512^2, width 32,
    bf16; 36 launches of each of K1-K4 a step, a traced run on the tensor
    cores only); ``profile_step_families`` naming K1-K4's device kernels;
-   ``debug_overfit --steps 50`` (both phases falling; K1-K4 on the FMA
-   route in fp32); ``train_pipeline_e2e --steps 30 --workers 2`` (its
+   ``debug_overfit --steps 50`` (both phases falling; fp32: K1/K2 on the
+   FMA kernels, K3/K4 on them at its C = 8 blocks and as 3xTF32 at C = 16
+   and 32); ``train_pipeline_e2e --steps 30 --workers 2`` (its
    three rates; 36 launches of K1-K4 a step); ``make_grain_loader(
    worker_count=2)`` over the packs into ``prefetch_to_device``, equal to
    the host batches; ``probe_backend() == "cuda"``. Prints a path_U JSON
@@ -217,9 +224,13 @@ kernel (K1-K4 and K6 print it). K1-K4 and K6 are called twice at every
 shape and must give the same bits; the tile arithmetic of the K1-K4
 wrappers is held against the built kernels' shared memory and occupancy,
 and K6's blocks per SM against the built kernel's occupancy, the FMA
-route's pixels per block of K3/K4 against the built library's. After the
-timed steps of every training path one more step runs under the profiler:
-the device's busy time and its idle share of the step.
+route's pixels per block of K3/K4 against the built library's. The bound
+of a row is bytes over the HBM rate against FLOPs over the operand type's
+peak (fp32: 67 TFLOP/s of FMA); an fp32 K3/K4 row on the tensor cores
+also carries the 3xTF32 bound (three TF32 operations a FLOP at 495
+TFLOP/s) and the FMA route's times. After the timed steps of every
+training path one more step runs under the profiler: the device's busy
+time and its idle share of the step.
 
 Any failed check raises, so the script exits non-zero. It prints a JSON
 line ``{"kernels": [...]}`` and the card line before the last line, and
@@ -270,6 +281,8 @@ SEED = 0
 # FLOP/s by operand type (bf16 on the tensor cores, fp32 outside them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# TF32 on the tensor cores; a 3xTF32 product takes three of its operations
+TF32_FLOPS = 495e12
 # (C, side, NAFBlocks at this width in one NewBPNAFNet pass): enc
 # (2,2,4,8), 12 middle, dec (2,2,2,2); serving on 512x512, training on the
 # recipe's 384x384 crops
@@ -505,13 +518,34 @@ def err(got: torch.Tensor, ref: torch.Tensor, scale=None):
 
 def bound(kind: str, c: int, hw: tuple, dt: torch.dtype, n: int = BATCH,
           f: int = None):
-    """Least time (ms) for one call's work: bytes (each input read once,
-    each output written once) over the HBM rate vs the FLOPs of its
-    matrix products (FFN width 2F, F = C unless given) over the operand
-    type's peak. ``hw`` is ``(H, W)``. The weight matrices count at the
-    size the wrapper hands them over in: the activation type's on the
-    tensor-core route (bf16, ``ops.*_geometry`` gives a tile), fp32 on
-    the FMA route; vectors and the weight grads K3/K4 write are fp32."""
+    """Least time (ms) for one call's work (:func:`work`): bytes over the
+    HBM rate vs FLOPs over the operand type's peak (fp32: the 67 TFLOP/s
+    of FMA, the bound the FMA kernels of the first port are read against)."""
+    nbytes, flops = work(kind, c, hw, dt, n, f)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def tf32_bound(kind: str, c: int, hw: tuple, n: int = BATCH, f: int = None):
+    """The fp32 bound of the 3xTF32 route: bytes over the HBM rate vs three
+    TF32 operations per FLOP over the TF32 peak."""
+    nbytes, flops = work(kind, c, hw, torch.float32, n, f)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def work(kind: str, c: int, hw: tuple, dt: torch.dtype, n: int = BATCH,
+         f: int = None):
+    """``(bytes, FLOPs)`` of one call: bytes with each input read once and
+    each output written once, FLOPs of its matrix products (FFN width 2F,
+    F = C unless given). ``hw`` is ``(H, W)``. The weight matrices count
+    at the size the wrapper hands them over in: the activation type's on
+    the tensor-core route (``ops.*_geometry`` gives a tile), fp32 on the
+    FMA route; vectors and the weight grads K3/K4 write are fp32."""
     h, w = hw
     s = torch.tensor([], dtype=dt).element_size()
     f = c if f is None else f
@@ -546,10 +580,7 @@ def bound(kind: str, c: int, hw: tuple, dt: torch.dtype, n: int = BATCH,
         nbytes = (3 * act * s + m * 3 * c * c + 4 * 25 * c
                   + 4 * (2 * c * c + 24 * c) + 2 * nc)
         flops = px * (14 * c * c + 108 * c)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return nbytes, flops
 
 
 def fmt_device(dev) -> str:
@@ -557,18 +588,28 @@ def fmt_device(dev) -> str:
 
 
 def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, split, path,
-           n=BATCH, hw=None, f=None):
+           n=BATCH, hw=None, f=None, **extra):
+    """One per-width row of ``kind``; an fp32 K3/K4 row on the tensor
+    cores also gets the 3xTF32 bound (``tf32_bound_ms``) beside the FMA
+    one, and ``extra`` (the FMA route's times where both ran)."""
     h, w = hw or (side, side)
     b_ms, b_by = bound(kind, c, (h, w), dt, n, f)
     dev = device_ms(split)
-    rows.setdefault(kind, []).append(dict(
+    row = dict(
         path=path, n=n, c=c, f=c if f is None else f, side=side, h=h, w=w,
         dtype=str(dt)[6:],
         blocks=blocks, err=e, ms=t_k, device_ms=dev, device_split=split,
-        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by))
+        plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, **extra)
+    tf32 = ""
+    if dt == torch.float32 and k34_route(kind, dt, n, c, (h, w),
+                                         f) == "tf32":
+        row["tf32_bound_ms"], row["tf32_bound_by"] = tf32_bound(
+            kind, c, (h, w), n, f)
+        tf32 = f", 3xTF32 {row['tf32_bound_ms']:.4f} ms"
+    rows.setdefault(kind, []).append(row)
     print(f"  N={n:2d} C={c:4d} {h}x{w} {str(dt)[6:]:8s} {kind}: kernel "
           f"{t_k:.4f} ms (device {fmt_device(dev)})  plain {t_p:.4f} ms  "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"bound {b_ms:.4f} ms ({b_by}{tf32})")
 
 
 def show(checks, c, side, dt):
@@ -813,6 +854,7 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                   and per_sm == ops.p2_blocks_per_sm(c, tile),
                   f"K4 C={c} tile {tile}: ops/nafblock.py counts {smem} bytes "
                   f"and {ops.p2_blocks_per_sm(c, tile)} blocks per SM")
+        hold_tf32_geometry(lib, c)
         hold_forward_geometry(c)
         x32 = torch.randn((n, c, hw), generator=gen, device="cuda")
         d32 = torch.randn((n, c, hw), generator=gen, device="cuda")
@@ -837,16 +879,82 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                         lambda: ops.call_p2(x, dz, dgc, att, pk, shw),
                         lambda: ops.plain_p2(x, dz, dgc, att, p, shw)),
                 }
+            fma = fma_reference(x, g, dout, att, dz, dgc, pk, p, shw, dt)
             for k, times in t.items():
                 report(k, rows, c, side, dt, nblk, checks[k][0], *times, path,
-                       n, shw)
-            for tag, k in (("K1", "nafblk_a"), ("K2", "nafblk_b"),
-                           ("K3", "nafblk_p1")):
-                show_split(f"{tag} {str(dt)[6:]} N={n} C={c} {side}x{wide}",
-                           t[k][2])
-            show_split(f"K4 {str(dt)[6:]} N={n} C={c} {side}x{wide}",
-                       t["nafblk_p2"][2])
+                       n, shw, **fma.get(k, {}))
+            tag = f"{str(dt)[6:]} N={n} C={c} {side}x{wide}"
+            for kt, k in (("K1", "nafblk_a"), ("K2", "nafblk_b"),
+                          ("K3", "nafblk_p1"), ("K4", "nafblk_p2")):
+                show_split(f"{kt} {tag}", t[k][2])
+            # fp32 at C % 16 == 0 on the tensor cores (3xTF32) at every
+            # width of this phase, bf16 there too; by the device kernels
+            for kt, k, routes in (("K3", "nafblk_p1", K3_ROUTES),
+                                  ("K4", "nafblk_p2", K4_ROUTES)):
+                route = k34_route(k, dt, n, c, shw)
+                check(route == ("bf16" if dt == torch.bfloat16 else "tf32"),
+                      f"{kt} {tag}: the {route} route, not the tensor cores")
+                show_route(f"{kt} {tag}", t[k][2], route, routes)
         del blk, x32, d32
+
+
+def fma_reference(x, g, dout, att, dz, dgc, pk, p, shw, dt) -> dict:
+    """Where fp32 K3 and K4 take the tensor cores (3xTF32), the FMA
+    kernels of the first port on the same inputs, through ``ops.launch_p1`` /
+    ``launch_p2`` with tile 0 (uncounted): their error against the plain
+    versions (the fp32 tolerance) and their times, so both routes are read
+    in one run. Empty elsewhere."""
+    n, c, hw = x.shape
+    if dt != torch.float32 or k34_route("nafblk_p1", dt, n, c, shw) != "tf32":
+        return {}
+    with torch.no_grad():
+        run1 = lambda: ops.launch_p1(x, g, dout, att, pk, 1e-6, 0, 0)
+        run2 = lambda: ops.launch_p2(x, dz, dgc, att, pk, shw, 1e-6, 0, 0, 0)
+        dz_f = run1()[0]
+        dx_f = run2()[0]
+        dx_p = ops.plain_p2(x, dz, dgc, att, p, shw)[0]
+        dz_p = ops.plain_p1(x, g, dout, att, p)[0]
+        out = {}
+        for k, run, got, ref in (("nafblk_p1", run1, dz_f, dz_p),
+                                 ("nafblk_p2", run2, dx_f, dx_p)):
+            e, r = err(got, ref)
+            check(r <= TOL[dt], f"{k} FMA route C={c} {shw}: rel {r}")
+            split = device_times(run)
+            out[k] = dict(fma_err=e, fma_ms=time_ms(run),
+                          fma_device_ms=device_ms(split),
+                          fma_device_split=split)
+    print(f"  FMA route (the first port's kernels) at the same inputs: "
+          + ", ".join(f"{k} {v['fma_ms']:.4f} ms (device "
+                      f"{fmt_device(v['fma_device_ms'])})"
+                      for k, v in out.items()))
+    return out
+
+
+def hold_tf32_geometry(lib, c: int) -> None:
+    """The fp32 K3/K4 tiles (3xTF32) at C = F = ``c``: shared memory as
+    ``ops.p1_smem_bytes`` / ``p2_smem_bytes`` count it (dtype fp32)
+    against the kernels' own sums, blocks per SM against the occupancy the
+    CUDA runtime reports for the built kernels."""
+    f32 = torch.float32
+    for tile in ops.P1_TILES if c % 16 == 0 else ():
+        for kt, smem, built, per_sm, want in (
+                ("K3", ops.p1_smem_bytes(c, c, tile, f32),
+                 lambda: lib.nafblk_p1_tf32_smem(c, c, tile),
+                 lambda: lib.nafblk_p1_tf32_blocks_per_sm(c, c, tile),
+                 lambda: ops.p1_blocks_per_sm(c, c, tile, f32)),
+                ("K4", ops.p2_smem_bytes(c, tile, f32),
+                 lambda: lib.nafblk_p2_tf32_smem(c, tile),
+                 lambda: lib.nafblk_p2_tf32_blocks_per_sm(c, tile),
+                 lambda: ops.p2_blocks_per_sm(c, tile, f32))):
+            if smem > ops.P1_SMEM_LIMIT:
+                continue
+            got = per_sm()
+            print(f"  {kt} fp32 (3xTF32) C={c:4d} tile {tile:2d}: {smem} "
+                  f"bytes of shared memory, {got} blocks per SM")
+            check(built() == smem and got == want(),
+                  f"{kt} fp32 C={c} tile {tile}: the built kernel has "
+                  f"{built()} bytes and {got} blocks per SM, "
+                  f"ops/nafblock.py counts {smem} and {want()}")
 
 
 def hold_fma_geometry(widths) -> None:
@@ -861,16 +969,49 @@ def hold_fma_geometry(widths) -> None:
         check(got == want, f"FMA route C={c} F={f}: the built kernels take "
               f"{got} pixels a block (K3, K4), ops/nafblock.py counts {want}")
     dw = lib.nafblk_p2_dw_blocks_per_sm()
-    print(f"  K4 bf16 depthwise kernel: {dw} blocks per SM")
-    check(dw == ops.P2_DW_BLOCKS_PER_SM, f"K4 depthwise kernel: {dw} blocks "
-          f"per SM, ops/nafblock.py counts {ops.P2_DW_BLOCKS_PER_SM}")
+    dw32 = lib.nafblk_p2_tf32_dw_blocks_per_sm()
+    print(f"  K4 depthwise kernel: {dw} blocks per SM in bf16, {dw32} in fp32")
+    check(dw == dw32 == ops.P2_DW_BLOCKS_PER_SM, f"K4 depthwise kernel: "
+          f"{dw} (bf16) and {dw32} (fp32) blocks per SM, ops/nafblock.py "
+          f"counts {ops.P2_DW_BLOCKS_PER_SM}")
 
 
-# the device kernels of K3 and K4 on the tensor-core route and on the FMA
-# route
+# the device kernels of K3 and K4 on the bf16 tensor-core route, on the
+# fp32 one (3xTF32) and on the FMA route
 K34_TENSOR_CORES = ("nafblk::k3_mma_kernel", "nafblk::k4_front_kernel",
                     "nafblk::k4_dw_kernel", "nafblk::k4_back_kernel")
+K34_TF32 = ("nafblk::k3_tf32_kernel", "nafblk::k4_front_tf32_kernel",
+            "nafblk::k4_dw_kernel", "nafblk::k4_back_tf32_kernel",
+            "nafblk::wgrad_tf32_kernel")
 K34_FMA = ("k3_kernel", "k4a_kernel", "k4b_kernel")
+# each route's device kernels of one K3 call and of one K4 call
+# (k4_dw_kernel serves both tensor-core routes)
+K3_ROUTES = {"bf16": ("nafblk::k3_mma_kernel", "nafblk::wgrad_mma_kernel"),
+             "tf32": ("nafblk::k3_tf32_kernel", "nafblk::wgrad_tf32_kernel"),
+             "fma": ("k3_kernel", "wgrad_kernel")}
+K4_ROUTES = {"bf16": ("nafblk::k4_front_kernel", "nafblk::k4_dw_kernel",
+                      "nafblk::k4_back_kernel", "nafblk::wgrad_mma_kernel"),
+             "tf32": ("nafblk::k4_front_tf32_kernel", "nafblk::k4_dw_kernel",
+                      "nafblk::k4_back_tf32_kernel",
+                      "nafblk::wgrad_tf32_kernel"),
+             "fma": ("k4a_kernel", "k4b_kernel", "wgrad_kernel")}
+
+
+def k34_route(kind: str, dt: torch.dtype, n: int, c: int, hw: tuple,
+              f: int = None) -> str:
+    """The route the wrapper of K3 (``nafblk_p1``) or K4 (``nafblk_p2``)
+    takes at a shape: "bf16" or "tf32" (the tensor cores) or "fma"; None
+    for another kernel."""
+    h, w = hw
+    if kind == "nafblk_p1":
+        tile = ops.p1_geometry(dt, n, c, c if f is None else f, h * w)[0]
+    elif kind == "nafblk_p2":
+        tile = ops.p2_geometry(dt, n, c, h, w)[0]
+    else:
+        return None
+    if not tile:
+        return "fma"
+    return "bf16" if dt == torch.bfloat16 else "tf32"
 # C that is no multiple of 16: in bf16 all four kernels take the FMA route;
 # 6 and 10 are no multiples of 4 either (the matrices' rows padded)
 NARROW_C = (8, 24, 40, 12, 6, 10)
@@ -879,22 +1020,25 @@ NARROW_C = (8, 24, 40, 12, 6, 10)
 NARROW_SIDES = (64, 20)
 
 
-def show_route(what: str, split: dict, mma: bool, names) -> None:
+def show_route(what: str, split: dict, route: str, routes: dict) -> None:
     """The route a kernel took, read from the device kernels of its timing
-    window (``split``): the route its geometry chose (``mma``: the
-    tensor-core kernels of ``names[0]``, else the FMA kernels of
-    ``names[1]``), and none of the other's. "not measured" where the
-    profiler kept losing records."""
+    window (``split``): every kernel of ``routes[route]`` (the route its
+    geometry chose), and none of the other routes' kernels. "not
+    measured" where the profiler kept losing records."""
     if not split:
         print(f"  {what}: route not measured (no complete profiler window)")
         return
-    want, other = names if mma else names[::-1]
+    want = routes[route]
     ran = [k for k in want if k in split]
-    wrong = [k for k in other if k in split]
+    wrong = sorted({k for r, names in routes.items() if r != route
+                    for k in names if k in split and k not in want})
     check(len(ran) == len(want) and not wrong, f"{what}: expected the "
-          f"{'tensor-core' if mma else 'FMA'} route, ran {sorted(split)}")
-    print(f"  {what}: {'tensor-core' if mma else 'FMA'} route "
-          f"({', '.join(sorted(split))})")
+          f"{route} route, ran {sorted(split)}")
+    print(f"  {what}: {route} route ({', '.join(sorted(split))})")
+
+
+def k12_routes(mma_names, fma_names) -> dict:
+    return {"tensor cores": mma_names, "fma": fma_names}
 
 
 def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
@@ -947,17 +1091,19 @@ def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
             tag = f"{str(dt)[6:]} N={BATCH} C={c} F={f} {side}x{side}"
             s = side * side
             show_route(f"K1 {tag}", t["nafblk_a"][2],
-                       ops.k1_geometry(dt, BATCH, c, side, side)[0] > 0,
-                       (K12_TENSOR_CORES[:2], K12_FMA[:1]))
+                       "tensor cores" if ops.k1_geometry(
+                           dt, BATCH, c, side, side)[0] else "fma",
+                       k12_routes(K12_TENSOR_CORES[:2], K12_FMA[:1]))
             show_route(f"K2 {tag}", t["nafblk_b"][2],
-                       ops.k2_geometry(dt, BATCH, c, f, s)[0] > 0,
-                       (K12_TENSOR_CORES[2:], K12_FMA[1:]))
+                       "tensor cores" if ops.k2_geometry(
+                           dt, BATCH, c, f, s)[0] else "fma",
+                       k12_routes(K12_TENSOR_CORES[2:], K12_FMA[1:]))
             show_route(f"K3 {tag}", t["nafblk_p1"][2],
-                       ops.p1_geometry(dt, BATCH, c, f, s)[0] > 0,
-                       (K34_TENSOR_CORES[:1], K34_FMA[:1]))
+                       k34_route("nafblk_p1", dt, BATCH, c, shw, f),
+                       K3_ROUTES)
             show_route(f"K4 {tag}", t["nafblk_p2"][2],
-                       ops.p2_geometry(dt, BATCH, c, side, side)[0] > 0,
-                       (K34_TENSOR_CORES[1:], K34_FMA[1:]))
+                       k34_route("nafblk_p2", dt, BATCH, c, shw, f),
+                       K4_ROUTES)
         del blk, x32, d32
 
 
@@ -1035,6 +1181,42 @@ def expect_tensor_core_route(names, what: str, backward: bool = False,
     print(f"{what}: ran {', '.join(mma)}"
           + (f" and {', '.join(fma)}" if fma_too else
              f"; none of {', '.join(fma)}"))
+
+
+def expect_fp32_route(trace: dict, what: str, per_step: int = 0,
+                      fma_too: bool = False) -> None:
+    """The fp32 NAFBlocks of a traced step ran K1 and K2 on their FMA
+    kernels and K3 and K4 on the tensor cores as 3xTF32 (every kernel of
+    ``K34_TF32`` among the trace's device kernels), none of the bf16
+    tensor-core kernels, and none of K3/K4's FMA kernels -- or, with
+    ``fma_too`` (a network with blocks at C % 16 != 0), those as well.
+    With ``per_step`` and a complete trace, K3's and K4's kernels of that
+    route recorded ``per_step`` times each."""
+    names = trace["device_kernels"]
+    if not names:
+        print(f"{what}: route not measured (the profiler shows no device "
+              f"time)")
+        return
+    bf16 = K12_TENSOR_CORES + K34_TENSOR_CORES + ("nafblk::wgrad_mma_kernel",)
+    want = K12_FMA + K34_TF32 + (K34_FMA if fma_too else ())
+    missing = [k for k in want if k not in names]
+    wrong = [k for k in bf16 + (() if fma_too else K34_FMA)
+             if k in names and k not in K34_TF32]
+    check(not missing and not wrong, f"{what}: device kernels {missing} "
+          f"missing, {wrong} ran")
+    counts = ""
+    if per_step:
+        recorded, launched = trace["kernel_records"]
+        got = {k: trace["device_counts"].get(k, 0) for k in
+               ("nafblk::k3_tf32_kernel", "nafblk::k4_front_tf32_kernel",
+                "nafblk::k4_back_tf32_kernel")}
+        if recorded == launched:
+            check(all(v == per_step for v in got.values()),
+                  f"{what}: {got} device records, expected {per_step} each")
+        counts = f" ({got} records in the step)"
+    print(f"{what}: ran {', '.join(want)}{counts}; none of "
+          f"{', '.join(k for k in bf16 if k not in K34_TF32)}"
+          + ("" if fma_too else f", {', '.join(K34_FMA)}"))
 
 
 def serving_phase(gen: torch.Generator) -> dict:
@@ -1184,7 +1366,8 @@ def traced_step(what: str, step, state, batch, untraced_ms: float) -> dict:
         print(f"{what} traced step: the profiler shows no device time")
         return {"device_busy_ms": "not measured",
                 "device_idle_share": "not measured", "device_top": {},
-                "device_kernels": [], "kernel_records": [recorded, launched]}
+                "device_kernels": [], "device_counts": {},
+                "kernel_records": [recorded, launched]}
     totals = {k: t / 1e3 for k, (_, t) in records.items()}
     busy = sum(totals.values())
     top = dict(sorted(totals.items(), key=lambda kv: -kv[1])[:12])
@@ -1197,6 +1380,7 @@ def traced_step(what: str, step, state, batch, untraced_ms: float) -> dict:
     return {"device_busy_ms": busy,
             "device_idle_share": 1 - busy / untraced_ms, "device_top": top,
             "device_kernels": sorted(records),
+            "device_counts": {k: n for k, (n, _) in records.items()},
             "kernel_records": [recorded, launched]}
 
 
@@ -1584,7 +1768,8 @@ def config_trainer_run(cfg: Path, exp_root: Path, what: str, steps: int,
            "val_metrics": rec["val"][0][0], "val_wall_s": rec["val"][0][1],
            "launches_per_step": per_step, "wall_s": wall,
            **{k: trace[k] for k in ("device_busy_ms", "device_idle_share",
-                                     "device_kernels", "kernel_records")}}
+                                     "device_kernels", "device_counts",
+                                     "kernel_records")}}
     print(f"{what}: {steps} iterations in {wall:.1f} s; step ms median of "
           f"2-{steps} {ms:.1f} (all {[round(t, 1) for t in rec['step_ms']]})"
           f", data ms median {out['data_ms_per_step']:.2f}, validation "
@@ -1766,6 +1951,7 @@ def stereo_trainer_path() -> dict:
     try:
         trainer, opt, res = config_trainer_run(
             STEREO_CONFIG, tmp / "exp", "path R", A_STEPS, per_step)
+        expect_fp32_route(res, "path R traced step", per_step=32)
         defilter = {"native": imgio.defilter.native,
                     "python": imgio.defilter.python}
         check(defilter["native"] > 0 and defilter["python"] == 0,
@@ -2761,6 +2947,8 @@ def nafssr_path() -> dict:
     per_step = dict(nafblk_a=32, nafblk_b=32, nafblk_p1=32, nafblk_p2=32,
                     ln_fwd=32, ln_bwd=32)
     res = run_steps("NAFSSR", step, state, batch, **per_step)
+    # its 32 K3 and 32 K4 calls a step on the tensor cores (3xTF32)
+    expect_fp32_route(res, "NAFSSR traced step", per_step=32)
     eval_forward("NAFSSR", net, batch["lq"], gt.shape, nafblk_a=32,
                  nafblk_b=32, ln_fwd=32)
 
@@ -3285,7 +3473,8 @@ def tools_path() -> dict:
     ``profile_train`` at its defaults (36 launches of K1-K4 a step, the
     tensor-core route in a traced run); ``profile_step_families`` naming
     K1-K4's device kernels; ``debug_overfit --steps 50`` (both phases
-    fall, K1-K4 on the FMA route at C = 8, 16, 32); ``train_pipeline_e2e --steps 30
+    fall; K1/K2 on the FMA route, K3/K4 on it at C = 8 and as 3xTF32 at
+    C = 16, 32); ``train_pipeline_e2e --steps 30
     --workers 2``; ``make_grain_loader(worker_count=2)`` over the packs
     into ``prefetch_to_device``; ``probe_backend() == "cuda"``."""
     import os
@@ -3431,7 +3620,8 @@ def tools_path() -> dict:
           f"{missing} in {families}")
     secs["profile_step_families"] = time.perf_counter() - t0
 
-    # 5. debug_overfit (fp32: the FMA route at C = 8, 16, 32)
+    # 5. debug_overfit (fp32, blocks at C = 8, 16, 32, 16, 8: K1/K2 on the
+    #    FMA kernels; K3/K4 on them at C = 8, as 3xTF32 at C = 16, 32)
     t0 = time.perf_counter()
     reset_launches()
     overfit = debug_overfit.main(["--steps", str(OVERFIT_STEPS)])
@@ -3444,10 +3634,8 @@ def tools_path() -> dict:
           f"{ {k: (v[0], v[-1]) for k, v in overfit.items()} }")
     _, names = profiled(lambda: debug_overfit.run(
         "l1", 2, 32, torch.device("cuda")))
-    wrong = [k for k in K12_TENSOR_CORES + K34_TENSOR_CORES if k in names]
-    missing = [k for k in K12_FMA + K34_FMA if k not in names]
-    check(not wrong and not missing, f"path U debug_overfit: FMA kernels "
-          f"{missing} missing, tensor-core kernels {wrong} ran")
+    expect_fp32_route({"device_kernels": sorted(names)},
+                      "path U debug_overfit", fma_too=True)
     secs["debug_overfit"] = time.perf_counter() - t0
 
     # 6. train_pipeline_e2e
@@ -3627,14 +3815,24 @@ def main() -> int:
     on = lambda rs, path: [r for r in rs if r["path"] == path]
 
     def nafssr_keys(k):
-        """The kernel's launches and fp32 times in one NAFSSR step."""
-        fp32 = [r for r in rows[k] if r["dtype"] == "float32"]
-        step = summary(k, on(fp32, "nafssr"), 0, "")
-        return dict(nafssr_launches=ssr["launches"][k], nafssr_ms=step["ms"],
-                    nafssr_device_ms=step["device_ms"],
-                    nafssr_plain_ms=step["plain_ms"],
-                    nafssr_bound_ms=step["bound_ms"],
-                    nafssr_library_ms=step["library_ms"])
+        """The kernel's launches and fp32 times in one NAFSSR step; for K3
+        and K4 also the 3xTF32 bound and the FMA route's device time at
+        the same inputs (the first port's kernels)."""
+        fp32 = on([r for r in rows[k] if r["dtype"] == "float32"], "nafssr")
+        step = summary(k, fp32, 0, "")
+        out = dict(nafssr_launches=ssr["launches"][k], nafssr_ms=step["ms"],
+                   nafssr_device_ms=step["device_ms"],
+                   nafssr_plain_ms=step["plain_ms"],
+                   nafssr_bound_ms=step["bound_ms"],
+                   nafssr_library_ms=step["library_ms"])
+        if fp32 and all("tf32_bound_ms" in r for r in fp32):
+            out["nafssr_tf32_bound_ms"] = sum(r["blocks"] * r["tf32_bound_ms"]
+                                              for r in fp32)
+        if fp32 and all(isinstance(r.get("fma_device_ms"), float)
+                        for r in fp32):
+            out["nafssr_fma_device_ms"] = sum(
+                r["blocks"] * r["fma_device_ms"] for r in fp32)
+        return out
 
     def nafnet_tpu_keys(k):
         """The kernel's bf16 times in one NAFNetTPU training step: its

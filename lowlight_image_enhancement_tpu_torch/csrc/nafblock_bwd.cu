@@ -3,14 +3,17 @@
 //
 // Layout as in nafblock_fwd.cu: activations contiguous NCHW viewed as
 // [N, C, H*W]; vectors fp32 [C]; matrices row-major [Cout, Cin], already
-// rounded to the compute type: bf16 for the tensor-core kernels (which feed
-// them to the tensor cores as they are), fp32 (holding bf16 values when the
-// activations are bf16) for the FMA kernels. Every weight gradient is fp32.
+// rounded to the compute type: in the activations' type for the
+// tensor-core kernels (which feed them to the tensor cores as they are),
+// fp32 (holding bf16 values when the activations are bf16) for the FMA
+// kernels. Every weight gradient is fp32.
 //
 // Two routes per kernel, chosen by the wrapper from dtype and shape
 // (ops/nafblock.py:p1_geometry, p2_geometry) and passed as tile > 0 or
-// tile = 0: bf16 with C and F multiples of 16 (one tensor-core step) runs
-// the tensor-core kernels; fp32, and bf16 at any other C, run the FMA
+// tile = 0: C and F multiples of 16 (one tensor-core step) with a tile that
+// fits run the tensor-core kernels -- bf16 products in bf16
+// (nafblock_p1_mma.cuh, nafblock_p2_mma.cuh), each fp32 product as three
+// TF32 products in fp32 (nafblock_tf32.cuh); any other C runs the FMA
 // kernels of the first port, instantiated for the activation type. Their
 // matrices come with rows zero-padded to pitch4 (nafblock_common.cuh), so
 // they take any C and F; the weight gradients come back at true shapes.
@@ -71,10 +74,15 @@
 //   the peak would do in 0.015 ms; the kernel is far from either rate,
 //   and wgmma's 64-row tiles would leave C = 32 and C = 48 half empty.
 //
-//   The FMA route (fp32: TF32 would break the 1e-4 tolerance; bf16 at C or
-//   F no multiple of 16, whose bf16 operands round to bf16 where the
-//   tensor-core route rounds them): k3_kernel owns P pixels and all
-//   channels, like K2;
+//   In fp32 (nafblock_tf32.cuh) the same kernels run every product as
+//   3xTF32 (one TF32 product would break the 1e-4 tolerance): operands
+//   fp32 [channels][P], weights resident up to C = F = 64 and read from
+//   global memory above, k3_tf32_kernel + wgrad_tf32_kernel.
+//
+//   The FMA route (fp32 and bf16 at C or F no multiple of 16, whose bf16
+//   operands round to bf16 where the tensor-core route rounds them; fp32
+//   where no tile of the 3xTF32 kernel fits): k3_kernel owns P pixels and
+//   all channels, like K2;
 //   v, z/xhat2, pth, ds/dp, q/dq and wv stay in shared memory ((4C + 3F)
 //   * P * 4 bytes: P = 32 up to C = F = 256, P = 16 at C = F = 512). It
 //   writes the two operands of each weight gradient to a workspace, and
@@ -112,7 +120,11 @@
 //   block. The round trip of t, dg, h and dt through HBM is ~36 C bytes a
 //   pixel: the price of computing the products once.
 //
-//   The FMA route (fp32, and bf16 at C no multiple of 16). The halo: dt
+//   In fp32 (nafblock_tf32.cuh) the same split runs with fp32 streams and
+//   3xTF32 products: k4_front_tf32_kernel, k4_dw_kernel<K4Tf32> (dt out in
+//   fp32), k4_back_tf32_kernel, wgrad_tf32_kernel.
+//
+//   The FMA route (C no multiple of 16, or no tile that fits). The halo: dt
 //   at a pixel needs du one pixel out, du needs u, so t, and hence x, two
 //   pixels out, and dz one pixel out.
 //   k4a_kernel tiles the image in 2-D like K1: a 16 x 16 halo tile (one
@@ -138,6 +150,7 @@
 #include "nafblock_common.cuh"
 #include "nafblock_p1_mma.cuh"
 #include "nafblock_p2_mma.cuh"
+#include "nafblock_tf32.cuh"
 
 namespace {
 
@@ -627,16 +640,20 @@ bool p1_mma_ok(int C, int F, long long HW, int P, int BX) {
          (long long)k3_mma_smem(C, F, P) <= kSmemLimit;
 }
 
+// E: the element of the operand streams, bf16 (tensor cores in bf16) or
+// float (3xTF32)
+template <typename E>
 struct P1MmaWork {
-  bf16 *v, *h2, *wv, *ds, *dq, *dp;  // operand streams [N, rows, HWp]
+  E *v, *h2, *wv, *ds, *dq, *dp;  // operand streams [N, rows, HWp]
   float *vpart, *dapart, *wpart;
   long long HWp, L;  // padded pixels per image; pixels per wgrad chunk
   int tiles, S;      // pixel tiles per image; wgrad chunks per image
 };
 
-P1MmaWork carve_p1_mma(Carver& cv, int N, int C, int F, long long HW, int P,
-                       int BX) {
-  P1MmaWork w;
+template <typename E>
+P1MmaWork<E> carve_p1_mma(Carver& cv, int N, int C, int F, long long HW,
+                          int P, int BX) {
+  P1MmaWork<E> w;
   w.HWp = (HW + 7) / 8 * 8;
   w.tiles = (int)((HW + P - 1) / P);
   const int wtiles =
@@ -647,12 +664,12 @@ P1MmaWork carve_p1_mma(Carver& cv, int N, int C, int F, long long HW, int P,
   w.L = ((w.HWp + S - 1) / S + kGK - 1) / kGK * kGK;
   w.S = (int)((w.HWp + w.L - 1) / w.L);
   const size_t px = (size_t)N * w.HWp;
-  w.v = cv.take<bf16>(px * C);
-  w.h2 = cv.take<bf16>(px * C);
-  w.wv = cv.take<bf16>(px * F);
-  w.ds = cv.take<bf16>(px * C);
-  w.dq = cv.take<bf16>(px * 2 * F);
-  w.dp = cv.take<bf16>(px * C);
+  w.v = cv.take<E>(px * C);
+  w.h2 = cv.take<E>(px * C);
+  w.wv = cv.take<E>(px * F);
+  w.ds = cv.take<E>(px * C);
+  w.dq = cv.take<E>(px * 2 * F);
+  w.dp = cv.take<E>(px * C);
   w.vpart = cv.take<float>((size_t)N * BX * (6 * C + 2 * F));
   w.dapart = cv.take<float>((size_t)N * BX * C);
   w.wpart = cv.take<float>((size_t)N * w.S *
@@ -705,7 +722,7 @@ cudaError_t run_p1_mma(const P1Args& a, int P, int BX, cudaStream_t s) {
       !aligned16(a.W5))
     return cudaErrorInvalidValue;
   Carver cv{static_cast<char*>(a.ws)};
-  const P1MmaWork w = carve_p1_mma(cv, N, C, F, a.HW, P, BX);
+  const P1MmaWork<bf16> w = carve_p1_mma<bf16>(cv, N, C, F, a.HW, P, BX);
 
   K3Mma k;
   k.x = static_cast<const bf16*>(a.x);
@@ -1176,8 +1193,10 @@ bool p2_mma_ok(int C, int H, int W, int P, int BX, int DX) {
          (long long)k4_back_smem(C, P) <= kSmemLimit;
 }
 
+// E as for P1MmaWork
+template <typename E>
 struct P2MmaWork {
-  bf16 *h, *dt;           // operand streams [N, rows, HWp]
+  E *h, *dt;              // operand streams [N, rows, HWp]
   float *t, *dg;          // [N, 2C, HWp], [N, C, HWp]
   float *mu, *rstd;       // [N, HW]
   float *dwpart, *bpart, *wpart;
@@ -1185,9 +1204,10 @@ struct P2MmaWork {
   int tiles, S;      // pixel tiles per image; wgrad chunks per image
 };
 
-P2MmaWork carve_p2_mma(Carver& cv, int N, int C, int H, int W, int P, int BX,
-                       int DX) {
-  P2MmaWork w;
+template <typename E>
+P2MmaWork<E> carve_p2_mma(Carver& cv, int N, int C, int H, int W, int P,
+                          int BX, int DX) {
+  P2MmaWork<E> w;
   const long long HW = (long long)H * W;
   w.HWp = (HW + 7) / 8 * 8;
   w.tiles = (int)((HW + P - 1) / P);
@@ -1198,8 +1218,8 @@ P2MmaWork carve_p2_mma(Carver& cv, int N, int C, int H, int W, int P, int BX,
   w.L = ((w.HWp + S - 1) / S + kGK - 1) / kGK * kGK;
   w.S = (int)((w.HWp + w.L - 1) / w.L);
   const size_t px = (size_t)N * w.HWp;
-  w.h = cv.take<bf16>(px * C);
-  w.dt = cv.take<bf16>(px * 2 * C);
+  w.h = cv.take<E>(px * C);
+  w.dt = cv.take<E>(px * 2 * C);
   w.t = cv.take<float>(px * 2 * C);
   w.dg = cv.take<float>(px * C);
   w.mu = cv.take<float>((size_t)N * HW);
@@ -1237,7 +1257,8 @@ cudaError_t run_p2_mma(const P2Args& a, int P, int BX, int DX,
       !aligned16(a.W3))
     return cudaErrorInvalidValue;
   Carver cv{static_cast<char*>(a.ws)};
-  const P2MmaWork w = carve_p2_mma(cv, N, C, a.H, a.W, P, BX, DX);
+  const P2MmaWork<bf16> w = carve_p2_mma<bf16>(cv, N, C, a.H, a.W, P, BX,
+                                               DX);
 
   K4Mma k;
   k.x = static_cast<const bf16*>(a.x);
@@ -1278,7 +1299,7 @@ cudaError_t run_p2_mma(const P2Args& a, int P, int BX, int DX,
   cudaError_t err;
   if ((err = launch_kernel(ker.front, grid, k4_front_smem(C, P), k, s)))
     return err;
-  if ((err = launch_kernel((const void*)k4_dw_kernel,
+  if ((err = launch_kernel((const void*)k4_dw_kernel<K4Mma>,
                            dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0,
                            k, s)))
     return err;
@@ -1302,6 +1323,202 @@ cudaError_t run_p2_mma(const P2Args& a, int P, int BX, int DX,
   g.L = w.L;
   wgrad_mma_kernel<<<dim3((unsigned)wtiles, (unsigned)w.S, (unsigned)N),
                      kThreads, 0, s>>>(g);
+  if ((err = cudaGetLastError())) return err;
+  return launch_sum_rows(w.wpart, grads, 1, N * w.S, g.V, s);
+}
+
+// ---------------------------------------------------------------------------
+// K3 and K4 in fp32 on the tensor cores (3xTF32, nafblock_tf32.cuh): the
+// kernels and launch sequence of the bf16 route, fp32 operands and
+// streams. The wrapper chooses the tile and grids (ops/nafblock.py:
+// p1_geometry, p2_geometry with dtype fp32); here they are only checked.
+// ---------------------------------------------------------------------------
+
+bool p1_tf32_ok(int C, int F, long long HW, int P, int BX) {
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && F % 16 == 0 &&
+         C > 0 && F > 0 && BX >= 1 && BX <= (HW + P - 1) / P &&
+         (long long)k3_tf32_smem(C, F, P) <= kSmemLimit;
+}
+
+template <int P>
+const void* k3_tf32_kernel_p(int C, int F) {
+  return resident(C, F) ? (const void*)k3_tf32_kernel<P, true>
+                        : (const void*)k3_tf32_kernel<P, false>;
+}
+
+const void* k3_tf32_kernel_for(int C, int F, int P) {
+  return P == 32   ? k3_tf32_kernel_p<32>(C, F)
+         : P == 16 ? k3_tf32_kernel_p<16>(C, F)
+                   : k3_tf32_kernel_p<8>(C, F);
+}
+
+cudaError_t run_p1_tf32(const P1Args& a, int P, int BX, cudaStream_t s) {
+  const int C = a.C, F = a.F, N = a.N;
+  if (!p1_tf32_ok(C, F, a.HW, P, BX) || !aligned16(a.W3) ||
+      !aligned16(a.W4) || !aligned16(a.W5))
+    return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const P1MmaWork<float> w = carve_p1_mma<float>(cv, N, C, F, a.HW, P, BX);
+
+  K3Tf32 k;
+  k.x = static_cast<const float*>(a.x);
+  k.g = static_cast<const float*>(a.g);
+  k.dout = static_cast<const float*>(a.dout);
+  k.att = static_cast<const float*>(a.att);
+  k.W3 = static_cast<const float*>(a.W3);
+  k.W4 = static_cast<const float*>(a.W4);
+  k.W5 = static_cast<const float*>(a.W5);
+  k.b3 = static_cast<const float*>(a.b3);
+  k.w2n = static_cast<const float*>(a.w2n);
+  k.b2n = static_cast<const float*>(a.b2n);
+  k.b4 = static_cast<const float*>(a.b4);
+  k.b5 = static_cast<const float*>(a.b5);
+  k.beta = static_cast<const float*>(a.beta);
+  k.gamma = static_cast<const float*>(a.gamma);
+  k.dz = static_cast<float*>(a.dz);
+  k.v_o = w.v;
+  k.h2_o = w.h2;
+  k.wv_o = w.wv;
+  k.ds_o = w.ds;
+  k.dq_o = w.dq;
+  k.dp_o = w.dp;
+  k.vpart = w.vpart;
+  k.dapart = w.dapart;
+  k.C = C;
+  k.F = F;
+  k.HW = a.HW;
+  k.HWp = w.HWp;
+  k.tiles = w.tiles;
+  k.vec = a.HW % 4 == 0 && aligned16(a.x) && aligned16(a.g) &&
+          aligned16(a.dout);
+  k.eps = a.eps;
+  cudaError_t err =
+      launch_kernel(k3_tf32_kernel_for(C, F, P), dim3((unsigned)BX, (unsigned)N),
+                    k3_tf32_smem(C, F, P), k, s);
+  if (err != cudaSuccess) return err;
+
+  float* grads = static_cast<float*>(a.grads);
+  const long long V = (long long)C * C + (long long)3 * F * C;
+  if ((err = launch_sum_rows(w.vpart, grads + V, 1, N * BX, 6 * C + 2 * F,
+                             s)))
+    return err;
+  if ((err = launch_sum_rows(w.dapart, static_cast<float*>(a.da), N, BX, C,
+                             s)))
+    return err;
+
+  // dW3 = dp v^T, dW4 = dq h2^T, dW5 = ds wv^T, in the order of grads
+  WgradTf32 g;
+  g.prod[0] = {w.dp, w.v, C, C, 0, 0};
+  g.prod[1] = {w.dq, w.h2, 2 * F, C, (long long)C * C, wgrad_tiles(C, C)};
+  g.prod[2] = {w.ds, w.wv, C, F, (long long)C * C + (long long)2 * F * C,
+               wgrad_tiles(C, C) + wgrad_tiles(2 * F, C)};
+  g.part = w.wpart;
+  g.V = V;
+  g.HWp = w.HWp;
+  g.L = w.L;
+  const unsigned wtiles = (unsigned)(g.prod[2].tile0 + wgrad_tiles(C, F));
+  wgrad_tf32_kernel<<<dim3(wtiles, (unsigned)w.S, (unsigned)N), kThreads, 0,
+                      s>>>(g);
+  if ((err = cudaGetLastError())) return err;
+  return launch_sum_rows(w.wpart, grads, 1, N * w.S, V, s);
+}
+
+bool p2_tf32_ok(int C, int H, int W, int P, int BX, int DX) {
+  const long long HW = (long long)H * W;
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && C > 0 &&
+         BX >= 1 && BX <= (HW + P - 1) / P && DX >= 1 &&
+         DX <= dw_tiles(H, W) &&
+         (long long)k4_front_tf32_smem(C, P) <= kSmemLimit &&
+         (long long)k4_back_tf32_smem(C, P) <= kSmemLimit;
+}
+
+template <int P>
+K4Kernels k4_tf32_kernels_p(int C) {
+  if (p2_resident(C))
+    return {(const void*)k4_front_tf32_kernel<P, true>,
+            (const void*)k4_back_tf32_kernel<P, true>};
+  return {(const void*)k4_front_tf32_kernel<P, false>,
+          (const void*)k4_back_tf32_kernel<P, false>};
+}
+
+K4Kernels k4_tf32_kernels(int C, int P) {
+  return P == 32 ? k4_tf32_kernels_p<32>(C)
+                 : P == 16 ? k4_tf32_kernels_p<16>(C)
+                           : k4_tf32_kernels_p<8>(C);
+}
+
+cudaError_t run_p2_tf32(const P2Args& a, int P, int BX, int DX,
+                        cudaStream_t s) {
+  const int C = a.C, N = a.N;
+  if (!p2_tf32_ok(C, a.H, a.W, P, BX, DX) || !aligned16(a.W1) ||
+      !aligned16(a.W3))
+    return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const P2MmaWork<float> w =
+      carve_p2_mma<float>(cv, N, C, a.H, a.W, P, BX, DX);
+
+  K4Tf32 k;
+  k.x = static_cast<const float*>(a.x);
+  k.dz = static_cast<const float*>(a.dz);
+  k.dgc = static_cast<const float*>(a.dgc);
+  k.att = static_cast<const float*>(a.att);
+  k.w1n = static_cast<const float*>(a.w1n);
+  k.b1n = static_cast<const float*>(a.b1n);
+  k.b1 = static_cast<const float*>(a.b1);
+  k.kdw = static_cast<const float*>(a.kdw);
+  k.bk = static_cast<const float*>(a.bk);
+  k.beta = static_cast<const float*>(a.beta);
+  k.W1 = static_cast<const float*>(a.W1);
+  k.W3 = static_cast<const float*>(a.W3);
+  k.dx = static_cast<float*>(a.dx);
+  k.h_o = w.h;
+  k.dt_o = w.dt;
+  k.t_o = w.t;
+  k.dg_o = w.dg;
+  k.mu_o = w.mu;
+  k.rstd_o = w.rstd;
+  k.dwpart = w.dwpart;
+  k.bpart = w.bpart;
+  k.C = C;
+  k.H = a.H;
+  k.W = a.W;
+  k.HW = (long long)a.H * a.W;
+  k.HWp = w.HWp;
+  k.tiles = w.tiles;
+  k.vec = k.HW % 4 == 0 && aligned16(a.x) && aligned16(a.dz);
+  k.eps = a.eps;
+
+  float* grads = static_cast<float*>(a.grads);
+  float* vec_d = grads + (size_t)2 * C * C;       // [11][2C]
+  float* vec_b = vec_d + (size_t)kBRed * 2 * C;   // [dw1n C | db1n C]
+  const K4Kernels ker = k4_tf32_kernels(C, P);
+  const dim3 grid((unsigned)BX, (unsigned)N);
+  cudaError_t err;
+  if ((err = launch_kernel(ker.front, grid, k4_front_tf32_smem(C, P), k, s)))
+    return err;
+  if ((err = launch_kernel((const void*)k4_dw_kernel<K4Tf32>,
+                           dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0,
+                           k, s)))
+    return err;
+  if ((err = launch_sum_rows(w.dwpart, vec_d, 1, N * DX,
+                             (long long)kDwRed * C, s)))
+    return err;
+  if ((err = launch_kernel(ker.back, grid, k4_back_tf32_smem(C, P), k, s)))
+    return err;
+  if ((err = launch_sum_rows_split(w.bpart, vec_b, 1, N * BX, 2 * C, s)))
+    return err;
+
+  // dW1 = dt h^T: the one product of wgrad_tf32_kernel
+  WgradTf32 g;
+  const int wtiles = wgrad_tiles(2 * C, C);
+  g.prod[0] = {w.dt, w.h, 2 * C, C, 0, 0};
+  g.prod[1] = g.prod[2] = {w.dt, w.h, 2 * C, C, 0, wtiles};
+  g.part = w.wpart;
+  g.V = (long long)2 * C * C;
+  g.HWp = w.HWp;
+  g.L = w.L;
+  wgrad_tf32_kernel<<<dim3((unsigned)wtiles, (unsigned)w.S, (unsigned)N),
+                      kThreads, 0, s>>>(g);
   if ((err = cudaGetLastError())) return err;
   return launch_sum_rows(w.wpart, grads, 1, N * w.S, g.V, s);
 }
@@ -1331,15 +1548,30 @@ int nafblk_p1_mma_blocks_per_sm(int C, int F, int P) {
                    : k3_mma_occupancy<8>(C, F);
 }
 
+// The same two counts for the fp32 K3 on the tensor cores (3xTF32).
+long long nafblk_p1_tf32_smem(int C, int F, int P) {
+  return (long long)k3_tf32_smem(C, F, P);
+}
+int nafblk_p1_tf32_blocks_per_sm(int C, int F, int P) {
+  if (!p1_tf32_ok(C, F, P, P, 1)) return -1;
+  return occupancy(k3_tf32_kernel_for(C, F, P), k3_tf32_smem(C, F, P));
+}
+
 // Workspace bytes nafblk_p1 needs (-1: the shape or route is not taken).
 // tile, grid: pixels per block (8, 16 or 32) and blocks per image of the
-// tensor-core route (bf16 only); tile = 0 chooses the FMA route.
+// tensor-core route (bf16 products, or fp32 as 3xTF32); tile = 0 chooses
+// the FMA route.
 long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16,
                               int tile, int grid) {
   Carver cv{nullptr};
   if (tile > 0) {
-    if (!is_bf16 || !p1_mma_ok(C, F, HW, tile, grid)) return -1;
-    carve_p1_mma(cv, N, C, F, HW, tile, grid);
+    if (is_bf16 ? !p1_mma_ok(C, F, HW, tile, grid)
+                : !p1_tf32_ok(C, F, HW, tile, grid))
+      return -1;
+    if (is_bf16)
+      carve_p1_mma<bf16>(cv, N, C, F, HW, tile, grid);
+    else
+      carve_p1_mma<float>(cv, N, C, F, HW, tile, grid);
   } else {
     const int P = p1_pixels(C, F);
     if (P == 0) return -1;
@@ -1354,8 +1586,9 @@ long long nafblk_p1_workspace(int N, int C, int F, long long HW, int is_bf16,
 // ws: workspace. tile = 0: the FMA route (W3, W4, W5 fp32, holding bf16
 // values when is_bf16, rows zero-padded to pitch4: W3 [C, pitch4(C)], W4
 // [2F, pitch4(C)], W5 [C, pitch4(F)]; any C, F with nafblk_p1_pixels > 0);
-// tile > 0: the tensor-core route (bf16 with W3, W4, W5 bf16, C % 16 == 0,
-// F % 16 == 0, a tile that fits and 1 <= grid <= the image's tiles).
+// tile > 0: the tensor-core route (W3, W4, W5 in the activations' type:
+// bf16 products, or fp32 as 3xTF32; C % 16 == 0, F % 16 == 0, a tile that
+// fits and 1 <= grid <= the image's tiles).
 int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
               const void* W3, const void* b3, const void* w2n, const void* b2n,
               const void* W4, const void* b4, const void* W5, const void* b5,
@@ -1367,7 +1600,7 @@ int nafblk_p1(const void* x, const void* g, const void* dout, const void* att,
                  gamma, dz, da, grads, ws, N, C, F, HW, eps};
   if (tile > 0)
     return is_bf16 ? (int)run_p1_mma(a, tile, grid, s)
-                   : (int)cudaErrorInvalidValue;
+                   : (int)run_p1_tf32(a, tile, grid, s);
   if (is_bf16) return (int)run_p1<bf16>(a, s);
   return (int)run_p1<float>(a, s);
 }
@@ -1393,7 +1626,23 @@ int nafblk_p2_mma_blocks_per_sm(int C, int P) {
 
 // Blocks of the bf16 K4's depthwise kernel that share one SM.
 int nafblk_p2_dw_blocks_per_sm() {
-  return occupancy((const void*)k4_dw_kernel, 0);
+  return occupancy((const void*)k4_dw_kernel<K4Mma>, 0);
+}
+
+// The same three counts for the fp32 K4 on the tensor cores (3xTF32).
+long long nafblk_p2_tf32_smem(int C, int P) {
+  const size_t f = k4_front_tf32_smem(C, P), b = k4_back_tf32_smem(C, P);
+  return (long long)(f > b ? f : b);
+}
+int nafblk_p2_tf32_blocks_per_sm(int C, int P) {
+  if (!p2_tf32_ok(C, 1, P, P, 1, 1)) return -1;
+  const K4Kernels ker = k4_tf32_kernels(C, P);
+  const int f = occupancy(ker.front, k4_front_tf32_smem(C, P));
+  const int b = occupancy(ker.back, k4_back_tf32_smem(C, P));
+  return f < b ? f : b;
+}
+int nafblk_p2_tf32_dw_blocks_per_sm() {
+  return occupancy((const void*)k4_dw_kernel<K4Tf32>, 0);
 }
 
 // Pixels per block of K4's FMA back kernel k4b_kernel (0: the shape does
@@ -1403,13 +1652,19 @@ int nafblk_p2_pixels(int C) { return p2_pixels(C); }
 // Workspace bytes nafblk_p2 needs (-1: the shape or route is not taken).
 // tile, grid, dw_grid: the tensor-core route's pixels per tile (8, 16 or
 // 32), blocks per image of the pixel-tile kernels and of the depthwise
-// kernel (bf16 only); tile = 0 chooses the FMA route.
+// kernel (bf16 products, or fp32 as 3xTF32); tile = 0 chooses the FMA
+// route.
 long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16,
                               int tile, int grid, int dw_grid) {
   Carver cv{nullptr};
   if (tile > 0) {
-    if (!is_bf16 || !p2_mma_ok(C, H, W, tile, grid, dw_grid)) return -1;
-    carve_p2_mma(cv, N, C, H, W, tile, grid, dw_grid);
+    if (is_bf16 ? !p2_mma_ok(C, H, W, tile, grid, dw_grid)
+                : !p2_tf32_ok(C, H, W, tile, grid, dw_grid))
+      return -1;
+    if (is_bf16)
+      carve_p2_mma<bf16>(cv, N, C, H, W, tile, grid, dw_grid);
+    else
+      carve_p2_mma<float>(cv, N, C, H, W, tile, grid, dw_grid);
   } else {
     const int P = p2_pixels(C);
     if (P == 0) return -1;
@@ -1423,8 +1678,9 @@ long long nafblk_p2_workspace(int N, int C, int H, int W, int is_bf16,
 // (9 rows), dbk, db1 | dw1n C | db1n C]; ws: workspace. tile = 0: the FMA
 // route (W1, W3 fp32, holding bf16 values when is_bf16, rows zero-padded to
 // pitch4(C); any C);
-// tile > 0: the tensor-core route (bf16 with W1, W3 bf16, C % 16 == 0 and
-// the geometry nafblk_p2_workspace takes).
+// tile > 0: the tensor-core route (W1, W3 in the activations' type: bf16
+// products, or fp32 as 3xTF32; C % 16 == 0 and the geometry
+// nafblk_p2_workspace takes).
 int nafblk_p2(const void* x, const void* dz, const void* dgc, const void* att,
               const void* w1n, const void* b1n, const void* W1, const void* b1,
               const void* kdw, const void* bk, const void* W3,
@@ -1436,7 +1692,7 @@ int nafblk_p2(const void* x, const void* dz, const void* dgc, const void* att,
                  dx, grads, ws, N, C, H, W, eps};
   if (tile > 0)
     return is_bf16 ? (int)run_p2_mma(a, tile, grid, dw_grid, s)
-                   : (int)cudaErrorInvalidValue;
+                   : (int)run_p2_tf32(a, tile, grid, dw_grid, s);
   if (is_bf16) return (int)run_p2<bf16>(a, s);
   return (int)run_p2<float>(a, s);
 }

@@ -241,6 +241,8 @@ __global__ void __launch_bounds__(kThreads, RES ? kP2ResidentBlocks : 2)
 // dt out: 16 C bytes a pixel); a block's tile is a chain of three phases
 // (loads, u and du on the ring, the own pixels), so a thread takes 4
 // output pixels and issues all of a phase's loads at once.
+// Args is K4Mma (dt out in bf16) or K4Tf32 of nafblock_tf32.cuh (dt out
+// in fp32, the operand of the 3xTF32 products).
 // ---------------------------------------------------------------------------
 
 constexpr int kDwRows = 4;  // output rows a thread (8 rows apart)
@@ -258,8 +260,14 @@ __host__ __device__ inline int dw_tiles(int H, int W) {
   return ((H + kDwH - 1) / kDwH) * ((W + kDwW - 1) / kDwW);
 }
 
+__device__ __forceinline__ void store_dt(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_dt(float* p, float v) { *p = v; }
+
+template <typename Args>
 __global__ void __launch_bounds__(kThreads, kDwBlocks)
-    k4_dw_kernel(const K4Mma a) {
+    k4_dw_kernel(const Args a) {
   __shared__ float t_s[2][kDwTH * kDwTW];
   __shared__ float du_s[2][kDwUH * kDwUW];
   __shared__ float red_s[kThreads / 32][kDwRed];
@@ -273,8 +281,8 @@ __global__ void __launch_bounds__(kThreads, kDwBlocks)
   const float* ta = a.t_o + ((long long)n * 2 * C + j) * HWp;
   const float* tb = ta + (long long)C * HWp;
   const float* dgr = a.dg_o + ((long long)n * C + j) * HWp;
-  bf16* dta = a.dt_o + ((long long)n * 2 * C + j) * HWp;
-  bf16* dtb = dta + (long long)C * HWp;
+  auto* dta = a.dt_o + ((long long)n * 2 * C + j) * HWp;
+  auto* dtb = dta + (long long)C * HWp;
 
   float ka[9], kb[9];
 #pragma unroll
@@ -362,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, kDwBlocks)
           }
         acc[ch * 11 + 9] += du;
         acc[ch * 11 + 10] += dt;
-        (ch ? dtb : dta)[(long long)gr * W + gc] = __float2bfloat16_rn(dt);
+        store_dt((ch ? dtb : dta) + (long long)gr * W + gc, dt);
       }
     }
   }

@@ -20,8 +20,12 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# -split-compile=0 optimizes a source's kernels in parallel on every CPU:
+# nafblock_bwd.cu, the longest source, holds dozens of template instances,
+# and its build is the longest part of the first use
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,11 +50,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "nafblk_p1_mma_smem": (_L, [_I, _I, _I]),
         "nafblk_smem_limit": (_L, []),
         "nafblk_p1_mma_blocks_per_sm": (_I, [_I, _I, _I]),
+        "nafblk_p1_tf32_smem": (_L, [_I, _I, _I]),
+        "nafblk_p1_tf32_blocks_per_sm": (_I, [_I, _I, _I]),
         "nafblk_p1_workspace": (_L, [_I, _I, _I, _L, _I, _I, _I]),
         "nafblk_p1": (_I, [_P] * 18 + [_I, _I, _I, _L, _F, _I, _I, _I, _P]),
         "nafblk_p2_mma_smem": (_L, [_I, _I]),
         "nafblk_p2_mma_blocks_per_sm": (_I, [_I, _I]),
         "nafblk_p2_dw_blocks_per_sm": (_I, []),
+        "nafblk_p2_tf32_smem": (_L, [_I, _I]),
+        "nafblk_p2_tf32_blocks_per_sm": (_I, [_I, _I]),
+        "nafblk_p2_tf32_dw_blocks_per_sm": (_I, []),
         "nafblk_p2_pixels": (_I, [_I]),
         "nafblk_p2_workspace": (_L, [_I] * 8),
         "nafblk_p2": (_I, [_P] * 15 + [_I, _I, _I, _I, _F, _I, _I, _I, _I,

@@ -33,14 +33,21 @@ failure:
   tile and grids of :func:`k1_geometry`, K2 as ``k2_mma_kernel``
   (:func:`k2_geometry`), K3 as ``k3_mma_kernel`` (:func:`p1_geometry`), K4
   as its front, depthwise and back kernels (:func:`p2_geometry`);
-- fp32 runs the FMA kernels (TF32 would break the 1e-4 tolerance), and so
-  does bf16 at any other C and F, all four kernels alike: the FMA kernels
-  are instantiated for bf16 activations, with every product operand
-  rounded to bf16 as the tensor-core route rounds it. They read matrix
-  rows as float4, so each matrix reaches them with its rows zero-padded to
-  a multiple of 4 (:func:`padded_matrices`, once per block forward); the
-  activations keep their true C and the weight grads their true shapes. A
-  bf16 block whose forward runs on the card runs its backward there too.
+- fp32 K3 and K4 with C (and F) a multiple of 16 and a tile that fits run
+  on the tensor cores too, each product as three TF32 products
+  ("3xTF32": one would break the 1e-4 tolerance), as
+  ``k3_tf32_kernel`` and ``k4_front_tf32_kernel``, ``k4_dw_kernel``,
+  ``k4_back_tf32_kernel`` with ``wgrad_tf32_kernel`` (the geometry
+  functions' ``dtype=torch.float32`` forms);
+- everything else runs the FMA kernels: fp32 K1 and K2, fp32 K3 and K4 at
+  other C, and bf16 at any other C and F, all four kernels alike: the FMA
+  kernels are instantiated for bf16 activations, with every product
+  operand rounded to bf16 as the tensor-core route rounds it. They read
+  matrix rows as float4, so each matrix reaches them with its rows
+  zero-padded to a multiple of 4 (:func:`padded_matrices`, once per block
+  forward); the activations keep their true C and the weight grads their
+  true shapes. A bf16 block whose forward runs on the card runs its
+  backward there too.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
@@ -670,6 +677,16 @@ P1_SLAB_BYTES = 3 * 128 * 32 * 2
 P1_RESIDENT_MAX = 64
 SM_SMEM = 233472
 P1_BLOCKS_BY_REGISTERS = {False: 2, True: 3}  # ring / resident weights
+# The fp32 K3 on the tensor cores (csrc/nafblock_tf32.cuh, 3xTF32): the
+# same tiles and phases with fp32 operands [channels][rows]; up to 64
+# channels the three matrices stay resident in fp32 (rows padded by 8)
+# with the 13C + 4F vectors and partials, above no shared memory goes to
+# weights (each warp reads its rows of them from global memory). Blocks
+# that its registers allow on an SM, by (resident weights, tile), as the
+# CUDA runtime counts them for the built kernel on an H100 (chip_smoke.py
+# holds them against it).
+P1_TF32_BLOCKS_BY_REGISTERS = {(False, 32): 2, (False, 16): 2, (False, 8): 2,
+                               (True, 32): 3, (True, 16): 3, (True, 8): 3}
 # A tile's time grows as overhead + pixels: the weight slabs a block walks
 # do not depend on its pixels. Fitted on an H100 to k3_mma_kernel at every
 # tile that fits (the table is in PERF.md; at C=128 on 96x96, five waves
@@ -677,25 +694,39 @@ P1_BLOCKS_BY_REGISTERS = {False: 2, True: 3}  # ring / resident weights
 P1_TILE_OVERHEAD = 72
 
 
-def p1_smem_bytes(c: int, f: int, tile: int) -> int:
-    """Dynamic shared memory of the bf16 K3 with ``tile`` pixels per block:
-    bf16 ``v|h2, wv -> dq`` (``max(C + F, 2F)`` rows) and ``ds -> dp`` (C
-    rows), fp32 ``z``, ``pth`` (C rows each) and ``q`` (2F rows), and the
-    weight slabs or the resident weights."""
+def p1_smem_bytes(c: int, f: int, tile: int,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of K3 on the tensor cores with ``tile`` pixels
+    per block: the operands ``v|h2, wv -> dq`` (``max(C + F, 2F)`` rows)
+    and ``ds -> dp`` (C rows) in ``dtype`` (bf16, or fp32 for 3xTF32),
+    fp32 ``z``, ``pth`` (C rows each) and ``q`` (2F rows), and the weights:
+    in bf16 the slabs or the resident matrices, in fp32 the resident
+    matrices or none."""
     ldb = tile if tile == 8 else tile + 8
+    resident = c <= P1_RESIDENT_MAX and f <= P1_RESIDENT_MAX
+    mats = (c + 2 * f) * (c + 8) + c * (f + 8)
+    if dtype == torch.float32:
+        weights = mats + 13 * c + 4 * f if resident else 0
+        return ((max(c + f, 2 * f) + c) * ldb + (2 * c + 2 * f) * tile
+                + weights) * 4
     weights = P1_SLAB_BYTES
-    if c <= P1_RESIDENT_MAX and f <= P1_RESIDENT_MAX:
-        weights = (((c + 2 * f) * (c + 8) + c * (f + 8)) * 2
-                   + (13 * c + 4 * f) * 4)
+    if resident:
+        weights = mats * 2 + (13 * c + 4 * f) * 4
     return ((max(c + f, 2 * f) + c) * ldb * 2 + (2 * c + 2 * f) * tile * 4
             + weights)
 
 
-def p1_blocks_per_sm(c: int, f: int, tile: int) -> int:
-    """Blocks of the bf16 K3 that share an SM: as many as its registers
-    and its shared memory (dynamic, 2 KB static, 1 KB reserved) allow."""
-    by_regs = P1_BLOCKS_BY_REGISTERS[max(c, f) <= P1_RESIDENT_MAX]
-    return min(by_regs, SM_SMEM // (p1_smem_bytes(c, f, tile) + 2048 + 1024))
+def p1_blocks_per_sm(c: int, f: int, tile: int,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks of K3 on the tensor cores (bf16, or fp32 for 3xTF32) that
+    share an SM: as many as its registers and its shared memory (dynamic,
+    2 KB static, 1 KB reserved) allow."""
+    resident = max(c, f) <= P1_RESIDENT_MAX
+    by_regs = (P1_TF32_BLOCKS_BY_REGISTERS[resident, tile]
+               if dtype == torch.float32 else
+               P1_BLOCKS_BY_REGISTERS[resident])
+    return min(by_regs, SM_SMEM // (p1_smem_bytes(c, f, tile, dtype)
+                                    + 2048 + 1024))
 
 
 def _least_waves_tile(n: int, s: int, smem, per_sm) -> int:
@@ -715,24 +746,30 @@ def _least_waves_tile(n: int, s: int, smem, per_sm) -> int:
     return best
 
 
-def p1_grid(n: int, c: int, f: int, s: int, tile: int) -> int:
-    """Blocks per image of the bf16 K3 (``layernorm.one_round``)."""
-    return one_round(n, s, tile, p1_blocks_per_sm(c, f, tile))
+def p1_grid(n: int, c: int, f: int, s: int, tile: int,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks per image of K3 on the tensor cores
+    (``layernorm.one_round``)."""
+    return one_round(n, s, tile, p1_blocks_per_sm(c, f, tile, dtype))
 
 
-def p1_tile(n: int, c: int, f: int, s: int) -> int:
-    """Pixels per block of the bf16 K3 on ``[N, C, S]``
-    (:func:`_least_waves_tile` over :func:`p1_smem_bytes` and
-    :func:`p1_blocks_per_sm`). 0 when no tile fits or ``C``, ``F`` are no
-    multiples of 16 (the depth of one tensor-core step)."""
+def p1_tile(n: int, c: int, f: int, s: int,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Pixels per block of K3 on the tensor cores on a ``dtype`` ``[N, C,
+    S]`` (:func:`_least_waves_tile` over :func:`p1_smem_bytes` and
+    :func:`p1_blocks_per_sm`; the fp32 kernel's time is taken to grow with
+    a tile as the bf16 one's). 0 when no tile fits or ``C``, ``F`` are no
+    multiples of 16 (the depth of one bf16 tensor-core step, two of
+    TF32)."""
     if c % 16 or f % 16:
         return 0
-    return _least_waves_tile(n, s, lambda t: p1_smem_bytes(c, f, t),
-                             lambda t: p1_blocks_per_sm(c, f, t))
+    return _least_waves_tile(n, s, lambda t: p1_smem_bytes(c, f, t, dtype),
+                             lambda t: p1_blocks_per_sm(c, f, t, dtype))
 
 
 # Pixels per block of the FMA route of K3 and K4 (csrc/nafblock_bwd.cu:
-# p1_pixels, p2_pixels; fp32, and bf16 at C or F no multiple of 16): K3
+# p1_pixels, p2_pixels; C or F no multiple of 16, or no tensor-core tile
+# that fits): K3
 # keeps (4C + 3F) fp32 rows of P pixels in shared memory, K4's back kernel
 # 4C. chip_smoke.py holds both against the built library's counts.
 def p1_fma_pixels(c: int, f: int) -> int:
@@ -743,13 +780,17 @@ def p1_fma_pixels(c: int, f: int) -> int:
     return 0
 
 
+_MMA_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def p1_geometry(dtype: torch.dtype, n: int, c: int, f: int,
                 s: int) -> Tuple[int, int]:
-    """``(tile, grid)`` of K3's tensor-core route on a bf16 ``[N, C, S]``
-    input (:func:`p1_tile`, :func:`p1_grid`). ``(0, 0)`` chooses the FMA
-    route: fp32, or C, F no multiples of 16, or too wide for any tile."""
-    tile = p1_tile(n, c, f, s) if dtype == torch.bfloat16 else 0
-    return (tile, p1_grid(n, c, f, s, tile)) if tile else (0, 0)
+    """``(tile, grid)`` of K3's tensor-core route on a ``dtype`` ``[N, C,
+    S]`` input (:func:`p1_tile`, :func:`p1_grid`): bf16 products in bf16,
+    3xTF32 in fp32. ``(0, 0)`` chooses the FMA route: C, F no multiples of
+    16, or too wide for any tile."""
+    tile = p1_tile(n, c, f, s, dtype) if dtype in _MMA_DTYPES else 0
+    return (tile, p1_grid(n, c, f, s, tile, dtype)) if tile else (0, 0)
 
 
 def rounded_matrices(p: Params, dt: torch.dtype) -> Params:
@@ -766,8 +807,8 @@ def rounded_matrices(p: Params, dt: torch.dtype) -> Params:
 def p1_operands(p: Params, cdt: torch.dtype, mma: bool = True) -> list:
     """K3's ten parameters as its kernels take them: W3, W4, W5 rounded to
     ``cdt`` and handed over in ``cdt`` on the tensor-core route (``mma``:
-    bf16 matrices go to the tensor cores as they are), in fp32 on the FMA
-    route; vectors fp32."""
+    bf16 matrices go to the tensor cores as they are, fp32 ones are split
+    in the kernel), in fp32 on the FMA route; vectors fp32."""
     return _kernel_args(p, _B_PARAMS, cdt,
                         matrices=cdt if mma else torch.float32)
 
@@ -776,11 +817,30 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
             att: torch.Tensor, p: Params, eps: float = 1e-6):
     """K3 on ``x, g, dout: [N, C, H*W]``, ``att: [N, C]`` -> ``(dz, da,
     grads)``; plain version on CPU. On CUDA the route follows
-    :func:`p1_geometry`: the tensor-core kernels, or the FMA kernel (fp32,
-    and bf16 with C or F no multiple of 16; any C, F, the matrix rows
-    padded as in :func:`call_a`). The weight grads come at true shapes."""
+    :func:`p1_geometry`: the tensor-core kernels (bf16, or fp32 as
+    3xTF32), or the FMA kernel (C or F no multiple of 16, or no tile that
+    fits; any C, F, the matrix rows padded as in :func:`call_a`). The
+    weight grads come at true shapes."""
     if not x.is_cuda:
         return plain_p1(x, g, dout, att, p, eps)
+    n, c, s = x.shape
+    tile, grid = p1_geometry(x.dtype, n, c, p["W4"].shape[0] // 2, s)
+    out = launch_p1(x, g, dout, att, p, eps, tile, grid)
+    call_p1.launches += 1
+    return out
+
+
+call_p1.launches = 0
+
+
+def launch_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
+              att: torch.Tensor, p: Params, eps: float, tile: int,
+              grid: int):
+    """K3's kernels on CUDA tensors on the route ``tile`` names (> 0: the
+    tensor-core kernels with that tile and grid; 0: the FMA kernel) ->
+    what :func:`call_p1` returns, uncounted. :func:`call_p1` chooses the
+    route from dtype and shape alone; ``chip_smoke.py`` also runs the FMA
+    route where the tensor cores are chosen, to time both in one run."""
     n, c, s = x.shape
     p = padded_matrices(p)
     f = p["W4"].shape[0] // 2
@@ -793,11 +853,12 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
     _check_cuda(x, p, _B_PARAMS)
     lib = _build.load("nafblock_bwd")
     bf16 = int(x.dtype == torch.bfloat16)
-    tile, grid = p1_geometry(x.dtype, n, c, f, s)
     ws_bytes = lib.nafblk_p1_workspace(n, c, f, s, bf16, tile, grid)
     if ws_bytes < 0:
-        raise ValueError(f"K3's FMA route keeps (4C+3F) x 8 fp32 values per "
-                         f"block in shared memory; C={c}, F={f} does not fit")
+        raise ValueError(f"K3 takes no C={c}, F={f} on {s} pixels: no "
+                         f"tensor-core tile fits (tile {tile}, grid {grid}) "
+                         f"and the FMA route keeps (4C+3F) x 8 fp32 values "
+                         f"per block in shared memory")
     args = p1_operands(p, _compute_dtype(x), mma=tile > 0)
     att = att.detach().float().contiguous()
     dz = torch.empty_like(dout)
@@ -815,11 +876,7 @@ def call_p1(x: torch.Tensor, g: torch.Tensor, dout: torch.Tensor,
                        f, s, float(eps), bf16, tile, grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_p1 launch failed: CUDA error {rc}")
-    call_p1.launches += 1
     return dz, da, _split(grads, layout)
-
-
-call_p1.launches = 0
 
 
 # Geometry of the bf16 K4 (csrc/nafblock_p2_mma.cuh): its two pixel-tile
@@ -840,13 +897,29 @@ P2_BLOCKS_BY_REGISTERS = {(False, 32): 2, (False, 16): 2, (False, 8): 3,
                           (True, 32): 3, (True, 16): 3, (True, 8): 4}
 P2_DW_TILE = (32, 32)
 P2_DW_BLOCKS_PER_SM = 3
+# The fp32 K4 on the tensor cores (csrc/nafblock_tf32.cuh, 3xTF32): the
+# same kernels with fp32 operands and streams; up to 64 channels W1 and W3
+# stay resident in fp32, above no shared memory goes to weights. Blocks by
+# registers as counted for the built kernels on an H100; its depthwise
+# kernel (dt out in fp32) shares the bf16 one's P2_DW_BLOCKS_PER_SM.
+#   front: x fp32 [C][tile], h then beta*dz fp32 [C][rows], W1 + W3
+#   back:  dt fp32 [2C][rows], xhat and dh fp32 [C][tile] each, W1
+P2_TF32_BLOCKS_BY_REGISTERS = {(False, 32): 2, (False, 16): 2, (False, 8): 2,
+                               (True, 32): 3, (True, 16): 3, (True, 8): 3}
 
 
-def p2_smem_bytes(c: int, tile: int) -> int:
-    """Dynamic shared memory of the bf16 K4's pixel-tile kernels with
-    ``tile`` pixels: the larger of the front and the back kernel's."""
+def p2_smem_bytes(c: int, tile: int,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of K4's pixel-tile kernels on the tensor cores
+    (bf16, or fp32 for 3xTF32) with ``tile`` pixels: the larger of the
+    front and the back kernel's."""
     ldb = tile if tile == 8 else tile + 8
     resident = c <= P2_RESIDENT_MAX
+    if dtype == torch.float32:
+        front = c * tile + c * ldb + (3 * c * (c + 8) if resident else 0)
+        back = 2 * c * ldb + 2 * c * tile + (2 * c * (c + 8) if resident
+                                             else 0)
+        return max(front, back) * 4
     front_w = 3 * c * (c + 8) * 2 if resident else P1_SLAB_BYTES
     back_w = 2 * c * (c + 8) * 2 if resident else P1_SLAB_BYTES
     front = c * tile * 4 + c * ldb * 2 + front_w
@@ -854,29 +927,35 @@ def p2_smem_bytes(c: int, tile: int) -> int:
     return max(front, back)
 
 
-def p2_blocks_per_sm(c: int, tile: int) -> int:
-    """Blocks of the bf16 K4's pixel-tile kernels that share an SM: as many
-    as their registers and shared memory (dynamic, 2 KB static, 1 KB
-    reserved) allow."""
-    by_regs = P2_BLOCKS_BY_REGISTERS[c <= P2_RESIDENT_MAX, tile]
-    return min(by_regs, SM_SMEM // (p2_smem_bytes(c, tile) + 2048 + 1024))
+def p2_blocks_per_sm(c: int, tile: int,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks of K4's pixel-tile kernels on the tensor cores (bf16, or fp32
+    for 3xTF32) that share an SM: as many as their registers and shared
+    memory (dynamic, 2 KB static, 1 KB reserved) allow."""
+    table = (P2_TF32_BLOCKS_BY_REGISTERS if dtype == torch.float32
+             else P2_BLOCKS_BY_REGISTERS)
+    by_regs = table[c <= P2_RESIDENT_MAX, tile]
+    return min(by_regs, SM_SMEM // (p2_smem_bytes(c, tile, dtype)
+                                    + 2048 + 1024))
 
 
-def p2_tile(n: int, c: int, s: int) -> int:
-    """Pixels per tile of the bf16 K4 on ``[N, C, S]``, chosen as K3's
-    (:func:`_least_waves_tile` over :func:`p2_smem_bytes` and
-    :func:`p2_blocks_per_sm`). 0 when no tile fits or ``C`` is no
-    multiple of 16."""
+def p2_tile(n: int, c: int, s: int,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Pixels per tile of K4 on the tensor cores on a ``dtype`` ``[N, C,
+    S]``, chosen as K3's (:func:`_least_waves_tile` over
+    :func:`p2_smem_bytes` and :func:`p2_blocks_per_sm`). 0 when no tile
+    fits or ``C`` is no multiple of 16."""
     if c % 16:
         return 0
-    return _least_waves_tile(n, s, lambda t: p2_smem_bytes(c, t),
-                             lambda t: p2_blocks_per_sm(c, t))
+    return _least_waves_tile(n, s, lambda t: p2_smem_bytes(c, t, dtype),
+                             lambda t: p2_blocks_per_sm(c, t, dtype))
 
 
-def p2_grid(n: int, c: int, s: int, tile: int) -> int:
-    """Blocks per image of the bf16 K4's pixel-tile kernels
+def p2_grid(n: int, c: int, s: int, tile: int,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks per image of K4's pixel-tile kernels on the tensor cores
     (``layernorm.one_round``)."""
-    return one_round(n, s, tile, p2_blocks_per_sm(c, tile))
+    return one_round(n, s, tile, p2_blocks_per_sm(c, tile, dtype))
 
 
 def _dw_grid(n: int, c: int, h: int, w: int, tile, per_sm: int) -> int:
@@ -904,14 +983,16 @@ def p2_fma_pixels(c: int) -> int:
 
 def p2_geometry(dtype: torch.dtype, n: int, c: int, h: int,
                 w: int) -> Tuple[int, int, int]:
-    """``(tile, grid, dw_grid)`` of K4's tensor-core route on a bf16
+    """``(tile, grid, dw_grid)`` of K4's tensor-core route on a ``dtype``
     ``[N, C, H*W]`` input (:func:`p2_tile`, :func:`p2_grid`,
-    :func:`p2_dw_grid`). ``(0, 0, 0)`` chooses the FMA route: fp32, or a C
-    that is no multiple of 16 or too wide for any tile."""
-    tile = p2_tile(n, c, h * w) if dtype == torch.bfloat16 else 0
+    :func:`p2_dw_grid`): bf16 products in bf16, 3xTF32 in fp32.
+    ``(0, 0, 0)`` chooses the FMA route: a C that is no multiple of 16 or
+    too wide for any tile."""
+    tile = p2_tile(n, c, h * w, dtype) if dtype in _MMA_DTYPES else 0
     if not tile:
         return 0, 0, 0
-    return tile, p2_grid(n, c, h * w, tile), p2_dw_grid(n, c, h, w)
+    return (tile, p2_grid(n, c, h * w, tile, dtype),
+            p2_dw_grid(n, c, h, w))
 
 
 def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
@@ -920,15 +1001,32 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
     """K4 on ``x, dz: [N, C, H*W]``, ``dgc, att: [N, C]`` -> ``(dx,
     grads)``; plain version on CPU. On CUDA the route follows
     :func:`p2_geometry`: on the tensor-core route W1 and W3 go to the
-    kernels as bf16 (as :class:`NAFBlockFunction` hands them over, with no
-    conversion); the FMA route (fp32, and bf16 with C no multiple of 16)
-    takes them in fp32, rows padded as in :func:`call_a`."""
+    kernels in the activations' type (bf16 as :class:`NAFBlockFunction`
+    hands them over, with no conversion; fp32 for 3xTF32); the FMA route
+    (C no multiple of 16, or no tile that fits) takes them in fp32, rows
+    padded as in :func:`call_a`."""
     if not x.is_cuda:
         return plain_p2(x, dz, dgc, att, p, hw, eps)
     n, c, s = x.shape
     h, w = hw
     if h * w != s:
         raise ValueError(f"hw={hw} does not match H*W={s}")
+    out = launch_p2(x, dz, dgc, att, p, hw, eps,
+                    *p2_geometry(x.dtype, n, c, h, w))
+    call_p2.launches += 1
+    return out
+
+
+call_p2.launches = 0
+
+
+def launch_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
+              att: torch.Tensor, p: Params, hw: Tuple[int, int], eps: float,
+              tile: int, grid: int, dw_grid: int):
+    """K4's kernels on CUDA tensors on the route ``tile`` names (as
+    :func:`launch_p1`) -> what :func:`call_p2` returns, uncounted."""
+    n, c, s = x.shape
+    h, w = hw
     _like_x(x, dz=dz)
     p = padded_matrices(p)
     if (p["W1"].shape != (2 * c, row_pitch(c))
@@ -938,11 +1036,12 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
     _check_cuda(x, p, _P2_PARAMS)
     lib = _build.load("nafblock_bwd")
     bf16 = int(x.dtype == torch.bfloat16)
-    tile, grid, dw_grid = p2_geometry(x.dtype, n, c, h, w)
     ws_bytes = lib.nafblk_p2_workspace(n, c, h, w, bf16, tile, grid, dw_grid)
     if ws_bytes < 0:
-        raise ValueError(f"K4's FMA route keeps 4C x 8 fp32 values per block "
-                         f"in shared memory; C={c} does not fit")
+        raise ValueError(f"K4 takes no C={c} on {h}x{w}: no tensor-core tile "
+                         f"fits (tile {tile}, grids {grid}, {dw_grid}) and "
+                         f"the FMA route keeps 4C x 8 fp32 values per block "
+                         f"in shared memory")
     cdt = _compute_dtype(x)
     args = _kernel_args(p, _P2_PARAMS, cdt,
                         matrices=cdt if tile else torch.float32)
@@ -959,15 +1058,11 @@ def call_p2(x: torch.Tensor, dz: torch.Tensor, dgc: torch.Tensor,
                        float(eps), bf16, tile, grid, dw_grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_p2 launch failed: CUDA error {rc}")
-    call_p2.launches += 1
     out = _split(grads, [("W1", (2 * c, c)), ("taps", (11, 2 * c)),
                          ("w1n", (c,)), ("b1n", (c,))])
     taps = out.pop("taps")
     out.update(kdw=taps[:9].t().contiguous(), bk=taps[9], b1=taps[10])
     return dx, out
-
-
-call_p2.launches = 0
 
 # ---------------------------------------------------------------------------
 # K1 and K2 as registered ops (what torch.export sees of a fused block)

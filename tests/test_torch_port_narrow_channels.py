@@ -18,7 +18,8 @@ the CPU:
   route with a tile that fits (``p1_geometry`` / ``p1_fma_pixels``,
   ``p2_geometry`` / ``p2_fma_pixels``): tensor cores exactly where C (and
   F) are multiples of 16, a refusal only where nothing fits (K3 at
-  C=1024, F=2048); fp32 always takes the FMA route;
+  C=1024, F=2048); fp32 follows the same rule (a 3xTF32 tile at C, F
+  % 16 == 0, the FMA route elsewhere, neither at C=1024, F=2048);
 - the FMA route's shared-memory arithmetic (``(4C + 3F)`` and ``4C`` fp32
   rows of a pixel tile) at padded and odd C;
 - the FMA route's matrix operands (``p1_operands(..., mma=False)``): fp32
@@ -128,21 +129,21 @@ def test_every_c_of_the_forward_gets_a_backward_route(c):
     s = side * side
     mma = c % 16 == 0
     for f in (c, 2 * c):
-        tile, grid = ops.p1_geometry(torch.bfloat16, n, c, f, s)
-        assert ops.p1_geometry(torch.float32, n, c, f, s) == (0, 0)
-        if (c, f) == (1024, 2048):
-            # the one refusal: K3 fits in shared memory on neither route
-            assert tile == 0 and ops.p1_fma_pixels(c, f) == 0
-        elif mma:
-            assert tile in ops.P1_TILES and 1 <= grid <= -(-s // tile)
+        for dt in (torch.bfloat16, torch.float32):
+            tile, grid = ops.p1_geometry(dt, n, c, f, s)
+            if (c, f) == (1024, 2048):
+                # the one refusal: K3 fits in shared memory on no route
+                assert tile == 0 and ops.p1_fma_pixels(c, f) == 0
+            elif mma:
+                assert tile in ops.P1_TILES and 1 <= grid <= -(-s // tile)
+            else:
+                assert (tile, grid) == (0, 0) and ops.p1_fma_pixels(c, f) > 0
+    for dt in (torch.bfloat16, torch.float32):
+        tile, grid, dw = ops.p2_geometry(dt, n, c, side, side)
+        if mma:
+            assert tile in ops.P1_TILES and grid >= 1 and dw >= 1
         else:
-            assert (tile, grid) == (0, 0) and ops.p1_fma_pixels(c, f) > 0
-    tile, grid, dw = ops.p2_geometry(torch.bfloat16, n, c, side, side)
-    if mma:
-        assert tile in ops.P1_TILES and grid >= 1 and dw >= 1
-    else:
-        assert (tile, grid, dw) == (0, 0, 0) and ops.p2_fma_pixels(c) > 0
-    assert ops.p2_geometry(torch.float32, n, c, side, side) == (0, 0, 0)
+            assert (tile, grid, dw) == (0, 0, 0) and ops.p2_fma_pixels(c) > 0
     # the forward takes the same route: K1 and K2 on the tensor cores
     # exactly where K3 and K4 are
     assert (ops.k1_geometry(torch.bfloat16, n, c, side, side)[0] > 0) == mma
