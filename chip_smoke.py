@@ -13,12 +13,16 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    the card, at every width of a 512x512, N=2 forward (C=32@512^2 ...
    C=512@32^2) and at the width-64 configuration's C=1024@32^2, in fp32
    and bf16, and times kernel and plain version (CUDA events, median
-   after warm-up) beside the bound from bytes and FLOPs. In bf16 (the
-   tensor-core route) K1's two stages are held apart -- its fp32 ``t``
-   against ``plain_a_front`` and its g and sums against ``plain_a_dw`` of
-   that ``t`` -- here and at every shape of the backward phase; the FMA
-   route runs at a bf16 C=24 (no multiple of 16), and a ``dw_expand=1``
-   block must run unfused on the card;
+   after warm-up) beside the bound from bytes and FLOPs. On the
+   tensor-core routes (bf16 products, or 3xTF32 in fp32) K1's two stages
+   are held apart -- its fp32 ``t`` against ``plain_a_front`` and its g
+   and sums against ``plain_a_dw`` of that ``t`` -- here and at every
+   shape of the backward phase, the route of K1 and K2 is named by their
+   device kernels, their fp32 shared memory and blocks per SM are held
+   against the built kernels, and in fp32 the FMA kernels of the first
+   port run and are timed beside them on the same inputs; the FMA route
+   runs at a bf16 C=24 (no multiple of 16), and a ``dw_expand=1`` block
+   must run unfused on the card;
 4. backward kernel phase: the same for K1, K2, K3 (``nafblk_p1``), K4
    (``nafblk_p2``) and the whole block backward (``NAFBlockFunction`` vs
    the plain backward) at every width of a 384x384, N=2 training crop
@@ -27,13 +31,14 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    C=1024@32^2, at C=64@20^2 (a side that leaves K4 ragged edge tiles),
    at NAFSSR's C=48 with 30x90 pixels and N=16 and at the bottom of
    NAFNetTPU's trunk, C=1024@12^2, checking dz, da, dx and every weight
-   grad; K3 and K4 on the tensor cores at every one of these shapes in
-   both types (named by their device kernels: bf16 products in bf16,
-   3xTF32 in fp32, ``K34_TF32``), their fp32 shared memory and blocks per
-   SM held against the built kernels, and in fp32 the FMA kernels of the
-   first port run and timed beside them on the same inputs;
+   grad; K1-K4 on the tensor cores at every one of these shapes in both
+   types (named by their device kernels: bf16 products in bf16, 3xTF32 in
+   fp32, ``K12_TF32`` and ``K34_TF32``), their fp32 shared memory and
+   blocks per SM held against the built kernels, and in fp32 the FMA
+   kernels of the first port run and timed beside them on the same
+   inputs;
 4b. narrow-channel phase: the same at C = 8, 24, 40, 12, 6 and 10 (no
-   multiples of 16: in bf16 all four kernels take the FMA route; 6 and
+   multiples of 16: all four kernels take the FMA route; 6 and
    10 are no multiples of 4 either, and the matrices' rows are padded),
    F = C on 2xCx64^2 and 2xCx20^2 and F = 2C on 2xCx64^2, fp32 and bf16,
    with the route that each of K1-K4 took named by its device kernels;
@@ -126,7 +131,7 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
 10. path S: ``NAFSSR`` of ``configs/stereo_nafssr.yml`` (width 48, 16
    blocks, drop-path 0.1 from a seeded generator) with its AdamW / cosine
    / MSE train block on a seeded synthetic 16x6x30x90 batch: training
-   steps (32 launches of each of K1-K6 per step; K3 and K4 on the tensor
+   steps (32 launches of each of K1-K6 per step; K1-K4 on the tensor
    cores as 3xTF32 in the traced step, 32 device records of each), one
    eval forward, and the same fp32 gradient check;
 9b. path B export: that ``Baseline`` through ``export_model`` at one
@@ -137,7 +142,7 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    (``make_synthetic_stereo``, its PNG rows cycling through filters 0-4),
    4 iterations: every view defiltered by the native
    ``native/pngcodec.cpp`` (none by the Python fallback), 32 launches of
-   each of K1-K6 per step (K3 and K4 as 3xTF32 in the traced step),
+   each of K1-K6 per step (K1-K4 as 3xTF32 in the traced step),
    finite logs, the validation's PSNR; ``LowlightModel`` (the
    config's ``model_type``) for 2 steps on the same loader and ``test()``
    (``[N, 6, 2H, 2W]``); ``demo_ssr`` in a subprocess on one L/R pair (two
@@ -208,9 +213,8 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    ``--identity``; ``profile_train`` at its defaults (2x512^2, width 32,
    bf16; 36 launches of each of K1-K4 a step, a traced run on the tensor
    cores only); ``profile_step_families`` naming K1-K4's device kernels;
-   ``debug_overfit --steps 50`` (both phases falling; fp32: K1/K2 on the
-   FMA kernels, K3/K4 on them at its C = 8 blocks and as 3xTF32 at C = 16
-   and 32); ``train_pipeline_e2e --steps 30 --workers 2`` (its
+   ``debug_overfit --steps 50`` (both phases falling; fp32: K1-K4 on the
+   FMA kernels at its C = 8 blocks and as 3xTF32 at C = 16 and 32); ``train_pipeline_e2e --steps 30 --workers 2`` (its
    three rates; 36 launches of K1-K4 a step); ``make_grain_loader(
    worker_count=2)`` over the packs into ``prefetch_to_device``, equal to
    the host batches; ``probe_backend() == "cuda"``. Prints a path_U JSON
@@ -226,7 +230,7 @@ wrappers is held against the built kernels' shared memory and occupancy,
 and K6's blocks per SM against the built kernel's occupancy, the FMA
 route's pixels per block of K3/K4 against the built library's. The bound
 of a row is bytes over the HBM rate against FLOPs over the operand type's
-peak (fp32: 67 TFLOP/s of FMA); an fp32 K3/K4 row on the tensor cores
+peak (fp32: 67 TFLOP/s of FMA); an fp32 K1-K4 row on the tensor cores
 also carries the 3xTF32 bound (three TF32 operations a FLOP at 495
 TFLOP/s) and the FMA route's times. After the timed steps of every
 training path one more step runs under the profiler: the device's busy
@@ -428,6 +432,13 @@ PROFILER_TRIES = 3
 # that of the first kernel launched in it, so a window's work starts this
 # much after the window. Windows that still lack records are taken again.
 PROFILER_SLACK_S = 0.005
+# A traced step opens with this many spin kernels (``torch.cuda._sleep``),
+# synchronized, before its work. Late in a long run the profiler lost a
+# dozen records of each traced step, one each of K1 and K2, which a step
+# launches among its first kernels; losses at the start of a window fall
+# on the primer, which every count leaves out.
+PRIMER_LAUNCHES = 32
+PRIMER_KERNEL = "spin_kernel"
 
 
 def device_records(averages) -> dict:
@@ -589,7 +600,7 @@ def fmt_device(dev) -> str:
 
 def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, split, path,
            n=BATCH, hw=None, f=None, **extra):
-    """One per-width row of ``kind``; an fp32 K3/K4 row on the tensor
+    """One per-width row of ``kind``; an fp32 K1-K4 row on the tensor
     cores also gets the 3xTF32 bound (``tf32_bound_ms``) beside the FMA
     one, and ``extra`` (the FMA route's times where both ran)."""
     h, w = hw or (side, side)
@@ -601,8 +612,7 @@ def report(kind, rows, c, side, dt, blocks, e, t_k, t_p, split, path,
         blocks=blocks, err=e, ms=t_k, device_ms=dev, device_split=split,
         plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, **extra)
     tf32 = ""
-    if dt == torch.float32 and k34_route(kind, dt, n, c, (h, w),
-                                         f) == "tf32":
+    if nafblock_route(kind, dt, n, c, (h, w), f) == "tf32":
         row["tf32_bound_ms"], row["tf32_bound_by"] = tf32_bound(
             kind, c, (h, w), n, f)
         tf32 = f", 3xTF32 {row['tf32_bound_ms']:.4f} ms"
@@ -622,43 +632,54 @@ def show(checks, c, side, dt):
 
 
 def hold_forward_geometry(c: int) -> None:
-    """The K1/K2 wrappers' tile arithmetic against the built kernels:
-    shared memory as the kernels sum it at every tile that fits, and the
-    blocks-per-SM tables (which the CPU tests of the geometry read; the
-    wrappers on CUDA ask the built kernels) against the runtime's count,
-    K1's depthwise kernel's too."""
+    """The K1/K2 wrappers' tile arithmetic against the built kernels, in
+    bf16 and in fp32 (3xTF32): shared memory as the kernels sum it at every
+    tile that fits, and the blocks-per-SM tables (which the CPU tests of
+    the geometry read; the wrappers on CUDA ask the built kernels) against
+    the runtime's count, K1's depthwise kernel's (g in bf16 and in fp32)
+    too."""
     if c % 16:
         return
     lib = _build.load("nafblock_fwd")
-    for tile in ops.P1_TILES:
-        for what, smem, per_sm, built, runtime in (
-                ("K1 front", ops.k1_smem_bytes(c, tile),
-                 ops.k1_blocks_per_sm(c, tile), lib.nafblk_a_mma_smem(c, tile),
-                 lib.nafblk_a_mma_blocks_per_sm(c, tile)),
-                ("K2", ops.k2_smem_bytes(c, c, tile),
-                 ops.k2_blocks_per_sm(c, c, tile),
-                 lib.nafblk_b_mma_smem(c, c, tile),
-                 lib.nafblk_b_mma_blocks_per_sm(c, c, tile))):
-            if smem > ops.P1_SMEM_LIMIT:
-                continue
-            print(f"  {what} bf16 C={c:4d} tile {tile:2d}: {smem} bytes of "
-                  f"shared memory, {runtime} blocks per SM")
-            check(built == smem and runtime == per_sm,
-                  f"{what} C={c} tile {tile}: ops/nafblock.py counts {smem} "
-                  f"bytes and {per_sm} blocks per SM, the built kernel "
-                  f"{built} and {runtime}")
+    for dt, kind in ((torch.bfloat16, "mma"), (torch.float32, "tf32")):
+        name = str(dt)[6:]
+        a_smem = getattr(lib, f"nafblk_a_{kind}_smem")
+        a_per_sm = getattr(lib, f"nafblk_a_{kind}_blocks_per_sm")
+        b_smem = getattr(lib, f"nafblk_b_{kind}_smem")
+        b_per_sm = getattr(lib, f"nafblk_b_{kind}_blocks_per_sm")
+        for tile in ops.P1_TILES:
+            for what, smem, per_sm, built, runtime in (
+                    ("K1 front", ops.k1_smem_bytes(c, tile, dt),
+                     ops.k1_blocks_per_sm(c, tile, dtype=dt),
+                     lambda: a_smem(c, tile), lambda: a_per_sm(c, tile)),
+                    ("K2", ops.k2_smem_bytes(c, c, tile, dt),
+                     ops.k2_blocks_per_sm(c, c, tile, dtype=dt),
+                     lambda: b_smem(c, c, tile),
+                     lambda: b_per_sm(c, c, tile))):
+                if smem > ops.P1_SMEM_LIMIT:
+                    continue
+                got = runtime()
+                print(f"  {what} {name} C={c:4d} tile {tile:2d}: {smem} bytes "
+                      f"of shared memory, {got} blocks per SM")
+                check(built() == smem and got == per_sm,
+                      f"{what} {name} C={c} tile {tile}: ops/nafblock.py "
+                      f"counts {smem} bytes and {per_sm} blocks per SM, the "
+                      f"built kernel {built()} and {got}")
     dw = lib.nafblk_a_dw_blocks_per_sm()
-    check(dw == ops.K1_DW_BLOCKS_PER_SM, f"K1 depthwise kernel: {dw} blocks "
-          f"per SM, ops/nafblock.py counts {ops.K1_DW_BLOCKS_PER_SM}")
+    dw32 = lib.nafblk_a_tf32_dw_blocks_per_sm()
+    check(dw == dw32 == ops.K1_DW_BLOCKS_PER_SM, f"K1 depthwise kernel: {dw} "
+          f"(bf16) and {dw32} (fp32) blocks per SM, ops/nafblock.py counts "
+          f"{ops.K1_DW_BLOCKS_PER_SM}")
 
 
 def forward_checks(x, p, pk, hw, dt) -> tuple:
     """K1 and K2 on ``x`` against their plain versions: ``(checks, g,
     sums, att)`` with ``g, sums`` the plain K1's and ``att`` the SCA
     attention from them (K2's input). ``pk`` holds the matrices as
-    NAFBlockFunction hands them over. On the tensor-core route K1's two
-    stages are held apart (the depthwise stage on the kernel's own ``t``);
-    every kernel is called twice and must give equal bits."""
+    NAFBlockFunction hands them over. On the tensor-core routes (bf16, or
+    3xTF32 in fp32) K1's two stages are held apart (the depthwise stage on
+    the kernel's own ``t``); every kernel is called twice and must give
+    equal bits."""
     n, c, s = x.shape
     mma = ops.k1_geometry(dt, n, c, *hw)[0] > 0
     with torch.no_grad():
@@ -716,12 +737,13 @@ def forward_phase(gen: torch.Generator, rows: dict) -> None:
                     "nafblk_b": timed(lambda: ops.call_b(x, g_p, att, pk),
                                       lambda: ops.plain_b(x, g_p, att, p)),
                 }
+            fma = fma_forward(x, g_p, att, pk, p, shw, dt)
             for k, times in t.items():
-                report(k, rows, c, side, dt, nblk, checks[k][0], *times, path)
-            show_split(f"K1 {str(dt)[6:]} N={BATCH} C={c} {side}x{side}",
-                       t["nafblk_a"][2])
-            show_split(f"K2 {str(dt)[6:]} N={BATCH} C={c} {side}x{side}",
-                       t["nafblk_b"][2])
+                report(k, rows, c, side, dt, nblk, checks[k][0], *times, path,
+                       **fma.get(k, {}))
+            show_tensor_core_routes(
+                f"{str(dt)[6:]} N={BATCH} C={c} {side}x{side}", t, dt, BATCH,
+                c, shw)
         del blk, x32
     fma_route_in_bf16(gen)
     dw_expand_block_runs_unfused(gen)
@@ -879,23 +901,52 @@ def backward_phase(gen: torch.Generator, rows: dict) -> None:
                         lambda: ops.call_p2(x, dz, dgc, att, pk, shw),
                         lambda: ops.plain_p2(x, dz, dgc, att, p, shw)),
                 }
-            fma = fma_reference(x, g, dout, att, dz, dgc, pk, p, shw, dt)
+            fma = {**fma_forward(x, g, att, pk, p, shw, dt),
+                   **fma_reference(x, g, dout, att, dz, dgc, pk, p, shw, dt)}
             for k, times in t.items():
                 report(k, rows, c, side, dt, nblk, checks[k][0], *times, path,
                        n, shw, **fma.get(k, {}))
-            tag = f"{str(dt)[6:]} N={n} C={c} {side}x{wide}"
-            for kt, k in (("K1", "nafblk_a"), ("K2", "nafblk_b"),
-                          ("K3", "nafblk_p1"), ("K4", "nafblk_p2")):
-                show_split(f"{kt} {tag}", t[k][2])
             # fp32 at C % 16 == 0 on the tensor cores (3xTF32) at every
             # width of this phase, bf16 there too; by the device kernels
-            for kt, k, routes in (("K3", "nafblk_p1", K3_ROUTES),
-                                  ("K4", "nafblk_p2", K4_ROUTES)):
-                route = k34_route(k, dt, n, c, shw)
-                check(route == ("bf16" if dt == torch.bfloat16 else "tf32"),
-                      f"{kt} {tag}: the {route} route, not the tensor cores")
-                show_route(f"{kt} {tag}", t[k][2], route, routes)
+            show_tensor_core_routes(f"{str(dt)[6:]} N={n} C={c} {side}x{wide}",
+                                    t, dt, n, c, shw)
         del blk, x32, d32
+
+
+def fma_forward(x, g, att, pk, p, shw, dt) -> dict:
+    """Where fp32 K1 and K2 take the tensor cores (3xTF32), the FMA kernels
+    of the first port on the same inputs, through ``ops.launch_a`` /
+    ``launch_b`` with tile 0 (uncounted): their error against the plain
+    versions (the fp32 tolerance) and their times, so both routes are read
+    in one run. Empty elsewhere."""
+    n, c, s = x.shape
+    if nafblock_route("nafblk_a", dt, n, c, shw) != "tf32":
+        return {}
+    with torch.no_grad():
+        run_a = lambda: ops.launch_a(x, pk, shw, 1e-6, 0, 0, 0)
+        run_b = lambda: ops.launch_b(x, g, att, pk, 1e-6, 0, 0)
+        refs = {"nafblk_a": (run_a()[0], ops.plain_a(x, p, shw)[0]),
+                "nafblk_b": (run_b(), ops.plain_b(x, g, att, p))}
+        return fma_times(refs, {"nafblk_a": run_a, "nafblk_b": run_b}, c,
+                         shw, dt)
+
+
+def fma_times(refs: dict, runs: dict, c: int, shw, dt) -> dict:
+    """The FMA route's error against the plain version (``refs``: kernel ->
+    (got, plain); within the fp32 tolerance) and its times (``runs``), by
+    kernel, printed on one line."""
+    out = {}
+    for k, (got, ref) in refs.items():
+        e, r = err(got, ref)
+        check(r <= TOL[dt], f"{k} FMA route C={c} {shw}: rel {r}")
+        split = device_times(runs[k])
+        out[k] = dict(fma_err=e, fma_ms=time_ms(runs[k]),
+                      fma_device_ms=device_ms(split), fma_device_split=split)
+    print(f"  FMA route (the first port's kernels) at the same inputs: "
+          + ", ".join(f"{k} {v['fma_ms']:.4f} ms (device "
+                      f"{fmt_device(v['fma_device_ms'])})"
+                      for k, v in out.items()))
+    return out
 
 
 def fma_reference(x, g, dout, att, dz, dgc, pk, p, shw, dt) -> dict:
@@ -905,29 +956,16 @@ def fma_reference(x, g, dout, att, dz, dgc, pk, p, shw, dt) -> dict:
     versions (the fp32 tolerance) and their times, so both routes are read
     in one run. Empty elsewhere."""
     n, c, hw = x.shape
-    if dt != torch.float32 or k34_route("nafblk_p1", dt, n, c, shw) != "tf32":
+    if nafblock_route("nafblk_p1", dt, n, c, shw) != "tf32":
         return {}
     with torch.no_grad():
         run1 = lambda: ops.launch_p1(x, g, dout, att, pk, 1e-6, 0, 0)
         run2 = lambda: ops.launch_p2(x, dz, dgc, att, pk, shw, 1e-6, 0, 0, 0)
-        dz_f = run1()[0]
-        dx_f = run2()[0]
-        dx_p = ops.plain_p2(x, dz, dgc, att, p, shw)[0]
-        dz_p = ops.plain_p1(x, g, dout, att, p)[0]
-        out = {}
-        for k, run, got, ref in (("nafblk_p1", run1, dz_f, dz_p),
-                                 ("nafblk_p2", run2, dx_f, dx_p)):
-            e, r = err(got, ref)
-            check(r <= TOL[dt], f"{k} FMA route C={c} {shw}: rel {r}")
-            split = device_times(run)
-            out[k] = dict(fma_err=e, fma_ms=time_ms(run),
-                          fma_device_ms=device_ms(split),
-                          fma_device_split=split)
-    print(f"  FMA route (the first port's kernels) at the same inputs: "
-          + ", ".join(f"{k} {v['fma_ms']:.4f} ms (device "
-                      f"{fmt_device(v['fma_device_ms'])})"
-                      for k, v in out.items()))
-    return out
+        refs = {"nafblk_p1": (run1()[0], ops.plain_p1(x, g, dout, att, p)[0]),
+                "nafblk_p2": (run2()[0],
+                              ops.plain_p2(x, dz, dgc, att, p, shw)[0])}
+        return fma_times(refs, {"nafblk_p1": run1, "nafblk_p2": run2}, c,
+                         shw, dt)
 
 
 def hold_tf32_geometry(lib, c: int) -> None:
@@ -976,42 +1014,78 @@ def hold_fma_geometry(widths) -> None:
           f"counts {ops.P2_DW_BLOCKS_PER_SM}")
 
 
-# the device kernels of K3 and K4 on the bf16 tensor-core route, on the
-# fp32 one (3xTF32) and on the FMA route
+# the device kernels of K1 and K2 on the bf16 tensor-core route, on the
+# fp32 one (3xTF32) and on the FMA route (k1_dw_kernel serves both
+# tensor-core routes)
+K12_TENSOR_CORES = ("nafblk::k1_front_kernel", "nafblk::k1_dw_kernel",
+                    "nafblk::k2_mma_kernel")
+K12_TF32 = ("nafblk::k1_front_tf32_kernel", "nafblk::k1_dw_kernel",
+            "nafblk::k2_tf32_kernel")
+K12_FMA = ("k1_kernel", "k2_kernel")
+# the same for K3 and K4
 K34_TENSOR_CORES = ("nafblk::k3_mma_kernel", "nafblk::k4_front_kernel",
                     "nafblk::k4_dw_kernel", "nafblk::k4_back_kernel")
 K34_TF32 = ("nafblk::k3_tf32_kernel", "nafblk::k4_front_tf32_kernel",
             "nafblk::k4_dw_kernel", "nafblk::k4_back_tf32_kernel",
             "nafblk::wgrad_tf32_kernel")
 K34_FMA = ("k3_kernel", "k4a_kernel", "k4b_kernel")
-# each route's device kernels of one K3 call and of one K4 call
-# (k4_dw_kernel serves both tensor-core routes)
-K3_ROUTES = {"bf16": ("nafblk::k3_mma_kernel", "nafblk::wgrad_mma_kernel"),
-             "tf32": ("nafblk::k3_tf32_kernel", "nafblk::wgrad_tf32_kernel"),
-             "fma": ("k3_kernel", "wgrad_kernel")}
-K4_ROUTES = {"bf16": ("nafblk::k4_front_kernel", "nafblk::k4_dw_kernel",
-                      "nafblk::k4_back_kernel", "nafblk::wgrad_mma_kernel"),
-             "tf32": ("nafblk::k4_front_tf32_kernel", "nafblk::k4_dw_kernel",
-                      "nafblk::k4_back_tf32_kernel",
-                      "nafblk::wgrad_tf32_kernel"),
-             "fma": ("k4a_kernel", "k4b_kernel", "wgrad_kernel")}
+# each route's device kernels of one call of each kernel (the depthwise
+# kernels serve both tensor-core routes)
+ROUTES = {
+    "nafblk_a": {"bf16": ("nafblk::k1_front_kernel", "nafblk::k1_dw_kernel"),
+                 "tf32": ("nafblk::k1_front_tf32_kernel",
+                          "nafblk::k1_dw_kernel"),
+                 "fma": ("k1_kernel",)},
+    "nafblk_b": {"bf16": ("nafblk::k2_mma_kernel",),
+                 "tf32": ("nafblk::k2_tf32_kernel",),
+                 "fma": ("k2_kernel",)},
+    "nafblk_p1": {"bf16": ("nafblk::k3_mma_kernel",
+                           "nafblk::wgrad_mma_kernel"),
+                  "tf32": ("nafblk::k3_tf32_kernel",
+                           "nafblk::wgrad_tf32_kernel"),
+                  "fma": ("k3_kernel", "wgrad_kernel")},
+    "nafblk_p2": {"bf16": ("nafblk::k4_front_kernel", "nafblk::k4_dw_kernel",
+                           "nafblk::k4_back_kernel",
+                           "nafblk::wgrad_mma_kernel"),
+                  "tf32": ("nafblk::k4_front_tf32_kernel",
+                           "nafblk::k4_dw_kernel",
+                           "nafblk::k4_back_tf32_kernel",
+                           "nafblk::wgrad_tf32_kernel"),
+                  "fma": ("k4a_kernel", "k4b_kernel", "wgrad_kernel")}}
 
 
-def k34_route(kind: str, dt: torch.dtype, n: int, c: int, hw: tuple,
-              f: int = None) -> str:
-    """The route the wrapper of K3 (``nafblk_p1``) or K4 (``nafblk_p2``)
-    takes at a shape: "bf16" or "tf32" (the tensor cores) or "fma"; None
-    for another kernel."""
+def nafblock_route(kind: str, dt: torch.dtype, n: int, c: int, hw: tuple,
+                   f: int = None) -> str:
+    """The route the wrapper of K1-K4 (``nafblk_a`` ... ``nafblk_p2``)
+    takes at a shape, as its geometry chooses it: "bf16" or "tf32" (the
+    tensor cores) or "fma"; None for another kernel."""
     h, w = hw
-    if kind == "nafblk_p1":
-        tile = ops.p1_geometry(dt, n, c, c if f is None else f, h * w)[0]
-    elif kind == "nafblk_p2":
-        tile = ops.p2_geometry(dt, n, c, h, w)[0]
-    else:
+    f = c if f is None else f
+    geometry = {
+        "nafblk_a": lambda: ops.k1_geometry(dt, n, c, h, w, built=True),
+        "nafblk_b": lambda: ops.k2_geometry(dt, n, c, f, h * w, built=True),
+        "nafblk_p1": lambda: ops.p1_geometry(dt, n, c, f, h * w),
+        "nafblk_p2": lambda: ops.p2_geometry(dt, n, c, h, w)}.get(kind)
+    if geometry is None:
         return None
-    if not tile:
+    if not geometry()[0]:
         return "fma"
     return "bf16" if dt == torch.bfloat16 else "tf32"
+
+
+def show_tensor_core_routes(tag: str, t: dict, dt: torch.dtype, n: int,
+                            c: int, hw: tuple) -> None:
+    """The device split and route of each kernel timed in ``t`` (named by
+    the device kernels of its timing window), which must be the tensor
+    cores' (bf16 products, or 3xTF32 in fp32)."""
+    want = "bf16" if dt == torch.bfloat16 else "tf32"
+    for k, times in t.items():
+        kt = KERNELS[k][0]
+        show_split(f"{kt} {tag}", times[2])
+        route = nafblock_route(k, dt, n, c, hw)
+        check(route == want,
+              f"{kt} {tag}: the {route} route, not the tensor cores")
+        show_route(f"{kt} {tag}", times[2], route, ROUTES[k])
 # C that is no multiple of 16: in bf16 all four kernels take the FMA route;
 # 6 and 10 are no multiples of 4 either (the matrices' rows padded)
 NARROW_C = (8, 24, 40, 12, 6, 10)
@@ -1035,10 +1109,6 @@ def show_route(what: str, split: dict, route: str, routes: dict) -> None:
     check(len(ran) == len(want) and not wrong, f"{what}: expected the "
           f"{route} route, ran {sorted(split)}")
     print(f"  {what}: {route} route ({', '.join(sorted(split))})")
-
-
-def k12_routes(mma_names, fma_names) -> dict:
-    return {"tensor cores": mma_names, "fma": fma_names}
 
 
 def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
@@ -1089,21 +1159,10 @@ def narrow_channels_phase(gen: torch.Generator, rows: dict) -> None:
                 report(k, rows, c, side, dt, 0, checks[k][0], *times,
                        "narrow", BATCH, shw, f)
             tag = f"{str(dt)[6:]} N={BATCH} C={c} F={f} {side}x{side}"
-            s = side * side
-            show_route(f"K1 {tag}", t["nafblk_a"][2],
-                       "tensor cores" if ops.k1_geometry(
-                           dt, BATCH, c, side, side)[0] else "fma",
-                       k12_routes(K12_TENSOR_CORES[:2], K12_FMA[:1]))
-            show_route(f"K2 {tag}", t["nafblk_b"][2],
-                       "tensor cores" if ops.k2_geometry(
-                           dt, BATCH, c, f, s)[0] else "fma",
-                       k12_routes(K12_TENSOR_CORES[2:], K12_FMA[1:]))
-            show_route(f"K3 {tag}", t["nafblk_p1"][2],
-                       k34_route("nafblk_p1", dt, BATCH, c, shw, f),
-                       K3_ROUTES)
-            show_route(f"K4 {tag}", t["nafblk_p2"][2],
-                       k34_route("nafblk_p2", dt, BATCH, c, shw, f),
-                       K4_ROUTES)
+            for k in ROUTES:
+                show_route(f"{KERNELS[k][0]} {tag}", t[k][2],
+                           nafblock_route(k, dt, BATCH, c, shw, f),
+                           ROUTES[k])
         del blk, x32, d32
 
 
@@ -1158,13 +1217,6 @@ def served_err(what: str, dt: torch.dtype, got, ref) -> float:
     return worst
 
 
-# the device kernels of K1 and K2 on the bf16 tensor-core route, and of
-# the FMA route that a bf16 block of the main paths must not take
-K12_TENSOR_CORES = ("nafblk::k1_front_kernel", "nafblk::k1_dw_kernel",
-                    "nafblk::k2_mma_kernel")
-K12_FMA = ("k1_kernel", "k2_kernel")
-
-
 def expect_tensor_core_route(names, what: str, backward: bool = False,
                              fma_too: bool = False) -> None:
     """The bf16 NAFBlocks ran K1 and K2 (and with ``backward`` K3 and K4)
@@ -1185,38 +1237,40 @@ def expect_tensor_core_route(names, what: str, backward: bool = False,
 
 def expect_fp32_route(trace: dict, what: str, per_step: int = 0,
                       fma_too: bool = False) -> None:
-    """The fp32 NAFBlocks of a traced step ran K1 and K2 on their FMA
-    kernels and K3 and K4 on the tensor cores as 3xTF32 (every kernel of
-    ``K34_TF32`` among the trace's device kernels), none of the bf16
-    tensor-core kernels, and none of K3/K4's FMA kernels -- or, with
-    ``fma_too`` (a network with blocks at C % 16 != 0), those as well.
-    With ``per_step`` and a complete trace, K3's and K4's kernels of that
-    route recorded ``per_step`` times each."""
+    """The fp32 NAFBlocks of a traced step ran K1-K4 on the tensor cores as
+    3xTF32 (every kernel of ``K12_TF32`` and ``K34_TF32`` among the trace's
+    device kernels), none of the bf16 tensor-core kernels, and none of the
+    FMA kernels -- or, with ``fma_too`` (a network with blocks at
+    C % 16 != 0), those as well. With ``per_step`` and a complete trace,
+    the pixel-tile kernels of that route recorded ``per_step`` times
+    each."""
     names = trace["device_kernels"]
     if not names:
         print(f"{what}: route not measured (the profiler shows no device "
               f"time)")
         return
-    bf16 = K12_TENSOR_CORES + K34_TENSOR_CORES + ("nafblk::wgrad_mma_kernel",)
-    want = K12_FMA + K34_TF32 + (K34_FMA if fma_too else ())
+    tf32 = K12_TF32 + K34_TF32
+    fma = K12_FMA + K34_FMA
+    bf16 = [k for k in K12_TENSOR_CORES + K34_TENSOR_CORES
+            + ("nafblk::wgrad_mma_kernel",) if k not in tf32]
+    want = tf32 + (fma if fma_too else ())
     missing = [k for k in want if k not in names]
-    wrong = [k for k in bf16 + (() if fma_too else K34_FMA)
-             if k in names and k not in K34_TF32]
+    wrong = [k for k in bf16 + list(() if fma_too else fma) if k in names]
     check(not missing and not wrong, f"{what}: device kernels {missing} "
           f"missing, {wrong} ran")
     counts = ""
     if per_step:
         recorded, launched = trace["kernel_records"]
         got = {k: trace["device_counts"].get(k, 0) for k in
-               ("nafblk::k3_tf32_kernel", "nafblk::k4_front_tf32_kernel",
+               ("nafblk::k1_front_tf32_kernel", "nafblk::k2_tf32_kernel",
+                "nafblk::k3_tf32_kernel", "nafblk::k4_front_tf32_kernel",
                 "nafblk::k4_back_tf32_kernel")}
         if recorded == launched:
             check(all(v == per_step for v in got.values()),
                   f"{what}: {got} device records, expected {per_step} each")
         counts = f" ({got} records in the step)"
     print(f"{what}: ran {', '.join(want)}{counts}; none of "
-          f"{', '.join(k for k in bf16 if k not in K34_TF32)}"
-          + ("" if fma_too else f", {', '.join(K34_FMA)}"))
+          f"{', '.join(bf16)}" + ("" if fma_too else f", {', '.join(fma)}"))
 
 
 def serving_phase(gen: torch.Generator) -> dict:
@@ -1343,20 +1397,27 @@ def traced_step(what: str, step, state, batch, untraced_ms: float) -> dict:
     the kernel launches that its host side shows, and an incomplete one is
     taken again. If ``PROFILER_TRIES`` traces all lack records, the fullest
     is reported as what it is: a lower bound of the busy time, with both
-    counts beside it. Nothing is added for the lost records."""
+    counts beside it. Nothing is added for the lost records. The window
+    opens with ``PRIMER_LAUNCHES`` spin kernels, left out of every count
+    and of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     best = None
     for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_SLACK_S)
+            for _ in range(PRIMER_LAUNCHES):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             state, _ = step(state, batch)
             torch.cuda.synchronize()
         averages = prof.key_averages()
-        records = device_records(averages)
+        records = {k: v for k, v in device_records(averages).items()
+                   if PRIMER_KERNEL not in k}
         recorded = sum(n for k, (n, _) in records.items()
                        if not k.startswith("Mem"))
-        launched = sum(ev.count for ev in averages if ev.key in LAUNCH_CALLS)
+        launched = sum(ev.count for ev in averages
+                       if ev.key in LAUNCH_CALLS) - PRIMER_LAUNCHES
         if best is None or recorded - launched > best[1] - best[2]:
             best = (records, recorded, launched)
         if recorded == launched:
@@ -3473,8 +3534,8 @@ def tools_path() -> dict:
     ``profile_train`` at its defaults (36 launches of K1-K4 a step, the
     tensor-core route in a traced run); ``profile_step_families`` naming
     K1-K4's device kernels; ``debug_overfit --steps 50`` (both phases
-    fall; K1/K2 on the FMA route, K3/K4 on it at C = 8 and as 3xTF32 at
-    C = 16, 32); ``train_pipeline_e2e --steps 30
+    fall; K1-K4 on the FMA route at C = 8 and as 3xTF32 at C = 16,
+    32); ``train_pipeline_e2e --steps 30
     --workers 2``; ``make_grain_loader(worker_count=2)`` over the packs
     into ``prefetch_to_device``; ``probe_backend() == "cuda"``."""
     import os
@@ -3620,8 +3681,8 @@ def tools_path() -> dict:
           f"{missing} in {families}")
     secs["profile_step_families"] = time.perf_counter() - t0
 
-    # 5. debug_overfit (fp32, blocks at C = 8, 16, 32, 16, 8: K1/K2 on the
-    #    FMA kernels; K3/K4 on them at C = 8, as 3xTF32 at C = 16, 32)
+    # 5. debug_overfit (fp32, blocks at C = 8, 16, 32, 16, 8: K1-K4 on the
+    #    FMA kernels at C = 8, as 3xTF32 at C = 16, 32)
     t0 = time.perf_counter()
     reset_launches()
     overfit = debug_overfit.main(["--steps", str(OVERFIT_STEPS)])
@@ -3815,9 +3876,9 @@ def main() -> int:
     on = lambda rs, path: [r for r in rs if r["path"] == path]
 
     def nafssr_keys(k):
-        """The kernel's launches and fp32 times in one NAFSSR step; for K3
-        and K4 also the 3xTF32 bound and the FMA route's device time at
-        the same inputs (the first port's kernels)."""
+        """The kernel's launches and fp32 times in one NAFSSR step; for
+        K1-K4 also the 3xTF32 bound and the FMA route's device time at the
+        same inputs (the first port's kernels)."""
         fp32 = on([r for r in rows[k] if r["dtype"] == "float32"], "nafssr")
         step = summary(k, fp32, 0, "")
         out = dict(nafssr_launches=ssr["launches"][k], nafssr_ms=step["ms"],

@@ -3,8 +3,9 @@
 //
 // Layout: activations are contiguous NCHW viewed as [N, C, H*W]; vectors
 // are fp32 [C]; matrices row-major [Cout, Cin], already rounded to the
-// compute type: bf16 for the tensor-core route, fp32 (holding bf16 values
-// when the activations are bf16) for the FMA route.
+// compute type: in the activations' type for the tensor-core routes (bf16,
+// or fp32 split in the kernel), fp32 (holding bf16 values when the
+// activations are bf16) for the FMA route.
 //
 // K1 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_a (pallas_call in _call_a).
@@ -14,7 +15,8 @@
 //   the activation type) for the SCA mean.
 //   Bound: moves ~2*C*HW activation elements per image and does ~4*C^2*HW
 //   FLOPs: in bf16 on the tensor cores bytes bound it up to C = 256,
-//   operations from C = 512.
+//   operations from C = 512; in fp32 as 3xTF32 (three TF32 operations a
+//   FLOP) bytes bound it up to C = 64, operations from C = 128.
 //
 // K2 -- replaces lowlight_image_enhancement_tpu/ops/pallas/nafblock.py:
 //       _kernel_b (pallas_call in _call_b).
@@ -22,40 +24,53 @@
 //   gate -> conv5 F->C -> out = z + gamma * .
 //   Bound: moves ~3*C*HW activation elements and does ~8*C^2*HW FLOPs (at
 //   F = C): in bf16 on the tensor cores bytes bound it up to C = 128,
-//   operations from C = 256.
+//   operations from C = 256; in fp32 as 3xTF32 bytes up to C = 64,
+//   operations from C = 128.
 //
-// Two routes; the wrapper (ops/nafblock.py) chooses by dtype and shape and
-// passes tile = 0 for the FMA route:
+// Three routes; the wrapper (ops/nafblock.py) chooses by dtype and shape and
+// passes tile = 0 for the FMA route, never on a failure:
 //
-// - Tensor cores (bf16 with C and F multiples of 16; nafblock_fwd_mma.cuh).
-//   Every product is mma.sync m16n8k16 with fp32 accumulators, as in K3/K4.
-//   K1 is split where the depthwise halo is, as K4 is, so each product is
-//   computed once per pixel: k1_front_kernel (pixel tiles, every channel:
-//   LN1, h, t = W1 h + b1 as fp32 into the caller's t), k1_dw_kernel (2-D
-//   tiles x channel pairs: the depthwise step, the gate, the partial sums
-//   of g), then sum_rows. The price is the round trip of t through HBM:
-//   16 C bytes a pixel against the 4 C of x and g. K2 is one kernel,
-//   k2_mma_kernel, with z, q in fp32 and the product operands in bf16 in
-//   shared memory. The wrapper chooses the pixel tiles and the grids
-//   (ops/nafblock.py: k1_geometry, k2_geometry) so that one round of
-//   blocks fills the card; here they are only checked.
+// - bf16 on the tensor cores (bf16 with C and F multiples of 16;
+//   nafblock_fwd_mma.cuh). Every product is mma.sync m16n8k16 with fp32
+//   accumulators, as in K3/K4. K1 is split where the depthwise halo is, as
+//   K4 is, so each product is computed once per pixel: k1_front_kernel
+//   (pixel tiles, every channel: LN1, h, t = W1 h + b1 as fp32 into the
+//   caller's t), k1_dw_kernel (2-D tiles x channel pairs: the depthwise
+//   step, the gate, the partial sums of g), then sum_rows. The price is
+//   the round trip of t through HBM: 16 C bytes a pixel against the 4 C
+//   of x and g. K2 is one kernel, k2_mma_kernel, with z, q in fp32 and the
+//   product operands in bf16 in shared memory. The wrapper chooses the
+//   pixel tiles and the grids (ops/nafblock.py: k1_geometry, k2_geometry)
+//   so that one round of blocks fills the card; here they are only
+//   checked.
 //
-// - FMA (fp32, and bf16 with C % 16 != 0; the first port's kernels, any
-//   C and F). The matrices come with each row zero-padded to pitch4 of its
-//   length (the caller pads them), so a row is read as float4 at any
-//   width; activations keep the true C, every statistic and sum runs over
-//   the true C, and a read of 4 channels at once stops at C. k1_kernel: one block owns a 16x16 halo tile (14x14 output
-//   pixels, one thread per halo pixel) and 16 gate channels, and each
-//   thread recomputes LN1 and the 32 conv1 rows it needs for its halo
-//   pixel straight from x (every block of 16 gate channels repeats them),
-//   so t lives in shared memory only; halo pixels outside the image hold
-//   t = 0 (not b1), as the TPU kernel's row-validity mask does; per-tile
+// - fp32 on the tensor cores (fp32 with C and F multiples of 16 and a tile
+//   that fits; nafblock_fwd_tf32.cuh). The same kernels and launches with
+//   every operand in fp32 and each product as three TF32 products
+//   (3xTF32, tf32_mma.cuh; one TF32 product would break the 1e-4
+//   tolerance, three keep ~22 bits of each operand): k1_front_tf32_kernel,
+//   k1_dw_kernel<K1Tf32> (g stored in fp32), sum_rows; k2_tf32_kernel. Up
+//   to 64 channels the weights stay in shared memory in fp32; above, each
+//   warp reads its rows of them from global memory (L2). The tile and grids
+//   come from the fp32 forms of k1_geometry and k2_geometry.
+//
+// - FMA (bf16 with C % 16 != 0, fp32 with C or F % 16 != 0; the first
+//   port's kernels, any C and F; chip_smoke.py also times them beside the
+//   tensor-core routes). The matrices come with each row zero-padded to
+//   pitch4 of its length (the caller pads them), so a row is read as
+//   float4 at any width; activations keep the true C, every statistic and
+//   sum runs over the true C, and a read of 4 channels at once stops at C.
+//   k1_kernel: one block owns a 16x16 halo tile (14x14 output pixels, one
+//   thread per halo pixel) and 16 gate channels, and each thread
+//   recomputes LN1 and the 32 conv1 rows it needs for its halo pixel
+//   straight from x (every block of 16 gate channels repeats them), so t
+//   lives in shared memory only; halo pixels outside the image hold t = 0
+//   (not b1), as the TPU kernel's row-validity mask does; per-tile
 //   partials of the sums are added by sum_rows. k2_kernel: one block owns
 //   P consecutive pixels and all channels; z (fp32), the conv3/conv4
 //   input and the gate product stay in shared memory ((2C + F) * P * 4
 //   bytes: P = 32 up to C = F = 512, P = 16 at C = F = 1024); groups of P
-//   lanes split the output channels, a lane owns one pixel. fp32 stays
-//   here because TF32 would break the 1e-4 tolerance.
+//   lanes split the output channels, a lane owns one pixel.
 //
 // Numerics follow the TPU kernels: LN statistics and all elementwise math
 // in fp32; matrix-product operands rounded to the compute type with fp32
@@ -67,6 +82,7 @@
 
 #include "nafblock_common.cuh"
 #include "nafblock_fwd_mma.cuh"
+#include "nafblock_fwd_tf32.cuh"
 
 namespace {
 
@@ -407,7 +423,7 @@ cudaError_t run_a_mma(const AArgs& a, int P, int BX, int DX, cudaStream_t s) {
                            dim3((unsigned)BX, (unsigned)N),
                            k1_front_smem(C, P), k, s)))
     return err;
-  if ((err = launch_kernel((const void*)k1_dw_kernel,
+  if ((err = launch_kernel((const void*)k1_dw_kernel<K1Mma>,
                            dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0,
                            k, s)))
     return err;
@@ -467,6 +483,122 @@ cudaError_t run_b_mma(const K2Args& a, int P, int BX, cudaStream_t s) {
                        k2_mma_smem(a.C, a.F, P), k, s);
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K2 in fp32 on the tensor cores (3xTF32, nafblock_fwd_tf32.cuh):
+// the kernels and launch sequence of the bf16 route with fp32 operands, g
+// and out. The wrapper chooses the tile and grids (ops/nafblock.py:
+// k1_geometry, k2_geometry with dtype fp32); here they are only checked.
+// ---------------------------------------------------------------------------
+
+bool a_tf32_ok(int C, int H, int W, int P, int BX, int DX) {
+  const long long HW = (long long)H * W;
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && C > 0 &&
+         BX >= 1 && BX <= (HW + P - 1) / P && DX >= 1 &&
+         DX <= k1_dw_tiles(H, W) &&
+         (long long)k1_front_tf32_smem(C, P) <= kSmemLimit;
+}
+
+template <int P>
+const void* k1_front_tf32_p(int C) {
+  return k1_resident(C) ? (const void*)k1_front_tf32_kernel<P, true>
+                        : (const void*)k1_front_tf32_kernel<P, false>;
+}
+
+const void* k1_front_tf32(int C, int P) {
+  return P == 32   ? k1_front_tf32_p<32>(C)
+         : P == 16 ? k1_front_tf32_p<16>(C)
+                   : k1_front_tf32_p<8>(C);
+}
+
+cudaError_t run_a_tf32(const AArgs& a, int P, int BX, int DX,
+                       cudaStream_t s) {
+  const int C = a.C, N = a.N;
+  if (!a_tf32_ok(C, a.H, a.W, P, BX, DX) || !aligned16(a.W1) ||
+      !aligned16(a.t))
+    return cudaErrorInvalidValue;
+  Carver cv{static_cast<char*>(a.ws)};
+  const long long HW = (long long)a.H * a.W;
+  float* part = cv.take<float>((size_t)N * DX * C);
+  K1Tf32 k;
+  k.x = static_cast<const float*>(a.x);
+  k.w1n = static_cast<const float*>(a.w1n);
+  k.b1n = static_cast<const float*>(a.b1n);
+  k.b1 = static_cast<const float*>(a.b1);
+  k.kdw = static_cast<const float*>(a.kdw);
+  k.bk = static_cast<const float*>(a.bk);
+  k.W1 = static_cast<const float*>(a.W1);
+  k.g = static_cast<float*>(a.g);
+  k.t = static_cast<float*>(a.t);
+  k.part = part;
+  k.C = C;
+  k.H = a.H;
+  k.W = a.W;
+  k.HW = HW;
+  k.HWp = t_row(HW);
+  k.tiles = (int)((HW + P - 1) / P);
+  k.vec = HW % 4 == 0 && aligned16(a.x);
+  k.eps = a.eps;
+  cudaError_t err;
+  if ((err = launch_kernel(k1_front_tf32(C, P),
+                           dim3((unsigned)BX, (unsigned)N),
+                           k1_front_tf32_smem(C, P), k, s)))
+    return err;
+  if ((err = launch_kernel((const void*)k1_dw_kernel<K1Tf32>,
+                           dim3((unsigned)C, (unsigned)DX, (unsigned)N), 0,
+                           k, s)))
+    return err;
+  return launch_sum_rows(part, static_cast<float*>(a.sums), N, DX, C, s);
+}
+
+bool b_tf32_ok(int C, int F, long long HW, int P, int BX) {
+  return (P == 8 || P == 16 || P == 32) && C % 16 == 0 && F % 16 == 0 &&
+         C > 0 && F > 0 && BX >= 1 && BX <= (HW + P - 1) / P &&
+         (long long)k2_tf32_smem(C, F, P) <= kSmemLimit;
+}
+
+template <int P>
+const void* k2_tf32_p(int C, int F) {
+  return resident(C, F) ? (const void*)k2_tf32_kernel<P, true>
+                        : (const void*)k2_tf32_kernel<P, false>;
+}
+
+const void* k2_tf32(int C, int F, int P) {
+  return P == 32   ? k2_tf32_p<32>(C, F)
+         : P == 16 ? k2_tf32_p<16>(C, F)
+                   : k2_tf32_p<8>(C, F);
+}
+
+cudaError_t run_b_tf32(const K2Args& a, int P, int BX, cudaStream_t s) {
+  if (!b_tf32_ok(a.C, a.F, a.HW, P, BX) || !aligned16(a.W3) ||
+      !aligned16(a.W4) || !aligned16(a.W5))
+    return cudaErrorInvalidValue;
+  K2Tf32 k;
+  k.x = static_cast<const float*>(a.x);
+  k.g = static_cast<const float*>(a.g);
+  k.att = static_cast<const float*>(a.att);
+  k.W3 = static_cast<const float*>(a.W3);
+  k.W4 = static_cast<const float*>(a.W4);
+  k.W5 = static_cast<const float*>(a.W5);
+  k.b3 = static_cast<const float*>(a.b3);
+  k.w2n = static_cast<const float*>(a.w2n);
+  k.b2n = static_cast<const float*>(a.b2n);
+  k.b4 = static_cast<const float*>(a.b4);
+  k.b5 = static_cast<const float*>(a.b5);
+  k.beta = static_cast<const float*>(a.beta);
+  k.gamma = static_cast<const float*>(a.gamma);
+  k.out = static_cast<float*>(a.out);
+  k.C = a.C;
+  k.F = a.F;
+  k.HW = a.HW;
+  k.tiles = (int)((a.HW + P - 1) / P);
+  k.vec = a.HW % 4 == 0 && aligned16(a.x) && aligned16(a.g) &&
+          aligned16(a.out);
+  k.eps = a.eps;
+  return launch_kernel(k2_tf32(a.C, a.F, P),
+                       dim3((unsigned)BX, (unsigned)a.N),
+                       k2_tf32_smem(a.C, a.F, P), k, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -489,22 +621,45 @@ int nafblk_a_mma_blocks_per_sm(int C, int P) {
   return occupancy(k1_front(C, P), k1_front_smem(C, P));
 }
 int nafblk_a_dw_blocks_per_sm() {
-  return occupancy((const void*)k1_dw_kernel, 0);
+  return occupancy((const void*)k1_dw_kernel<K1Mma>, 0);
 }
 int nafblk_b_mma_blocks_per_sm(int C, int F, int P) {
   if (!b_mma_ok(C, F, P, P, 1)) return -1;
   return occupancy(k2_mma(C, F, P), k2_mma_smem(C, F, P));
 }
 
+// The same counts for the fp32 K1 and K2 on the tensor cores (3xTF32):
+// k1_front_tf32_kernel, k1_dw_kernel with g in fp32, k2_tf32_kernel.
+long long nafblk_a_tf32_smem(int C, int P) {
+  return (long long)k1_front_tf32_smem(C, P);
+}
+long long nafblk_b_tf32_smem(int C, int F, int P) {
+  return (long long)k2_tf32_smem(C, F, P);
+}
+int nafblk_a_tf32_blocks_per_sm(int C, int P) {
+  if (!a_tf32_ok(C, 1, P, P, 1, 1)) return -1;
+  return occupancy(k1_front_tf32(C, P), k1_front_tf32_smem(C, P));
+}
+int nafblk_a_tf32_dw_blocks_per_sm() {
+  return occupancy((const void*)k1_dw_kernel<K1Tf32>, 0);
+}
+int nafblk_b_tf32_blocks_per_sm(int C, int F, int P) {
+  if (!b_tf32_ok(C, F, P, P, 1)) return -1;
+  return occupancy(k2_tf32(C, F, P), k2_tf32_smem(C, F, P));
+}
+
 // Workspace bytes nafblk_a needs (-1: the shape or geometry is not taken).
-// tile, dw_grid: the bf16 route's pixels per tile (8, 16 or 32) and blocks
-// per (image, channel pair) of its depthwise kernel; tile = 0 is the FMA
-// route (its per-tile partial sums).
-long long nafblk_a_workspace(int N, int C, int H, int W, int tile, int grid,
-                             int dw_grid) {
+// tile, grid, dw_grid: the tensor-core route's pixels per tile (8, 16 or
+// 32), blocks per image of its front kernel and per (image, channel pair)
+// of its depthwise kernel (bf16 products when is_bf16, else fp32 as
+// 3xTF32); tile = 0 is the FMA route (its per-tile partial sums).
+long long nafblk_a_workspace(int N, int C, int H, int W, int is_bf16,
+                             int tile, int grid, int dw_grid) {
   Carver cv{nullptr};
   if (tile) {
-    if (!a_mma_ok(C, H, W, tile, grid, dw_grid)) return -1;
+    if (is_bf16 ? !a_mma_ok(C, H, W, tile, grid, dw_grid)
+                : !a_tf32_ok(C, H, W, tile, grid, dw_grid))
+      return -1;
     cv.take<float>((size_t)N * dw_grid * C);
   } else {
     cv.take<float>((size_t)N * a_tiles(H, W) * C);
@@ -515,7 +670,8 @@ long long nafblk_a_workspace(int N, int C, int H, int W, int tile, int grid,
 // K1. x, g: [N, C, H*W]; sums: [N, C] fp32; ws: workspace. tile = 0: the
 // FMA route (x fp32, or bf16 when is_bf16; W1 fp32 [2C, pitch4(C)], rows
 // zero-padded; any C; t unused);
-// tile > 0: the tensor-core route (x and W1 bf16, C % 16 == 0, the geometry
+// tile > 0: the tensor-core route (x and W1 in the activations' type: bf16
+// products, or fp32 as 3xTF32; C % 16 == 0, the geometry
 // nafblk_a_workspace takes), which writes the front stage's output to t:
 // fp32 [N, 2C, H*W rounded up to 8].
 int nafblk_a(const void* x, const void* w1n, const void* b1n, const void* W1,
@@ -525,10 +681,10 @@ int nafblk_a(const void* x, const void* w1n, const void* b1n, const void* W1,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile) {
-    if (!is_bf16) return (int)cudaErrorInvalidValue;
     const AArgs a{x, w1n, b1n, W1, b1, kdw, bk, g, sums, t, ws,
                    N, C, H, W, eps};
-    return (int)run_a_mma(a, tile, grid, dw_grid, s);
+    return is_bf16 ? (int)run_a_mma(a, tile, grid, dw_grid, s)
+                   : (int)run_a_tf32(a, tile, grid, dw_grid, s);
   }
   const int tiles_x = (W + kTileW - 1) / kTileW;
   const int n_tiles = a_tiles(H, W);
@@ -566,8 +722,9 @@ int nafblk_b_pixels(int C, int F) {
 // W5 [C, F]. tile = 0: the FMA route (x fp32, or bf16 when is_bf16;
 // matrices fp32 with rows zero-padded to pitch4: W3 [C, pitch4(C)], W4
 // [2F, pitch4(C)], W5 [C, pitch4(F)]; any C, F with nafblk_b_pixels > 0);
-// tile > 0: the tensor-core route (x and matrices bf16, C % 16 == 0,
-// F % 16 == 0, a tile that fits and 1 <= grid <= the image's tiles).
+// tile > 0: the tensor-core route (x and matrices in the activations' type:
+// bf16 products, or fp32 as 3xTF32; C % 16 == 0, F % 16 == 0, a tile that
+// fits and 1 <= grid <= the image's tiles).
 int nafblk_b(const void* x, const void* g, const void* att, const void* W3,
              const void* b3, const void* w2n, const void* b2n, const void* W4,
              const void* b4, const void* W5, const void* b5, const void* beta,
@@ -576,10 +733,9 @@ int nafblk_b(const void* x, const void* g, const void* att, const void* W3,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const K2Args a{x, g, att, W3, b3, w2n, b2n, W4, b4, W5, b5, beta, gamma,
                  out, N, C, F, HW, eps};
-  if (tile) {
-    if (!is_bf16) return (int)cudaErrorInvalidValue;
-    return (int)run_b_mma(a, tile, grid, s);
-  }
+  if (tile)
+    return is_bf16 ? (int)run_b_mma(a, tile, grid, s)
+                   : (int)run_b_tf32(a, tile, grid, s);
   const int P = nafblk_b_pixels(C, F);
   if (P == 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) return (int)launch_k2_rows<__nv_bfloat16>(a, P, s);

@@ -9,9 +9,10 @@
 //     step; so does this one).
 //   k1_dw_kernel (CUDA cores, 2-D tiles of 32 x 32 pixels, one channel pair
 //     (j, C + j) a block): u = dw3x3(t) + bk with t zero outside the image,
-//     g = u1 u2 written in bf16, and the fp32 sum of g (before it is
-//     rounded) over every tile the block walks: one partial row a block,
-//     added by sum_rows in a fixed order (no float atomics).
+//     g = u1 u2 written in bf16 (in fp32 for the fp32 K1 of
+//     nafblock_fwd_tf32.cuh, which shares this kernel), and the fp32 sum of
+//     g (before it is rounded) over every tile the block walks: one partial
+//     row a block, added by sum_rows in a fixed order (no float atomics).
 //   k2_mma_kernel (tensor cores, pixel tiles): v = bf16(g att) -> conv3 ->
 //     z = x + beta (W3 v + b3) (fp32) -> LN2 -> conv4 -> the gate in fp32,
 //     rounded to bf16 -> conv5 -> out = z + gamma (W5 wv + b5), stored in
@@ -168,6 +169,8 @@ __global__ void __launch_bounds__(kThreads, RES ? kFwdResidentBlocks : 2)
 // Writes its partial sum of g at part[n * DX + d][j]. Bound by bytes (t in:
 // 8 C bytes a pixel, g out: 2 C); all loads of a tile are issued before the
 // first store to shared memory, so they are in flight together.
+// Args is K1Mma (g out in bf16) or K1Tf32 of nafblock_fwd_tf32.cuh (g out
+// in fp32).
 // ---------------------------------------------------------------------------
 
 constexpr int kK1DwRows = 4;  // output rows a thread (8 rows apart)
@@ -180,8 +183,14 @@ __host__ __device__ inline int k1_dw_tiles(int H, int W) {
   return ((H + kK1DwH - 1) / kK1DwH) * ((W + kK1DwW - 1) / kK1DwW);
 }
 
+__device__ __forceinline__ void store_g(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_g(float* p, float v) { *p = v; }
+
+template <typename Args>
 __global__ void __launch_bounds__(kThreads, kK1DwBlocks)
-    k1_dw_kernel(const K1Mma a) {
+    k1_dw_kernel(const Args a) {
   __shared__ float t_s[2][kK1DwTH * kK1DwTW];
   __shared__ float red_s[kThreads / 32];
 
@@ -193,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, kK1DwBlocks)
   const int tiles = k1_dw_tiles(H, W);
   const float* ta = a.t + ((long long)n * 2 * C + j) * HWp;
   const float* tb = ta + (long long)C * HWp;
-  bf16* gj = a.g + ((long long)n * C + j) * a.HW;
+  auto* gj = a.g + ((long long)n * C + j) * a.HW;
 
   float ka[9], kb[9];
 #pragma unroll
@@ -240,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, kK1DwBlocks)
         }
       const float gv = ua * ub;
       sum += gv;
-      gj[(long long)gr * W + gc] = __float2bfloat16_rn(gv);
+      store_g(gj + (long long)gr * W + gc, gv);
     }
   }
 

@@ -40,7 +40,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "nafblk_a_mma_blocks_per_sm": (_I, [_I, _I]),
         "nafblk_a_dw_blocks_per_sm": (_I, []),
         "nafblk_b_mma_blocks_per_sm": (_I, [_I, _I, _I]),
-        "nafblk_a_workspace": (_L, [_I] * 7),
+        "nafblk_a_tf32_smem": (_L, [_I, _I]),
+        "nafblk_b_tf32_smem": (_L, [_I, _I, _I]),
+        "nafblk_a_tf32_blocks_per_sm": (_I, [_I, _I]),
+        "nafblk_a_tf32_dw_blocks_per_sm": (_I, []),
+        "nafblk_b_tf32_blocks_per_sm": (_I, [_I, _I, _I]),
+        "nafblk_a_workspace": (_L, [_I] * 8),
         "nafblk_a": (_I, [_P] * 11 + [_I] * 4 + [_F] + [_I] * 4 + [_P]),
         "nafblk_b_pixels": (_I, [_I, _I]),
         "nafblk_b": (_I, [_P] * 14 + [_I, _I, _I, _L, _F, _I, _I, _I, _P]),

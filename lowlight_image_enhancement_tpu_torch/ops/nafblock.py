@@ -25,7 +25,7 @@ and its backward (:class:`NAFBlockFunction`, the counterpart of the JAX
 - K4 (:func:`call_p2`): recomputes LN1/conv1/depthwise from ``x`` and
   returns ``dx`` and the first-half weight grads.
 
-Every kernel has two routes, chosen by dtype and shape, never on a
+Every kernel has three routes, chosen by dtype and shape, never on a
 failure:
 
 - bf16 with C (and F) a multiple of 16 runs on the tensor cores
@@ -33,21 +33,25 @@ failure:
   tile and grids of :func:`k1_geometry`, K2 as ``k2_mma_kernel``
   (:func:`k2_geometry`), K3 as ``k3_mma_kernel`` (:func:`p1_geometry`), K4
   as its front, depthwise and back kernels (:func:`p2_geometry`);
-- fp32 K3 and K4 with C (and F) a multiple of 16 and a tile that fits run
-  on the tensor cores too, each product as three TF32 products
-  ("3xTF32": one would break the 1e-4 tolerance), as
-  ``k3_tf32_kernel`` and ``k4_front_tf32_kernel``, ``k4_dw_kernel``,
+- fp32 with C (and F) a multiple of 16 and a tile that fits runs on the
+  tensor cores too, each product as three TF32 products ("3xTF32": one
+  would break the 1e-4 tolerance): K1 as ``k1_front_tf32_kernel`` +
+  ``k1_dw_kernel``, K2 as ``k2_tf32_kernel``, K3 as ``k3_tf32_kernel``,
+  K4 as ``k4_front_tf32_kernel``, ``k4_dw_kernel``,
   ``k4_back_tf32_kernel`` with ``wgrad_tf32_kernel`` (the geometry
   functions' ``dtype=torch.float32`` forms);
-- everything else runs the FMA kernels: fp32 K1 and K2, fp32 K3 and K4 at
-  other C, and bf16 at any other C and F, all four kernels alike: the FMA
-  kernels are instantiated for bf16 activations, with every product
-  operand rounded to bf16 as the tensor-core route rounds it. They read
-  matrix rows as float4, so each matrix reaches them with its rows
-  zero-padded to a multiple of 4 (:func:`padded_matrices`, once per block
-  forward); the activations keep their true C and the weight grads their
-  true shapes. A bf16 block whose forward runs on the card runs its
-  backward there too.
+- everything else runs the FMA kernels of the first port: C or F no
+  multiple of 16 (or no tile that fits) in either dtype, all four kernels
+  alike. They are
+  instantiated for bf16 activations too, with every product operand
+  rounded to bf16 as the tensor-core route rounds it. They read matrix
+  rows as float4, so each matrix reaches them with its rows zero-padded
+  to a multiple of 4 (:func:`padded_matrices`, once per block forward);
+  the activations keep their true C and the weight grads their true
+  shapes. A bf16 block whose forward runs on the card runs its backward
+  there too. ``launch_a``, ``launch_b``, ``launch_p1`` and ``launch_p2``
+  take the route as an argument, uncounted, so ``chip_smoke.py`` can time
+  the FMA kernels beside the tensor-core ones on the same inputs.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper counts its launches in ``.launches``.
@@ -388,15 +392,18 @@ _B_PARAMS = ("W3", "b3", "w2n", "b2n", "W4", "b4", "W5", "b5", "beta",
              "gamma")
 
 
-# Geometry of the bf16 K1 and K2 (csrc/nafblock_fwd_mma.cuh): the pixel
-# tiles of K3 (32, 16 or 8 pixels, bf16 rows padded by 8 above 8 pixels);
-# up to 64 channels the weights stay in shared memory (rows padded by 8),
-# else they pass through the ring of three weight slabs.
-#   K1 front: x fp32 [C][tile], h bf16 [C][rows], W1 [2C]
-#   K2: v, h2, wv bf16 [max(C, F)][rows], W3 + W4 + W5, z fp32 [C][tile],
+# Geometry of K1 and K2 on the tensor cores (csrc/nafblock_fwd_mma.cuh in
+# bf16, csrc/nafblock_fwd_tf32.cuh in fp32 as 3xTF32): the pixel tiles of
+# K3 (32, 16 or 8 pixels, operand rows padded by 8 above 8 pixels); up to
+# 64 channels the weights stay in shared memory (rows padded by 8), else
+# bf16 passes them through the ring of three weight slabs and fp32 gives
+# them no shared memory (each warp reads its rows from global memory).
+#   K1 front: x fp32 [C][tile], h [C][rows], W1 [2C]
+#   K2: v, h2, wv [max(C, F)][rows], W3 + W4 + W5, z fp32 [C][tile],
 #   q fp32 [2F][tile]
-# Both have 1 KB of static shared memory. K1's depthwise kernel takes 2-D
-# tiles of 32 x 32 pixels and one channel pair a block. chip_smoke.py holds
+# with h, v, h2, wv and the weights bf16 in bf16 and fp32 in fp32. Both
+# have 1 KB of static shared memory. K1's depthwise kernel takes 2-D tiles
+# of 32 x 32 pixels and one channel pair a block. chip_smoke.py holds
 # k1_smem_bytes / k2_smem_bytes against the kernels' own sums.
 FWD_RESIDENT_MAX = 64
 FWD_STATIC_SMEM = 1024
@@ -409,24 +416,39 @@ K1_BLOCKS_BY_REGISTERS = {(False, 32): 3, (False, 16): 4, (False, 8): 5,
                           (True, 32): 3, (True, 16): 5, (True, 8): 5}
 K2_BLOCKS_BY_REGISTERS = {(False, 32): 3, (False, 16): 3, (False, 8): 3,
                           (True, 32): 3, (True, 16): 4, (True, 8): 5}
+# the same for the fp32 kernels (k1_front_tf32_kernel, k2_tf32_kernel)
+K1_TF32_BLOCKS_BY_REGISTERS = {(False, 32): 3, (False, 16): 4, (False, 8): 4,
+                               (True, 32): 3, (True, 16): 4, (True, 8): 4}
+K2_TF32_BLOCKS_BY_REGISTERS = {(False, 32): 2, (False, 16): 3, (False, 8): 3,
+                               (True, 32): 3, (True, 16): 3, (True, 8): 3}
 K1_DW_TILE = (32, 32)
+# blocks of the depthwise kernel on an SM, g in bf16 or in fp32 alike
 K1_DW_BLOCKS_PER_SM = 3
 
 
-def k1_smem_bytes(c: int, tile: int) -> int:
-    """Dynamic shared memory of the bf16 K1's front kernel with ``tile``
-    pixels."""
+def k1_smem_bytes(c: int, tile: int,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of K1's front kernel on the tensor cores (bf16,
+    or fp32 for 3xTF32) with ``tile`` pixels."""
     ldb = tile if tile == 8 else tile + 8
-    w = 2 * c * (c + 8) * 2 if c <= FWD_RESIDENT_MAX else P1_SLAB_BYTES
+    resident = c <= FWD_RESIDENT_MAX
+    if dtype == torch.float32:
+        return (c * tile + c * ldb + (2 * c * (c + 8) if resident else 0)) * 4
+    w = 2 * c * (c + 8) * 2 if resident else P1_SLAB_BYTES
     return c * tile * 4 + c * ldb * 2 + w
 
 
-def k2_smem_bytes(c: int, f: int, tile: int) -> int:
-    """Dynamic shared memory of the bf16 K2 with ``tile`` pixels."""
+def k2_smem_bytes(c: int, f: int, tile: int,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of K2 on the tensor cores (bf16, or fp32 for
+    3xTF32) with ``tile`` pixels."""
     ldb = tile if tile == 8 else tile + 8
-    w = P1_SLAB_BYTES
-    if c <= FWD_RESIDENT_MAX and f <= FWD_RESIDENT_MAX:
-        w = ((c + 2 * f) * (c + 8) + c * (f + 8)) * 2
+    resident = c <= FWD_RESIDENT_MAX and f <= FWD_RESIDENT_MAX
+    mats = (c + 2 * f) * (c + 8) + c * (f + 8)
+    if dtype == torch.float32:
+        return (max(c, f) * ldb + (mats if resident else 0)
+                + (c + 2 * f) * tile) * 4
+    w = mats * 2 if resident else P1_SLAB_BYTES
     return max(c, f) * ldb * 2 + w + (c + 2 * f) * tile * 4
 
 
@@ -446,114 +468,138 @@ def _built_per_sm(entry: str, *args: int) -> int:
 _BUILT_PER_SM: Dict[str, Dict[tuple, int]] = {}
 
 
-def k1_blocks_per_sm(c: int, tile: int, built: bool = False) -> int:
-    """Blocks of the bf16 K1's front kernel that share an SM: as many as
-    its registers and shared memory (dynamic, 1 KB static, 1 KB reserved)
-    allow; with ``built``, as the runtime counts them for the built
-    kernel."""
+def _fwd_kind(dtype: torch.dtype) -> str:
+    """The name part of the tensor-core kernels of ``dtype``: ``mma`` (bf16)
+    or ``tf32`` (fp32)."""
+    return "tf32" if dtype == torch.float32 else "mma"
+
+
+def k1_blocks_per_sm(c: int, tile: int, built: bool = False,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks of K1's front kernel on the tensor cores (bf16, or fp32 for
+    3xTF32) that share an SM: as many as its registers and shared memory
+    (dynamic, 1 KB static, 1 KB reserved) allow; with ``built``, as the
+    runtime counts them for the built kernel."""
     if built:
-        return _built_per_sm("nafblk_a_mma_blocks_per_sm", c, tile)
-    by_regs = K1_BLOCKS_BY_REGISTERS[c <= FWD_RESIDENT_MAX, tile]
-    return min(by_regs, SM_SMEM // (k1_smem_bytes(c, tile)
+        return _built_per_sm(f"nafblk_a_{_fwd_kind(dtype)}_blocks_per_sm", c,
+                             tile)
+    table = (K1_TF32_BLOCKS_BY_REGISTERS if dtype == torch.float32
+             else K1_BLOCKS_BY_REGISTERS)
+    return min(table[c <= FWD_RESIDENT_MAX, tile],
+               SM_SMEM // (k1_smem_bytes(c, tile, dtype)
+                           + FWD_STATIC_SMEM + 1024))
+
+
+def k2_blocks_per_sm(c: int, f: int, tile: int, built: bool = False,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks of K2 on the tensor cores that share an SM (as
+    :func:`k1_blocks_per_sm` counts them)."""
+    if built:
+        return _built_per_sm(f"nafblk_b_{_fwd_kind(dtype)}_blocks_per_sm", c,
+                             f, tile)
+    table = (K2_TF32_BLOCKS_BY_REGISTERS if dtype == torch.float32
+             else K2_BLOCKS_BY_REGISTERS)
+    by_regs = table[c <= FWD_RESIDENT_MAX and f <= FWD_RESIDENT_MAX, tile]
+    return min(by_regs, SM_SMEM // (k2_smem_bytes(c, f, tile, dtype)
                                     + FWD_STATIC_SMEM + 1024))
 
 
-def k2_blocks_per_sm(c: int, f: int, tile: int, built: bool = False) -> int:
-    """Blocks of the bf16 K2 that share an SM (as :func:`k1_blocks_per_sm`
-    counts them)."""
-    if built:
-        return _built_per_sm("nafblk_b_mma_blocks_per_sm", c, f, tile)
-    by_regs = K2_BLOCKS_BY_REGISTERS[
-        c <= FWD_RESIDENT_MAX and f <= FWD_RESIDENT_MAX, tile]
-    return min(by_regs, SM_SMEM // (k2_smem_bytes(c, f, tile)
-                                    + FWD_STATIC_SMEM + 1024))
-
-
-def k1_tile(n: int, c: int, s: int) -> int:
-    """Pixels per tile of the bf16 K1's front kernel on ``[N, C, S]``: the
-    widest tile that fits and still gives half the SMs a block, else the
-    narrowest that fits. A tile of this kernel is a short chain (LN1, one
-    product) whose fixed part a wide tile pays back, so fewer, wider
-    blocks beat a full round of narrow ones (``chip_smoke.py`` on an H100:
-    2.285 ms of device time per flagship step, against 2.500 with K2's
-    least-waves rule). 0 when no tile fits or ``C`` is no multiple of 16
-    (the depth of one tensor-core step)."""
+def k1_tile(n: int, c: int, s: int,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Pixels per tile of K1's front kernel on the tensor cores on a
+    ``dtype`` ``[N, C, S]``: the widest tile that fits and still gives half
+    the SMs a block, else the narrowest that fits. A tile of this kernel is
+    a short chain (LN1, one product) whose fixed part a wide tile pays
+    back, so fewer, wider blocks beat a full round of narrow ones
+    (``chip_smoke.py`` on an H100: 2.285 ms of device time per flagship
+    step, against 2.500 with K2's least-waves rule). 0 when no tile fits or
+    ``C`` is no multiple of 16 (the depth of one bf16 tensor-core step, two
+    of TF32)."""
     if c % 16:
         return 0
-    fits = [t for t in P1_TILES if k1_smem_bytes(c, t) <= P1_SMEM_LIMIT]
+    fits = [t for t in P1_TILES
+            if k1_smem_bytes(c, t, dtype) <= P1_SMEM_LIMIT]
     for t in fits:
         if n * -(-s // t) >= SM_COUNT // 2:
             return t
     return fits[-1] if fits else 0
 
 
-def k2_tile(n: int, c: int, f: int, s: int, built: bool = False) -> int:
-    """Pixels per tile of the bf16 K2 on ``[N, C, S]``; 0 when no tile
-    fits or ``C``, ``F`` are no multiples of 16."""
+def k2_tile(n: int, c: int, f: int, s: int, built: bool = False,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Pixels per tile of K2 on the tensor cores on a ``dtype`` ``[N, C,
+    S]`` (:func:`_least_waves_tile`); 0 when no tile fits or ``C``, ``F``
+    are no multiples of 16."""
     if c % 16 or f % 16:
         return 0
-    return _least_waves_tile(n, s, lambda t: k2_smem_bytes(c, f, t),
-                             lambda t: k2_blocks_per_sm(c, f, t, built))
+    return _least_waves_tile(
+        n, s, lambda t: k2_smem_bytes(c, f, t, dtype),
+        lambda t: k2_blocks_per_sm(c, f, t, built, dtype))
 
 
-def k1_grid(n: int, c: int, s: int, tile: int, built: bool = False) -> int:
-    """Blocks per image of the bf16 K1's front kernel
+def k1_grid(n: int, c: int, s: int, tile: int, built: bool = False,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks per image of K1's front kernel on the tensor cores
     (``layernorm.one_round``)."""
-    return one_round(n, s, tile, k1_blocks_per_sm(c, tile, built))
+    return one_round(n, s, tile, k1_blocks_per_sm(c, tile, built, dtype))
 
 
-def k1_dw_grid(n: int, c: int, h: int, w: int, built: bool = False) -> int:
-    """Blocks per (image, channel pair) of the bf16 K1's depthwise kernel
-    (:func:`_dw_grid`)."""
-    per_sm = (_built_per_sm("nafblk_a_dw_blocks_per_sm") if built
-              else K1_DW_BLOCKS_PER_SM)
+def k1_dw_grid(n: int, c: int, h: int, w: int, built: bool = False,
+               dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks per (image, channel pair) of K1's depthwise kernel
+    (:func:`_dw_grid`); ``dtype`` is g's, bf16 or fp32."""
+    entry = ("nafblk_a_tf32_dw_blocks_per_sm" if dtype == torch.float32
+             else "nafblk_a_dw_blocks_per_sm")
+    per_sm = _built_per_sm(entry) if built else K1_DW_BLOCKS_PER_SM
     return _dw_grid(n, c, h, w, K1_DW_TILE, per_sm)
 
 
-def k2_grid(n: int, c: int, f: int, s: int, tile: int,
-            built: bool = False) -> int:
-    """Blocks per image of the bf16 K2 (``layernorm.one_round``)."""
-    return one_round(n, s, tile, k2_blocks_per_sm(c, f, tile, built))
+def k2_grid(n: int, c: int, f: int, s: int, tile: int, built: bool = False,
+            dtype: torch.dtype = torch.bfloat16) -> int:
+    """Blocks per image of K2 on the tensor cores
+    (``layernorm.one_round``)."""
+    return one_round(n, s, tile, k2_blocks_per_sm(c, f, tile, built, dtype))
 
 
 def k1_geometry(dtype: torch.dtype, n: int, c: int, h: int, w: int,
                 built: bool = False) -> Tuple[int, int, int]:
-    """``(tile, grid, dw_grid)`` of K1's tensor-core route on a bf16
+    """``(tile, grid, dw_grid)`` of K1's tensor-core route on a ``dtype``
     ``[N, C, H*W]`` input (:func:`k1_tile`, :func:`k1_grid`,
-    :func:`k1_dw_grid`). ``(0, 0, 0)`` chooses the FMA route: fp32, or a
-    C that is no multiple of 16 or too wide for any tile. ``built`` takes
-    the blocks per SM from the built kernels (the wrappers on CUDA), else
-    from this module's tables."""
-    tile = k1_tile(n, c, h * w) if dtype == torch.bfloat16 else 0
+    :func:`k1_dw_grid`): bf16 products in bf16, 3xTF32 in fp32.
+    ``(0, 0, 0)`` chooses the FMA route: a C that is no multiple of 16 or
+    too wide for any tile. ``built`` takes the blocks per SM from the built
+    kernels (the wrappers on CUDA), else from this module's tables."""
+    tile = k1_tile(n, c, h * w, dtype) if dtype in _MMA_DTYPES else 0
     if not tile:
         return 0, 0, 0
-    return (tile, k1_grid(n, c, h * w, tile, built),
-            k1_dw_grid(n, c, h, w, built))
+    return (tile, k1_grid(n, c, h * w, tile, built, dtype),
+            k1_dw_grid(n, c, h, w, built, dtype))
 
 
 def k2_geometry(dtype: torch.dtype, n: int, c: int, f: int, s: int,
                 built: bool = False) -> Tuple[int, int]:
-    """``(tile, grid)`` of K2's tensor-core route on a bf16 ``[N, C, S]``
-    input (:func:`k2_tile`, :func:`k2_grid`); ``(0, 0)`` chooses the FMA
-    route (fp32, or C, F no multiples of 16, or too wide for any tile).
-    ``built`` as in :func:`k1_geometry`."""
-    tile = k2_tile(n, c, f, s, built) if dtype == torch.bfloat16 else 0
+    """``(tile, grid)`` of K2's tensor-core route on a ``dtype`` ``[N, C,
+    S]`` input (:func:`k2_tile`, :func:`k2_grid`): bf16 products in bf16,
+    3xTF32 in fp32. ``(0, 0)`` chooses the FMA route (C, F no multiples of
+    16, or too wide for any tile). ``built`` as in :func:`k1_geometry`."""
+    tile = (k2_tile(n, c, f, s, built, dtype) if dtype in _MMA_DTYPES
+            else 0)
     if not tile:
         return 0, 0
-    return tile, k2_grid(n, c, f, s, tile, built)
+    return tile, k2_grid(n, c, f, s, tile, built, dtype)
 
 
 def call_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
            eps: float = 1e-6, return_t: bool = False):
     """K1 on ``x: [N, C, H*W]`` -> ``(g, sums)``; plain version on CPU.
 
-    On CUDA the route follows :func:`k1_geometry`: bf16 with C % 16 == 0
-    runs the tensor-core kernels (W1 in bf16, as :class:`NAFBlockFunction`
-    hands it over, goes to them with no conversion); fp32, and bf16 with
-    C % 16 != 0, run the FMA kernel (any C; W1's rows padded by
-    :func:`padded_matrices` unless they come so). ``return_t`` adds the
-    first stage's fp32 ``t [N, 2C, H*W]``, which only the tensor-core
-    route (and on CPU the plain version) computes apart."""
+    On CUDA the route follows :func:`k1_geometry`: C % 16 == 0 runs the
+    tensor-core kernels (bf16 products, or fp32 as 3xTF32; W1 in the
+    activations' type, as :class:`NAFBlockFunction` hands it over, goes to
+    them with no conversion); other C run the FMA kernel (any C; W1's rows
+    padded by :func:`padded_matrices` unless they come so). ``return_t``
+    adds the first stage's fp32 ``t [N, 2C, H*W]``, which only the
+    tensor-core routes (and on CPU the plain version) compute apart."""
     if not x.is_cuda:
         t = plain_a_front(x, p, eps)
         g, sums = plain_a_dw(t, p, hw, x.dtype)
@@ -562,16 +608,34 @@ def call_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
     h, w = hw
     if h * w != s:
         raise ValueError(f"hw={hw} does not match H*W={s}")
+    out = launch_a(x, p, hw, eps, *k1_geometry(x.dtype, n, c, h, w,
+                                               built=True), return_t=return_t)
+    call_a.launches += 1
+    return out
+
+
+call_a.launches = 0
+
+
+def launch_a(x: torch.Tensor, p: Params, hw: Tuple[int, int], eps: float,
+             tile: int, grid: int, dw_grid: int, return_t: bool = False):
+    """K1's kernels on CUDA tensors on the route ``tile`` names (> 0: the
+    tensor-core kernels with that tile and grids; 0: the FMA kernel) ->
+    what :func:`call_a` returns, uncounted. :func:`call_a` chooses the
+    route from dtype and shape alone; ``chip_smoke.py`` also runs the FMA
+    route where the tensor cores are chosen, to time both in one run."""
+    n, c, s = x.shape
+    h, w = hw
     p = padded_matrices(p)
     if p["W1"].shape != (2 * c, row_pitch(c)):
         raise ValueError(
             f"K1 needs dw_expand == 2 (W1 [2C, C]); got W1 {tuple(p['W1'].shape)}")
     _check_cuda(x, p, _A_PARAMS)
-    tile, grid, dw_grid = k1_geometry(x.dtype, n, c, h, w, built=True)
     if return_t and not tile:
         raise ValueError("the FMA route of K1 keeps t in shared memory")
     lib = _build.load()
-    ws_bytes = lib.nafblk_a_workspace(n, c, h, w, tile, grid, dw_grid)
+    bf16 = int(x.dtype == torch.bfloat16)
+    ws_bytes = lib.nafblk_a_workspace(n, c, h, w, bf16, tile, grid, dw_grid)
     if ws_bytes < 0:
         raise ValueError(f"K1 does not take C={c} on {h}x{w} with tile "
                          f"{tile}, grids {grid}, {dw_grid}")
@@ -587,28 +651,40 @@ def call_a(x: torch.Tensor, p: Params, hw: Tuple[int, int],
     rc = _build.launch(x, lib.nafblk_a, x.data_ptr(),
                        *[a.data_ptr() for a in args], g.data_ptr(),
                        sums.data_ptr(), t.data_ptr() if tile else None,
-                       ws.data_ptr(), n, c, h, w, float(eps),
-                       int(x.dtype == torch.bfloat16), tile, grid, dw_grid)
+                       ws.data_ptr(), n, c, h, w, float(eps), bf16, tile,
+                       grid, dw_grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_a launch failed: CUDA error {rc}")
-    call_a.launches += 1
     return (g, sums, t[:, :, :s]) if return_t else (g, sums)
-
-
-call_a.launches = 0
 
 
 def call_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
            eps: float = 1e-6) -> torch.Tensor:
     """K2 on ``x, g: [N, C, H*W]``, ``att: [N, C]``; plain version on CPU.
 
-    On CUDA the route follows :func:`k2_geometry`: bf16 with C and F
-    multiples of 16 runs ``k2_mma_kernel`` (W3, W4, W5 in bf16, as
-    :class:`NAFBlockFunction` hands them over); fp32, and bf16 with C or F
-    no multiple of 16, run the FMA kernel (any C, F with (2C + F) x 16
-    fp32 values in shared memory; rows padded as in :func:`call_a`)."""
+    On CUDA the route follows :func:`k2_geometry`: C and F multiples of 16
+    run the tensor-core kernel (bf16 products in ``k2_mma_kernel``, fp32 as
+    3xTF32 in ``k2_tf32_kernel``; W3, W4, W5 in the activations' type, as
+    :class:`NAFBlockFunction` hands them over); other C or F run the FMA
+    kernel (any C, F with (2C + F) x 16 fp32 values in shared memory; rows
+    padded as in :func:`call_a`)."""
     if not x.is_cuda:
         return plain_b(x, g, att, p, eps)
+    n, c, s = x.shape
+    f = p["W4"].shape[0] // 2
+    out = launch_b(x, g, att, p, eps,
+                   *k2_geometry(x.dtype, n, c, f, s, built=True))
+    call_b.launches += 1
+    return out
+
+
+call_b.launches = 0
+
+
+def launch_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
+             eps: float, tile: int, grid: int) -> torch.Tensor:
+    """K2's kernel on CUDA tensors on the route ``tile`` names (as
+    :func:`launch_a`) -> what :func:`call_b` returns, uncounted."""
     n, c, s = x.shape
     p = padded_matrices(p)
     f = p["W4"].shape[0] // 2
@@ -620,7 +696,6 @@ def call_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
                          f"W3 {tuple(p['W3'].shape)}, "
                          f"W4 {tuple(p['W4'].shape)}")
     _check_cuda(x, p, _B_PARAMS)
-    tile, grid = k2_geometry(x.dtype, n, c, f, s, built=True)
     lib = _build.load()
     if not tile and lib.nafblk_b_pixels(c, f) == 0:
         raise ValueError(
@@ -637,11 +712,7 @@ def call_b(x: torch.Tensor, g: torch.Tensor, att: torch.Tensor, p: Params,
                        int(x.dtype == torch.bfloat16), tile, grid)
     if rc != 0:
         raise RuntimeError(f"nafblk_b launch failed: CUDA error {rc}")
-    call_b.launches += 1
     return out
-
-
-call_b.launches = 0
 
 
 _P2_PARAMS = ("w1n", "b1n", "W1", "b1", "kdw", "bk", "W3", "beta")

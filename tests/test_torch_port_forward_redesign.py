@@ -6,9 +6,9 @@ cores) moved into Python, tested on the CPU:
   phases gets a legal geometry that fits in shared memory, at most one
   round of blocks over the card, no more blocks than tiles, and at least
   66 blocks (half the SMs of an H100) wherever N*H*W >= 1024;
-- the route: bf16 with C (and F) a multiple of 16 gets a tile (the
-  tensor-core kernels), fp32 and bf16 with C % 16 != 0 get none (the FMA
-  kernels of the first port);
+- the route: C (and F) a multiple of 16 gets a tile (the tensor-core
+  kernels: bf16 products in bf16, 3xTF32 in fp32), C % 16 != 0 gets none
+  in either dtype (the FMA kernels of the first port);
 - ``plain_a``, its two stages ``plain_a_front`` -> ``plain_a_dw`` composed,
   and ``plain_b`` against the JAX ``_call_a`` / ``_call_b`` (Pallas
   interpret mode) at C=48 on a 12x20 image, whole-image and row-tiled, in
@@ -183,13 +183,22 @@ def test_bf16_with_c_a_multiple_of_16_takes_the_tensor_cores(c):
     assert tile in ops.P1_TILES and grid >= 1
 
 
-@pytest.mark.parametrize("dtype,c", [(torch.float32, 32), (torch.float32, 48),
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 24), (torch.float32, 40),
                                      (torch.float32, 8), (torch.bfloat16, 8),
                                      (torch.bfloat16, 24),
                                      (torch.bfloat16, 40)])
 def test_fp32_and_bf16_off_16_take_the_fma_kernels(dtype, c):
     assert ops.k1_geometry(dtype, 2, c, 32, 32) == (0, 0, 0)
     assert ops.k2_geometry(dtype, 2, c, c, 1024) == (0, 0)
+
+
+@pytest.mark.parametrize("c", [32, 48])
+def test_fp32_at_c_a_multiple_of_16_takes_the_tensor_cores(c):
+    # 3xTF32 (csrc/nafblock_fwd_tf32.cuh); the FMA kernels only off 16
+    tile, grid, dw = ops.k1_geometry(torch.float32, 2, c, 32, 32)
+    assert tile in ops.P1_TILES and grid >= 1 and dw >= 1
+    tile, grid = ops.k2_geometry(torch.float32, 2, c, c, 1024)
+    assert tile in ops.P1_TILES and grid >= 1
 
 
 def test_k2_with_f_off_16_takes_the_fma_kernel():
