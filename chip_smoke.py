@@ -90,15 +90,31 @@ Drives ``lowlight_image_enhancement_tpu_torch`` only (no JAX):
    ms/step, data ms/step and the validation's wall time beside the
    training phase's ms/step;
 6d. path A: ``Trainer(opt).train()`` on ``configs/sid_nafnet_tpu.yml``,
-   ``sid_unet.yml`` (under ``LLIE_MAXPOOL_IMPL=kernel_bwd``) and
-   ``sid_swinir.yml`` at full width and depth in bf16 over a synthetic SID
-   tree like path T's (a seeded random VGG19 through ``$LLIE_VGG19_NPZ``
-   for the perceptual term), 4 iterations each: launches per step
-   (NAFNetTPU 36 of each of K1-K4 on the tensor cores; UNet 7 of K8: its
-   3 downs and the VGG19 trunk's 4 pools; SwinIR none), finite logs, a
-   checkpoint, the validation with each config's metrics, ``test.py`` on
-   the saved ``net_g_latest.pth``; ms/step, data ms/step and the device's
-   busy time and idle share of a traced step, beside path T's ms/step;
+   ``sid_unet.yml`` (under ``LLIE_MAXPOOL_IMPL=kernel_bwd``),
+   ``sid_swinir.yml``, ``sid_newbp_mono.yml`` (``pretrained: true``),
+   ``sid_newbp_rgb.yml`` (the rgb ``B2`` PSF), ``sid_nafnet_w64.yml``
+   (width 64) and ``sid_nafnet_baseline.yml`` (``NAFNet`` under L1 alone)
+   at full width and depth in bf16 over a synthetic SID tree like path
+   T's (a seeded random VGG19 through ``$LLIE_VGG19_NPZ`` for the
+   perceptual term), 4 iterations each: launches per step (NAFNetTPU and
+   the four NAFNet configs 36 of each of K1-K4, on the tensor cores by
+   the device kernels of a traced step; UNet 7 of K8: its 3 downs and the
+   VGG19 trunk's 4 pools; SwinIR none), finite logs, a checkpoint, the
+   validation with each config's metrics, ``test.py`` on the saved
+   ``net_g_latest.pth``; per config: the perceptual trunk equal to the
+   ``.npz`` (mono), the loss's PSF the 3-channel ``B2`` kernel (rgb), the
+   blocks at C = 64...1024 with the 12 C = 1024 blocks at 24^2 in the
+   step (w64); ms/step, data ms/step and the device's busy time and idle
+   share of a traced step, beside path T's ms/step;
+6f. path Q: ``tools/quality_ab.py``'s ``main`` in this process, once per
+   architecture (``nafnet_w32``, ``nafnet_tpu_w64``) at full width and
+   depth: 20 steps of 2 384^2 crops over 4 synthetic 512^2 pairs, its
+   evaluation over 2 val pairs: 36 launches of each of K1-K4 a step, 36
+   of K1 and K2 an evaluated image, finite logs, the result JSON's keys
+   and nesting equal to ``quality_ab.json``'s, every metric finite,
+   ``lpips_pretrained`` false; the steps/s of each and the device's busy
+   time and idle share of one more traced step. Prints a path_Q JSON
+   line;
 6e. the CLI: ``python -m lowlight_image_enhancement_tpu_torch.train -opt
    configs/debug/sid_newbp_mono_debug.yml`` in a subprocess from a
    temporary directory (16 iterations on the card, the self-provisioned
@@ -1758,14 +1774,22 @@ def trainer_path(train_ms: float) -> dict:
 # unchanged but for the iteration count, the logging / checkpoint /
 # validation frequencies and the experiment root
 A_STEPS = 4
+FOUR = dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)
 A_CONFIGS = (
     # (config, $LLIE_MAXPOOL_IMPL for its run, launches per step)
-    ("sid_nafnet_tpu.yml", None,
-     dict(nafblk_a=36, nafblk_b=36, nafblk_p1=36, nafblk_p2=36)),
+    ("sid_nafnet_tpu.yml", None, FOUR),
     # 3 UNet downs + the 4 pools of the perceptual term's VGG19 trunk
     ("sid_unet.yml", "kernel_bwd", dict(pool_bwd=7)),
     ("sid_swinir.yml", None, {}),
+    ("sid_newbp_mono.yml", None, FOUR),
+    ("sid_newbp_rgb.yml", None, FOUR),
+    ("sid_nafnet_w64.yml", None, FOUR),
+    ("sid_nafnet_baseline.yml", None, FOUR),
 )
+# sid_nafnet_w64's blocks by width, and the side of the middle blocks'
+# input on a 384^2 crop
+W64_BLOCKS = {64: 4, 128: 4, 256: 6, 512: 10, 1024: 12}
+W64_MIDDLE_SIDE = 24
 
 
 def random_vgg19_npz(path: Path) -> Path:
@@ -1784,13 +1808,13 @@ def random_vgg19_npz(path: Path) -> Path:
 
 
 def config_trainer_run(cfg: Path, exp_root: Path, what: str, steps: int,
-                       per_step: dict) -> tuple:
+                       per_step: dict, setup=None) -> tuple:
     """``Trainer(opt).train()`` of ``cfg`` for ``steps`` iterations with a
     print every iteration, a checkpoint and a validation at the last, and
     ``per_step`` launches in every step; then one traced step. Checks the
     logs, the checkpoint files and the validation (the config's metrics,
-    finite, at ``steps`` and the final one). Returns ``(trainer, opt,
-    summary)``."""
+    finite, at ``steps`` and the final one). ``setup(trainer)`` runs
+    before the training. Returns ``(trainer, opt, summary)``."""
     import os
 
     from lowlight_image_enhancement_tpu_torch.training.trainer import Trainer
@@ -1801,6 +1825,8 @@ def config_trainer_run(cfg: Path, exp_root: Path, what: str, steps: int,
                          use_tb_logger=False)
     opt["val"]["val_freq"] = steps
     trainer = Trainer(opt)
+    if setup is not None:
+        setup(trainer)
     step = trainer.step_fn
     rec = {"step_ms": [], "saved": {}, "val": []}
     instrument(trainer, what, per_step, rec)
@@ -1860,46 +1886,118 @@ def run_test_cli(opt: dict, latest: Path, work: Path, what: str) -> dict:
     return results[name]
 
 
+def block_sides(trainer) -> dict:
+    """Records the (C, H, W) of each NAFBlock's input in the Trainer's
+    training steps (the module in training mode; validation runs it in
+    eval mode): ``{block index: set of (C, H, W)}``."""
+    seen: dict = {}
+
+    def record(i, m, args):
+        if m.training:
+            seen.setdefault(i, set()).add(tuple(args[0].shape[1:]))
+
+    for i, blk in enumerate(trainer.net.blocks()):
+        blk.register_forward_pre_hook(
+            lambda m, args, i=i: record(i, m, args))
+    return seen
+
+
 def architectures_path(path_t_ms: float) -> dict:
     """Path A: ``Trainer(opt).train()`` on ``configs/sid_nafnet_tpu.yml``
     (bf16, 384^2 crops), ``sid_unet.yml`` (bf16, 384^2, its run under
-    ``LLIE_MAXPOOL_IMPL=kernel_bwd``) and ``sid_swinir.yml`` (bf16, 256^2)
-    at full width and depth over a synthetic SID tree (as path T's), for
-    ``A_STEPS`` iterations each: the launches per step of ``A_CONFIGS``
-    (NAFNetTPU's K1-K4 on the tensor cores by the device kernels of a
-    traced step, UNet's K8 named there too), finite logs, a checkpoint,
-    the validation with each config's metrics, then ``test.py`` on the
-    saved ``net_g_latest.pth``."""
+    ``LLIE_MAXPOOL_IMPL=kernel_bwd``), ``sid_swinir.yml`` (bf16, 256^2),
+    ``sid_newbp_mono.yml``, ``sid_newbp_rgb.yml``, ``sid_nafnet_w64.yml``
+    and ``sid_nafnet_baseline.yml`` (bf16, 384^2) at full width and depth
+    over a synthetic SID tree (as path T's), for ``A_STEPS`` iterations
+    each: the launches per step of ``A_CONFIGS`` (K1-K4 on the tensor
+    cores by the device kernels of a traced step, UNet's K8 named there
+    too), finite logs, a checkpoint, the validation with each config's
+    metrics, then ``test.py`` on the saved ``net_g_latest.pth``; and what
+    sets each of the last four apart: the perceptual trunk loaded from
+    ``$LLIE_VGG19_NPZ`` (mono; w64 and rgb load it too), the loss's
+    3-channel ``B2`` PSF (rgb), ``W64_BLOCKS`` with the C = 1024 blocks at
+    ``W64_MIDDLE_SIDE``^2 in the steps (w64), the pixel L1 alone
+    (baseline)."""
     import os
     import tempfile
 
+    from lowlight_image_enhancement_tpu_torch.ops.psf import (
+        build_psf_kernels, normalize_psf_energy)
+
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_a_"))
     os.environ["SID_ROOT"] = str(synthetic_sid_root(tmp / "sid"))
-    os.environ["LLIE_VGG19_NPZ"] = str(random_vgg19_npz(tmp / "vgg19.npz"))
+    vgg_npz = random_vgg19_npz(tmp / "vgg19.npz")
+    os.environ["LLIE_VGG19_NPZ"] = str(vgg_npz)
     out = {}
     try:
         for name, pool_impl, per_step in A_CONFIGS:
             what = f"path A {name}"
+            sides: dict = {}
             if pool_impl:
                 os.environ["LLIE_MAXPOOL_IMPL"] = pool_impl
             try:
                 trainer, opt, res = config_trainer_run(
                     TRAIN_CONFIG.with_name(name), tmp / "exp", what, A_STEPS,
-                    per_step)
+                    per_step, setup=(
+                        lambda t: sides.update(blocks=block_sides(t)))
+                    if name == "sid_nafnet_w64.yml" else None)
             finally:
                 os.environ.pop("LLIE_MAXPOOL_IMPL", None)
             check(trainer.net.dtype == torch.bfloat16,
                   f"{what}: the network must train in bf16")
             names = res["device_kernels"]
-            if name == "sid_nafnet_tpu.yml":
+            if per_step is FOUR:
                 widths = [b.conv1.in_channels for b in trainer.net.blocks()]
                 res["blocks_per_width"] = {c: widths.count(c)
                                            for c in sorted(set(widths))}
-                check(len(widths) == 36 and sorted(set(widths))
-                      == [64, 128, 256, 512, 1024],
-                      f"{what}: 36 NAFBlocks at C = 64 ... 1024")
+                check(len(widths) == 36,
+                      f"{what}: 36 NAFBlocks, not {len(widths)}")
                 expect_tensor_core_route(names, f"{what} traced step",
                                          backward=True)
+            if name == "sid_nafnet_tpu.yml":
+                check(sorted(set(widths)) == [64, 128, 256, 512, 1024],
+                      f"{what}: 36 NAFBlocks at C = 64 ... 1024")
+            loss = trainer.loss
+            if name in ("sid_newbp_mono.yml", "sid_newbp_rgb.yml",
+                        "sid_nafnet_w64.yml"):
+                npz = np.load(vgg_npz)
+                vgg = loss.perceptual.vgg.state_dict()
+                check(loss.perceptual.pretrained and sorted(vgg)
+                      == sorted(npz.files) and all(
+                          torch.equal(v.float().cpu(),
+                                      torch.from_numpy(npz[k]))
+                          for k, v in vgg.items()),
+                      f"{what}: the perceptual trunk is not the one in "
+                      f"$LLIE_VGG19_NPZ")
+                mode, spec = (("rgb", "B2") if name == "sid_newbp_rgb.yml"
+                              else ("mono", "P2"))
+                want = normalize_psf_energy(build_psf_kernels(mode, spec))
+                check(loss.psf.mode == mode and torch.equal(
+                    loss.psf.kernel.cpu(), want),
+                    f"{what}: the loss's PSF is not the {mode} {spec} "
+                    f"kernel")
+                res["psf"] = [mode, spec, list(loss.psf.kernel.shape)]
+                print(f"{what}: perceptual trunk from $LLIE_VGG19_NPZ, PSF "
+                      f"{mode} {spec} {list(loss.psf.kernel.shape)}")
+            if name == "sid_nafnet_w64.yml":
+                at = {tuple(sorted(v)) for i, v in sides["blocks"].items()
+                      if widths[i] == 1024}
+                n_at = sum(widths[i] == 1024 for i in sides["blocks"])
+                check(res["blocks_per_width"] == W64_BLOCKS and n_at == 12
+                      and at == {((1024, W64_MIDDLE_SIDE,
+                                   W64_MIDDLE_SIDE),)},
+                    f"{what}: blocks {res['blocks_per_width']}, the "
+                    f"C = 1024 blocks' inputs {at}")
+                print(f"{what}: blocks {res['blocks_per_width']}, the 12 "
+                      f"C = 1024 blocks at {W64_MIDDLE_SIDE}^2 in the steps")
+            if name == "sid_nafnet_baseline.yml":
+                check(trainer.pixel_loss is not None
+                      and not any(loss.use.values())
+                      and loss.w["l1_raw"] == 0.0
+                      and sorted(opt["val"]["metrics"])
+                      == ["psnr_linear", "ssim_linear"],
+                      f"{what}: the objective must be the pixel L1 alone, "
+                      f"the metrics PSNR and SSIM")
             if name == "sid_unet.yml":
                 check("pool_bwd_kernel" in names,
                       f"{what}: K8's device kernel missing from the trace")
@@ -1922,6 +2020,129 @@ def architectures_path(path_t_ms: float) -> dict:
         "ms_per_step", "data_ms_per_step", "device_busy_ms",
         "device_idle_share", "val_metrics", "test", "launches_per_step")}
         for k, v in out.items()}}))
+    return out
+
+
+# path Q: tools/quality_ab.py's protocol cut in steps and data set size
+Q_STEPS = 20
+Q_N_TRAIN = 4
+Q_N_VAL = 2
+Q_SIZE = 512
+
+
+def json_structure(tree):
+    """Keys and nesting of a JSON tree, each leaf replaced by its type."""
+    if isinstance(tree, dict):
+        return {k: json_structure(v) for k, v in tree.items()}
+    return "bool" if isinstance(tree, bool) else type(tree).__name__
+
+
+def quality_path() -> dict:
+    """Path Q: ``tools/quality_ab.py``'s ``main`` (the port's) in this
+    process, once per architecture, at full width and depth and the
+    tool's recipe (bf16, 2 x 384^2 crops, L1 + deltaE00 + phys), cut to
+    ``Q_STEPS`` steps over ``Q_N_TRAIN`` synthetic 512^2 pairs and an
+    evaluation over ``Q_N_VAL``: 36 launches of each of K1-K4 a step (the
+    Trainer's step wrapped, the counts reset before and read after each),
+    36 of K1 and K2 a val image in ``evaluate_full`` (reset before it, read
+    after ``main``), finite logs, the result JSON's keys and nesting equal
+    to ``quality_ab.json``'s, every metric finite, ``lpips_pretrained``
+    false; then one more traced step of each: the tensor-core route, the
+    device's busy time and idle share."""
+    import os
+    import tempfile
+
+    from lowlight_image_enhancement_tpu_torch.data import make_synthetic_sid
+    from lowlight_image_enhancement_tpu_torch.tools import quality_ab
+
+    reference = json.loads((Path(__file__).resolve().parent
+                            / "quality_ab.json").read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_path_q_"))
+    data_root = tmp / "sid"
+    make_synthetic_sid(str(data_root), n_train=Q_N_TRAIN, n_val=Q_N_VAL,
+                       size=Q_SIZE)
+    check(os.environ.get("LLIE_LPIPS_NPZ") is None,
+          "path Q: $LLIE_LPIPS_NPZ must be unset (a random LPIPS trunk)")
+    merged: dict = {"archs": {}}
+    out = {}
+    plain_trainer = quality_ab.Trainer
+    try:
+        for name in quality_ab.ARCHS:
+            what = f"path Q {name}"
+            rec = {"step_ms": [], "saved": {}, "val": []}
+            made = []
+
+            class Counted(plain_trainer):
+                """The tool's Trainer, its steps counted and timed."""
+
+                def __init__(self, *args, **kwargs):
+                    super().__init__(*args, **kwargs)
+                    made.append((self, self.step_fn))
+                    instrument(self, what, FOUR, rec)
+
+                def train(self):
+                    state = super().train()
+                    reset_launches()     # what follows is evaluate_full
+                    return state
+
+            quality_ab.Trainer = Counted
+            result = quality_ab.main([
+                "--archs", name, "--steps", str(Q_STEPS), "--n-train",
+                str(Q_N_TRAIN), "--size", str(Q_SIZE), "--crop", "384",
+                "--batch", "2", "--data-root", str(data_root), "--out",
+                str(tmp / f"{name}.json")])
+            eval_counts = launches()
+            trainer, step = made[0]
+            check(len(made) == 1 and len(rec["step_ms"]) == Q_STEPS,
+                  f"{what}: {len(rec['step_ms'])} steps")
+            check(trainer.net.dtype == torch.bfloat16
+                  and len(trainer.net.blocks()) == 36,
+                  f"{what}: 36 NAFBlocks in bf16")
+            expect_launches(eval_counts, f"{what} evaluate_full",
+                            nafblk_a=36 * Q_N_VAL, nafblk_b=36 * Q_N_VAL)
+            hist = trainer.history
+            check(len(hist) == 10 and all(
+                np.isfinite([v for v in h.values()]).all() for h in hist),
+                f"{what}: logs {hist}")
+            res = result["archs"][name]
+            metrics = res["metrics"]
+            check(json_structure(res) == json_structure(
+                reference["archs"][name])
+                and json_structure(result["protocol"])
+                == json_structure(reference["protocol"]),
+                f"{what}: result keys {json_structure(result)}")
+            check(metrics["lpips_pretrained"] is False and all(
+                np.isfinite(v) for k, v in metrics.items()
+                if k != "lpips_pretrained"), f"{what}: metrics {metrics}")
+            merged["protocol"] = result["protocol"]
+            merged["archs"][name] = res
+            ms = statistics.median(rec["step_ms"][1:])
+            trace = traced_step(what, step, trainer.state, rec["batch"], ms)
+            expect_tensor_core_route(trace["device_kernels"],
+                                     f"{what} traced step", backward=True)
+            out[name] = {
+                "steps_per_sec_wall": res["steps_per_sec_wall"],
+                "wall_s": res["wall_s"], "metrics": metrics,
+                "ms_per_step": ms, "data_ms_per_step": statistics.median(
+                    h["data_time"] * 1e3 for h in hist[1:]),
+                "l_total": [h["l_total"] for h in hist],
+                "launches_per_step": FOUR,
+                "eval_launches": {k: v for k, v in eval_counts.items() if v},
+                **{k: trace[k] for k in ("device_busy_ms",
+                                         "device_idle_share",
+                                         "kernel_records")}}
+            print(f"{what}: {Q_STEPS} steps in {res['wall_s']} s "
+                  f"({res['steps_per_sec_wall']} steps/s with the "
+                  f"Trainer's set-up), step ms median {ms:.1f}, data ms "
+                  f"{out[name]['data_ms_per_step']:.2f}, device busy "
+                  f"{fmt_device(trace['device_busy_ms'])}, idle share "
+                  f"{trace['device_idle_share']}; metrics {metrics}")
+    finally:
+        quality_ab.Trainer = plain_trainer
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(json_structure(merged) == json_structure(reference),
+          f"path Q: merged keys {json_structure(merged)}")
+    print(json.dumps({"path_Q": out}))
     return out
 
 
@@ -3849,7 +4070,11 @@ def main() -> int:
     path_t = phase("path T (the Trainer on the flagship config)",
                    trainer_path, train["ms_per_step"])
     path_a = phase("path A (the Trainer on sid_nafnet_tpu, sid_unet, "
-                   "sid_swinir)", architectures_path, path_t["ms_per_step"])
+                   "sid_swinir, sid_newbp_mono, sid_newbp_rgb, "
+                   "sid_nafnet_w64, sid_nafnet_baseline)", architectures_path,
+                   path_t["ms_per_step"])
+    path_q = phase("path Q (tools/quality_ab.py, both architectures)",
+                   quality_path)
     cli = phase("CLI (train.py and test.py on the debug config)", cli_path)
     perc = phase("path P", perceptual_path)
     base = phase("path B", baseline_path)
@@ -3975,6 +4200,9 @@ def main() -> int:
         "C_tlc_forward": tlc["launches"]["local"],
         **{f"A_{k}_per_step": v["launches_per_step"]
            for k, v in path_a.items()},
+        **{f"Q_{k}_per_step": v["launches_per_step"]
+           for k, v in path_q.items()},
+        **{f"Q_{k}_evaluate": v["eval_launches"] for k, v in path_q.items()},
         "R_per_step": path_r["launches_per_step"],
         "E": path_e["launches_per_forward"],
         "B_export": base_export["launches_per_forward"],
@@ -4038,6 +4266,10 @@ def main() -> int:
             "ms_per_step", "data_ms_per_step", "device_busy_ms",
             "device_idle_share", "kernel_records", "val_metrics", "test",
             "path_T_ms_per_step")} for k, v in path_a.items()},
+        "path_Q": {k: {kk: v[kk] for kk in (
+            "steps_per_sec_wall", "ms_per_step", "data_ms_per_step",
+            "device_busy_ms", "device_idle_share", "kernel_records",
+            "metrics")} for k, v in path_q.items()},
         "path_C": {k: tlc[k] for k in (
             "err_vs_fused", "local_vs_global_max_abs", "forward_ms")},
         "path_R": {k: path_r[k] for k in (

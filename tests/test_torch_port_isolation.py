@@ -35,7 +35,7 @@ TOOLS_SLICE = ["tools." + name for name in (
     "bench_input_pipeline", "common", "convert_sid_raw_to_png",
     "create_sid_pack", "debug_dataset", "debug_losses", "debug_overfit",
     "evaluate", "make_niqe_params", "profile_step_families",
-    "profile_train", "train_pipeline_e2e")] + [
+    "profile_train", "quality_ab", "train_pipeline_e2e")] + [
     "data.grain_pipeline", "utils.backend_probe"]
 
 
