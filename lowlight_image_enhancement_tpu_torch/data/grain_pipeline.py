@@ -22,7 +22,9 @@ copy would then draw its random crops from the same generator state, and
 every worker would repeat the others' crop positions. ``_seed_worker``
 gives the copy in worker ``w`` the generator ``default_rng([seed, w])``
 (a dataset's ``_rng``, the port's convention for crop and augmentation
-draws).
+draws). A worker's decode spans and counters (``utils/profiling.py``) are
+recorded in the worker's process, if anywhere, and never reach the
+parent's ``record()``.
 """
 
 from __future__ import annotations

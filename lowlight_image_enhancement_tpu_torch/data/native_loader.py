@@ -13,7 +13,12 @@ which reader ran. This is host code: it decodes on the CPU.
 
 Hot-path API: :class:`NativeSidPack` -- ``decode_crop(key, top, left, ph,
 pw, expo=None)`` returns a float32 crop, fusing inflate + crop + uint16 ->
-float conversion (and optional exposure-align) in C.
+float conversion (and optional exposure-align) in C. Each decode, on the
+C paths (``decode_crop``, ``decode_crop_batch``) and the Python
+fallback, is a ``native_loader.decode`` span;
+``native_loader.px_cropped`` counts the crop's pixels and
+``native_loader.px_inflated`` the pixels the reader decoded to reach it
+(``utils/profiling.py``: recorded only under a profiler).
 """
 
 from __future__ import annotations
@@ -33,6 +38,11 @@ from typing import Optional
 import numpy as np
 
 from lowlight_image_enhancement_tpu_torch.data.records import SidPackReader
+from lowlight_image_enhancement_tpu_torch.utils.profiling import (
+    count,
+    recording,
+    span,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -136,6 +146,14 @@ def _ptr(a: np.ndarray) -> ctypes.c_void_p:
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _band_rows_span(ent: dict, top: int, ph: int) -> int:
+    """Rows of the ``zlib_band`` stripes that rows [top, top + ph) touch."""
+    band_rows, h = ent["band_rows"], ent["shape"][0]
+    b0 = top // band_rows
+    b1 = (top + ph - 1) // band_rows
+    return min((b1 + 1) * band_rows, h) - b0 * band_rows
+
+
 class NativeSidPack:
     """SIDPack reader with the C fast path (falls back to Python).
 
@@ -196,14 +214,23 @@ class NativeSidPack:
                     expo: Optional[float] = None) -> np.ndarray:
         """-> float32 ``[ph, pw, C]`` crop; when ``expo`` is given the
         output is ``clip(crop * scale * expo, 0, 1)`` (the aligned lq)."""
+        count("native_loader.px_cropped", ph * pw)
+        with span("native_loader.decode"):
+            return self._decode_crop(key, top, left, ph, pw, scale, expo)
+
+    def _decode_crop(self, key: str, top: int, left: int, ph: int, pw: int,
+                     scale: float, expo: Optional[float]) -> np.ndarray:
         ent = self.index[key]
         h, w, *rest = ent["shape"]
         c = rest[0] if rest else 1
         if self._handle is None or ent["dtype"] != "uint16":
             if ent["comp"] == "zlib_band" and ent["dtype"] == "uint16":
+                count("native_loader.px_inflated",
+                      _band_rows_span(ent, top, ph) * w)
                 rows = self._py.get_rows(key, top, ph)
                 arr = rows[:, left:left + pw].astype(np.float32) * scale
             else:
+                count("native_loader.px_inflated", h * w)
                 arr = self._py.get(key).astype(np.float32)
                 if ent["dtype"] == "uint16":
                     arr = arr * scale
@@ -215,10 +242,8 @@ class NativeSidPack:
         out = np.empty((ph, pw, c), np.float32)
         gain = ctypes.c_float(expo if expo is not None else 1.0)
         if ent["comp"] == "zlib_band":
-            band_rows = ent["band_rows"]
-            b0 = top // band_rows
-            b1 = (top + ph - 1) // band_rows
-            rows_span = min((b1 + 1) * band_rows, h) - b0 * band_rows
+            rows_span = _band_rows_span(ent, top, ph)
+            count("native_loader.px_inflated", rows_span * w)
             rc = self._lib.sp_decode_crop_banded_f32(
                 self._handle, ent["offset"], ent["nbytes"],
                 h, w, c, top, left, ph, pw, ctypes.c_float(scale), gain,
@@ -226,6 +251,7 @@ class NativeSidPack:
                 _ptr(self._scratch(rows_span * w * c)), _ptr(out))
         else:
             comp = 1 if ent["comp"] == "zlib" else 0
+            count("native_loader.px_inflated", h * w if comp else ph * pw)
             scratch = _ptr(self._scratch(h * w * c)) if comp else None
             rc = self._lib.sp_decode_crop_f32(
                 self._handle, ent["offset"], ent["nbytes"], comp,
@@ -268,13 +294,18 @@ class NativeSidPack:
         max_elems = int((hs * ws * cs).max())
         scratch = np.empty(n * max_elems, np.uint16)
         out = np.empty((n, ph, pw, c), np.float32)
-        rc = self._lib.sp_decode_crop_batch_f32(
-            handles, n, _ptr(offsets), _ptr(nbytes), _ptr(comps), _ptr(hs),
-            _ptr(ws), _ptr(cs), _ptr(tops_a), _ptr(lefts_a), ph, pw,
-            ctypes.c_float(scale),
-            _ptr(expos_a) if expos_a is not None else None,
-            1 if expos is not None else 0, _ptr(scratch), max_elems,
-            _ptr(out))
+        if recording():
+            count("native_loader.px_cropped", n * ph * pw)
+            count("native_loader.px_inflated",
+                  int(np.where(comps == 1, hs * ws, ph * pw).sum()))
+        with span("native_loader.decode"):
+            rc = self._lib.sp_decode_crop_batch_f32(
+                handles, n, _ptr(offsets), _ptr(nbytes), _ptr(comps),
+                _ptr(hs), _ptr(ws), _ptr(cs), _ptr(tops_a), _ptr(lefts_a),
+                ph, pw, ctypes.c_float(scale),
+                _ptr(expos_a) if expos_a is not None else None,
+                1 if expos is not None else 0, _ptr(scratch), max_elems,
+                _ptr(out))
         if rc != 0:
             raise RuntimeError("native batch decode failed")
         return out

@@ -38,6 +38,7 @@ from lowlight_image_enhancement_tpu_torch.parallel.mesh import (  # noqa: F401  
     put_replicated,
 )
 from lowlight_image_enhancement_tpu_torch.training.augment import mixup_batch
+from lowlight_image_enhancement_tpu_torch.utils.profiling import span
 
 Batch = Mapping[str, torch.Tensor]
 # Adam's denominator epsilon, added outside the square root (optax's default)
@@ -326,7 +327,13 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
     the logged losses with one small all-reduce, so every rank updates
     with the global gradient and logs the global-batch means (for equal
     parts and loss terms that are means over the batch, as every
-    ``HybridLossPlus`` term is)."""
+    ``HybridLossPlus`` term is).
+
+    Under a profiler the step records three spans (``utils/profiling.py``):
+    ``train_step.forward`` (mixup, the network, the loss terms),
+    ``train_step.backward`` (``autograd.grad``, the zero fill and, with
+    ``mesh``, the all-reduces) and ``train_step.optimizer`` (``grad_norm``,
+    the clip and the update)."""
     if mesh is not None and not mesh.distributed and mesh.size > 1:
         raise ValueError(
             f"a training mesh of {mesh.size} devices in one process: launch "
@@ -337,34 +344,38 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
                  else None)
 
     def train_step(state: TrainState, batch: Batch):
-        if mixup_alpha:
-            batch = mixup_batch(batch, alpha=mixup_alpha, generator=mixup_gen)
-        params = state.optimizer.params
-        net.train()       # the JAX step applies with deterministic=False
-        output = net(batch["lq"])
-        total = torch.zeros((), device=output.device)
-        logs: Dict[str, torch.Tensor] = {}
-        if pixel_loss is not None:
-            l_pix = pixel_loss(output, batch["gt"])
-            l_pix, pix_logs = (l_pix if isinstance(l_pix, tuple)
-                               else (l_pix, {"l_pix": l_pix}))
-            total = total + l_pix
-            logs.update({k: v.detach() for k, v in pix_logs.items()})
-        if loss is not None:
-            h_total, h_logs = loss(**hybrid_batch_kwargs(output, batch),
-                                   log_sigma=state.log_sigma or None)
-            total = total + h_total
-            logs.update(h_logs)
-        logs["l_total"] = total.detach()
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        if dp:
-            all_reduce_mean_(grads, mesh)
-            logs = _mean_logs(logs, mesh)
-        logs["grad_norm"] = global_norm(grads).detach()
-        state.optimizer.step(grads)
-        state.step += 1
+        with span("train_step.forward"):
+            if mixup_alpha:
+                batch = mixup_batch(batch, alpha=mixup_alpha,
+                                    generator=mixup_gen)
+            params = state.optimizer.params
+            net.train()       # the JAX step applies with deterministic=False
+            output = net(batch["lq"])
+            total = torch.zeros((), device=output.device)
+            logs: Dict[str, torch.Tensor] = {}
+            if pixel_loss is not None:
+                l_pix = pixel_loss(output, batch["gt"])
+                l_pix, pix_logs = (l_pix if isinstance(l_pix, tuple)
+                                   else (l_pix, {"l_pix": l_pix}))
+                total = total + l_pix
+                logs.update({k: v.detach() for k, v in pix_logs.items()})
+            if loss is not None:
+                h_total, h_logs = loss(**hybrid_batch_kwargs(output, batch),
+                                       log_sigma=state.log_sigma or None)
+                total = total + h_total
+                logs.update(h_logs)
+            logs["l_total"] = total.detach()
+        with span("train_step.backward"):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            if dp:
+                all_reduce_mean_(grads, mesh)
+                logs = _mean_logs(logs, mesh)
+        with span("train_step.optimizer"):
+            logs["grad_norm"] = global_norm(grads).detach()
+            state.optimizer.step(grads)
+            state.step += 1
         return state, logs
 
     return train_step

@@ -79,6 +79,7 @@ from lowlight_image_enhancement_tpu_torch.training.train_step import (
 from lowlight_image_enhancement_tpu_torch.training.validation import (
     dist_validate,
 )
+from lowlight_image_enhancement_tpu_torch.utils.profiling import span
 
 
 def build_hybrid_loss(train_opt: Mapping[str, Any],
@@ -162,7 +163,10 @@ class Trainer:
     """End-to-end experiment runner over a parsed config dict.
 
     ``history`` keeps one dict per printed iteration (``iter``, ``lr``,
-    ``time``, ``data_time`` and the step's logs as floats). The step's
+    ``time``, ``data_time`` and the step's logs as floats). Under a
+    profiler each iteration records a ``trainer.fetch`` span (the loader
+    and prefetcher's ``next``) and a ``trainer.step`` span (the step),
+    both with the iteration as their unit (``utils/profiling.py``). The step's
     logs stay device tensors between prints: an iteration that does not
     print does not wait for the device. ``last_val`` holds the latest
     validation's results.
@@ -270,13 +274,16 @@ class Trainer:
 
         current_iter = self.start_iter
         t_data = time.time()
-        for batch in stream:
-            if current_iter >= self.total_iters:
+        while current_iter < self.total_iters:
+            with span("trainer.fetch", unit=current_iter + 1):
+                batch = next(stream, None)
+            if batch is None:
                 break
             current_iter += 1
             data_time = time.time() - t_data
             t_step = time.time()
-            self.state, logs = self.step_fn(self.state, batch)
+            with span("trainer.step", unit=current_iter):
+                self.state, logs = self.step_fn(self.state, batch)
 
             if current_iter % print_freq == 0:
                 host_logs = {k: float(v) for k, v in logs.items()}

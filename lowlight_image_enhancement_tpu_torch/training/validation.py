@@ -32,6 +32,7 @@ from lowlight_image_enhancement_tpu_torch.parallel.multihost import (
     host_info,
     rank_device,
 )
+from lowlight_image_enhancement_tpu_torch.utils.profiling import span
 from lowlight_image_enhancement_tpu_torch.utils.registry import METRIC_REGISTRY
 
 
@@ -73,16 +74,20 @@ def tiled_inference(
     cnt = np.zeros((1, h, w, 1), np.float32)
     for i in range(0, len(coords), batch_tiles):
         chunk = coords[i : i + batch_tiles]
-        tiles = np.stack([img[0, y : y + th, x : x + tw, :] for (y, x) in chunk])
-        pad = batch_tiles - len(chunk)
-        if pad:
-            tiles = np.concatenate(
-                [tiles, np.zeros((pad,) + tiles.shape[1:], tiles.dtype)])
+        with span("validation.tiles"):
+            tiles = np.stack([img[0, y : y + th, x : x + tw, :]
+                              for (y, x) in chunk])
+            pad = batch_tiles - len(chunk)
+            if pad:
+                tiles = np.concatenate(
+                    [tiles, np.zeros((pad,) + tiles.shape[1:], tiles.dtype)])
         preds = np.asarray(forward(tiles))
-        for j, (y, x) in enumerate(chunk):
-            out[0, y : y + th, x : x + tw, :] += preds[j]
-            cnt[0, y : y + th, x : x + tw, :] += 1.0
-    return out / cnt
+        with span("validation.blend"):
+            for j, (y, x) in enumerate(chunk):
+                out[0, y : y + th, x : x + tw, :] += preds[j]
+                cnt[0, y : y + th, x : x + tw, :] += 1.0
+    with span("validation.blend"):
+        return out / cnt
 
 
 def compute_metrics(sr: torch.Tensor, gt: torch.Tensor,

@@ -5,13 +5,34 @@ Counterpart of ``lowlight_image_enhancement_tpu/utils/profiling.py``
 
 - :func:`trace` -- context manager writing a Chrome trace
   (``<log_dir>/trace_<n>.json``) of the enclosed block, the card's
-  kernels included where CUDA is available;
-- :func:`annotate` -- a named region on the timeline (``record_function``);
+  kernels included where CUDA is available; it clears the recorder
+  when it opens;
+- :func:`span` / :func:`count` / :func:`record` / :func:`reset` -- the
+  program's recorder: named host-time spans and counters, kept only
+  while a ``torch.profiler`` runs (below);
 - :func:`chained_timeit` -- per-iteration wall time with a forced data
   dependency, ending in ``torch.cuda.synchronize()`` on the card (the
   host otherwise times the enqueue);
 - :func:`summarize_trace` -- device time per kernel family from the
   newest trace under a directory (host operations on a CPU-only trace).
+
+**The recorder.** The port opens spans at its layer boundaries (the
+server's staging, forward and readback, the tiled blend, the loader's
+decode, the Trainer's fetch and step, the step's forward, backward and
+optimizer) and counts the pixels it works on. With no profiler running
+(``torch.autograd._profiler_enabled()`` false) :func:`span` returns one
+shared no-op context and :func:`count` returns at once: one C call each,
+no allocation, no clock read. While a profiler runs, a span enters
+``record_function(name)`` (so it sits in the Chrome trace on the
+profiler's clock, around the operators it launched) and, on exit,
+appends ``(name, parent, unit, thread, t0, t1)`` to an in-memory list,
+with ``time.perf_counter()`` times; ``count`` adds to a dict. Whether a
+span is recorded is decided when it is entered. ``parent`` is the
+enclosing recorded span of the same thread; ``unit`` is the request or
+iteration the span serves (given by the top-level span, inherited by
+the spans inside it). Spans on loader threads carry their thread id.
+Worker processes (``data/grain_pipeline.py``) record into their own
+copy of this module, which the parent never sees.
 """
 
 from __future__ import annotations
@@ -22,10 +43,105 @@ import glob
 import json
 import os
 import re
+import threading
 import time
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
+
+# spans kept at most between two resets; later ones are not kept
+MAX_SPANS = 1 << 18
+
+recording = torch.autograd._profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    parent: Optional[str]
+    unit: Optional[int]
+    thread: int
+    t0: float             # time.perf_counter(), s
+    t1: float
+
+
+_spans: List[SpanRecord] = []
+_counters: Dict[str, int] = {}
+_lock = threading.Lock()
+_local = threading.local()
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "unit", "parent", "rf", "t0")
+
+    def __init__(self, name: str, unit: Optional[int]):
+        self.name, self.unit = name, unit
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        up = stack[-1] if stack else None
+        self.parent = up.name if up is not None else None
+        if self.unit is None and up is not None:
+            self.unit = up.unit
+        stack.append(self)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        self.rf.__exit__(*exc)
+        _local.stack.pop()
+        rec = SpanRecord(self.name, self.parent, self.unit,
+                         threading.get_ident(), self.t0, t1)
+        with _lock:
+            if len(_spans) < MAX_SPANS:
+                _spans.append(rec)
+        return False
+
+
+def span(name: str, unit: Optional[int] = None):
+    """A named host-time span, recorded only while a profiler runs."""
+    if not recording():
+        return _NO_SPAN
+    return _Span(name, unit)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler runs."""
+    if not recording():
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def record() -> Dict[str, object]:
+    """A snapshot: ``spans`` (a list of :class:`SpanRecord`, in the order
+    they closed; at most ``MAX_SPANS``) and ``counters``."""
+    with _lock:
+        return {"spans": list(_spans), "counters": dict(_counters)}
+
+
+def reset() -> None:
+    """Forget every recorded span and counter."""
+    with _lock:
+        _spans.clear()
+        _counters.clear()
 
 
 @contextlib.contextmanager
@@ -38,17 +154,13 @@ def trace(log_dir: str) -> Iterator[None]:
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    reset()
     with profile(activities=acts) as prof:
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     n = len(glob.glob(os.path.join(log_dir, "trace_*.json")))
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{n:04d}.json"))
-
-
-def annotate(name: str):
-    """Named region on the profiler timeline."""
-    return torch.profiler.record_function(name)
 
 
 def _sync(x) -> None:

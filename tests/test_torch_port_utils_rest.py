@@ -172,7 +172,7 @@ def test_chained_timeit_and_trace_summary(tmp_path):
     assert ms > 0
     a = torch.randn(128, 128)
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("matmuls"):
+        with profiling.span("matmuls"):
             for _ in range(3):
                 a = torch.tanh(a @ a)
     assert os.listdir(tmp_path) == ["trace_0000.json"]
