@@ -12,6 +12,7 @@ data sets and ``VideoFrameDataset``.
 from __future__ import annotations
 
 import copy
+import os
 from typing import Any, Mapping
 
 from lowlight_image_enhancement_tpu_torch.data.debug_fixtures import (  # noqa: F401
@@ -29,6 +30,7 @@ from lowlight_image_enhancement_tpu_torch.data.pipeline import (  # noqa: F401
     Loader,
     epochs,
     prefetch_to_device,
+    splits_draws,
 )
 from lowlight_image_enhancement_tpu_torch.data.records import (  # noqa: F401
     SidPackReader,
@@ -76,9 +78,11 @@ def create_dataset(opt: Mapping[str, Any]):
 
 
 def create_loader(dataset, opt: Mapping[str, Any], *, num_hosts: int = 1,
-                  host_id: int = 0, seed: int = 0) -> Loader:
+                  host_id: int = 0, seed: int = 0,
+                  num_workers: int = 0) -> Loader:
     """A :class:`Loader` from reference-style dataset options: shuffled
-    and dropping the last partial batch in the train phase."""
+    and dropping the last partial batch in the train phase;
+    ``num_workers`` threads load ahead (:func:`loader_threads`)."""
     is_train = opt.get("phase", "train") == "train"
     batch = int(opt.get("batch_size_per_gpu", 1))
     return Loader(
@@ -90,4 +94,24 @@ def create_loader(dataset, opt: Mapping[str, Any], *, num_hosts: int = 1,
         drop_last=is_train,
         num_hosts=num_hosts,
         host_id=host_id,
+        num_workers=num_workers,
     )
+
+
+def loader_threads(dataset, opt: Mapping[str, Any]) -> int:
+    """Threads that load a train set's items ahead of the step: none for a
+    data set that does not split its draws from its loads
+    (:func:`.pipeline.splits_draws`), so that its items stay the serial
+    loader's; else the options' ``num_worker_per_gpu`` (the reference's
+    key) where given; else the per-GPU batch, at most a quarter of the
+    CPUs this process may use, and at least 1. The decodes compete with
+    the training thread, which launches the step and pins each batch: on
+    an H100 host of 8 CPUs, 7 threads made each decode 2.7 times slower
+    and the pinning with it, for no shorter step than 2 threads gave."""
+    if not splits_draws(dataset):
+        return 0
+    if opt.get("num_worker_per_gpu") is not None:
+        return max(int(opt["num_worker_per_gpu"]), 0)
+    cpus = len(os.sched_getaffinity(0)) if hasattr(
+        os, "sched_getaffinity") else (os.cpu_count() or 1)
+    return max(min(int(opt.get("batch_size_per_gpu", 1)), cpus // 4), 1)

@@ -9,7 +9,8 @@ reference's DataLoader + EnlargedSampler + ``CUDAPrefetcher``,
   ``np.random.default_rng(seed + epoch)`` permutation, ``enlarge_ratio``,
   ``drop_last``, the per-host stride and the threaded path; it yields
   NHWC numpy batches;
-- :func:`epochs` -- one batch stream over epochs, calling ``set_epoch``;
+- :func:`epochs` -- one batch stream over epochs (:meth:`Loader.stream`),
+  which a threaded loader reads ahead across epoch boundaries;
 - :func:`prefetch_to_device` -- the device prefetcher: pinned host
   tensors copied on a side CUDA stream ``size`` batches ahead, permuted
   NHWC -> NCHW on the device, handed to the consumer's stream in order.
@@ -19,12 +20,17 @@ from __future__ import annotations
 
 import collections
 import itertools
-from typing import Any, Dict, Iterator, Mapping, Optional
+from typing import Any, Dict, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
 from lowlight_image_enhancement_tpu_torch import resolve_device
+from lowlight_image_enhancement_tpu_torch.utils.profiling import (
+    carried,
+    count,
+    span,
+)
 
 
 def _stack_batch(items) -> Dict[str, Any]:
@@ -38,6 +44,20 @@ def _stack_batch(items) -> Dict[str, Any]:
     return out
 
 
+def splits_draws(dataset) -> bool:
+    """Whether ``dataset`` splits an item into ``draw(idx)``, its random
+    draws made on the caller's thread, and ``load(idx, draws)``, a pure
+    function of both (``SonySIDDataset``)."""
+    return (callable(getattr(dataset, "draw", None))
+            and callable(getattr(dataset, "load", None)))
+
+
+# items in flight ahead of the batch being built: prefetch_to_device's
+# depth of 2 batches and that batch, so that the prefetcher's pull finds
+# its items submitted three pulls earlier
+LOOKAHEAD_BATCHES = 3
+
+
 class Loader:
     """Deterministic shuffling batcher over a map-style dataset.
 
@@ -49,9 +69,20 @@ class Loader:
         ``EnlargedSampler`` semantics.
       enlarge_ratio: virtual dataset enlargement (modulo indexing).
       drop_last: drop the trailing partial batch (train default).
-      num_workers: >0 fetches items on a thread pool (the native decode
-        releases the GIL); items keep their order, but a dataset that
-        draws random crops draws them in thread order.
+      num_workers: >0 fetches items on a pool of that many threads (the
+        native decode releases the GIL), up to ``LOOKAHEAD_BATCHES``
+        batches ahead and across epoch boundaries in :meth:`stream`.
+        Items keep their order. A dataset that :func:`splits_draws`
+        (``SonySIDDataset``) makes its random draws on the consumer
+        thread in item order, the draws of dropped items included, and
+        only its loads run on the pool: the batches are the serial
+        loader's, bit for bit. Any other dataset's ``__getitem__`` runs on
+        the pool whole, so random draws there follow thread timing.
+
+    Under a profiler each item handed to the batcher counts
+    ``loader.items``; one whose load had finished when it was asked for
+    also counts ``loader.items_ready``, and the wait for any other is a
+    ``loader.wait`` span (``utils/profiling.py``).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
@@ -82,73 +113,109 @@ class Loader:
             return per_host // self.local_batch
         return -(-per_host // self.local_batch)
 
-    def _order(self) -> np.ndarray:
+    def _order(self, epoch: int) -> np.ndarray:
         n = len(self.dataset) * self.enlarge_ratio
         if self.shuffle:
-            order = np.random.default_rng(self.seed + self.epoch).permutation(n)
+            order = np.random.default_rng(self.seed + epoch).permutation(n)
         else:
             order = np.arange(n)
         return order[self.host_id::self.num_hosts]
 
+    def _plan(self, epoch_ids: Iterable[int]):
+        """``(epoch, index, kept, closes)`` for every item the serial
+        loader fetches, in its order: ``kept`` is false for the items that
+        ``drop_last`` drops, ``closes`` true for an epoch's batch's last."""
+        n, b = len(self.dataset), self.local_batch
+        for ep in epoch_ids:
+            order = self._order(ep)
+            kept = len(order) - (len(order) % b if self.drop_last else 0)
+            for pos, virtual_idx in enumerate(order):
+                yield (ep, int(virtual_idx) % n, pos < kept,
+                       (pos + 1) % b == 0 or pos + 1 == kept)
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        order = self._order()
+        """One epoch, ``self.epoch``."""
+        return self.stream([self.epoch])
+
+    def stream(self, epoch_ids: Iterable[int]) -> Iterator[Dict[str, Any]]:
+        """The batches of ``epoch_ids``, in order, as one stream; each
+        batch sets ``self.epoch`` to its epoch. With ``num_workers`` one
+        pool serves the whole stream; closing the stream, or dropping it,
+        shuts the pool down once the loads in flight have finished."""
         if self.num_workers > 0:
-            yield from self._iter_threaded(order)
-            return
+            return self._stream_ahead(epoch_ids)
+        return self._stream_serial(epoch_ids)
+
+    def _stream_serial(self, epoch_ids) -> Iterator[Dict[str, Any]]:
         batch = []
-        for virtual_idx in order:
-            batch.append(self.dataset[int(virtual_idx) % len(self.dataset)])
-            if len(batch) == self.local_batch:
+        for ep, idx, kept, closes in self._plan(epoch_ids):
+            item = self.dataset[idx]
+            if not kept:
+                continue
+            count("loader.items", 1)
+            batch.append(item)
+            if closes:
+                self.epoch = ep
                 yield _stack_batch(batch)
                 batch = []
-        if batch and not self.drop_last:
-            yield _stack_batch(batch)
 
-    def _iter_threaded(self, order: np.ndarray) -> Iterator[Dict[str, Any]]:
-        """Items fetched on a thread pool with a bounded lookahead, submitted
-        and consumed in order."""
+    def _stream_ahead(self, epoch_ids) -> Iterator[Dict[str, Any]]:
         import concurrent.futures as cf
 
-        lookahead = self.local_batch * max(self.num_workers, 1) * 2
-        with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            futures: collections.deque = collections.deque()
-            it = iter(order)
+        ds = self.dataset
+        if splits_draws(ds):
+            draw, load = ds.draw, ds.load
+        else:               # the whole item on the pool
+            draw, load = (lambda idx: None), (lambda idx, _: ds[idx])
+        plan = self._plan(epoch_ids)
+        lookahead = max(self.local_batch * LOOKAHEAD_BATCHES,
+                        self.num_workers)
+        pool = cf.ThreadPoolExecutor(self.num_workers,
+                                     thread_name_prefix="loader")
+        futures: collections.deque = collections.deque()
 
-            def submit_next() -> bool:
-                try:
-                    virtual_idx = next(it)
-                except StopIteration:
-                    return False
-                futures.append(pool.submit(
-                    self.dataset.__getitem__,
-                    int(virtual_idx) % len(self.dataset)))
-                return True
+        def submit_next() -> bool:
+            for ep, idx, kept, closes in plan:
+                draws = draw(idx)
+                if kept:
+                    futures.append((ep, closes, pool.submit(
+                        carried(load), idx, draws)))
+                    return True
+            return False
 
-            for _ in range(lookahead):
-                if not submit_next():
-                    break
+        try:
+            while len(futures) < lookahead and submit_next():
+                pass
             batch = []
             while futures:
-                batch.append(futures.popleft().result())
+                ep, closes, fut = futures.popleft()
                 submit_next()
-                if len(batch) == self.local_batch:
+                count("loader.items", 1)
+                if fut.done():
+                    count("loader.items_ready", 1)
+                    batch.append(fut.result())
+                else:
+                    with span("loader.wait"):
+                        batch.append(fut.result())
+                if closes:
+                    self.epoch = ep
                     yield _stack_batch(batch)
                     batch = []
-            if batch and not self.drop_last:
-                yield _stack_batch(batch)
+        finally:
+            pool.shutdown(wait=True)
 
 
 def epochs(loader: Loader, num_epochs: Optional[int] = None,
            start_epoch: int = 0) -> Iterator[Dict[str, Any]]:
-    """Flatten epochs into one batch stream, calling ``set_epoch``.
+    """Flatten epochs into one batch stream (:meth:`Loader.stream`):
+    epoch ``e``'s permutation is ``seed + e``'s, so a threaded loader
+    reads ahead across epoch boundaries.
 
     ``start_epoch`` resumes the deterministic shuffle sequence mid-run
     (the trainer passes ``resume_iter // len(loader)``)."""
     counter = (range(start_epoch, start_epoch + num_epochs) if num_epochs
                else itertools.count(start_epoch))
-    for ep in counter:
-        loader.set_epoch(ep)
-        yield from loader
+    return loader.stream(counter)
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,11 @@ Counterpart of ``lowlight_image_enhancement_tpu/data/sid_dataset.py``
 same crop pushdown and the same ``self._rng`` draws, so a seeded pass
 gives the same items, bit for bit. Items stay NHWC numpy float32; the
 loader's prefetcher (:mod:`.pipeline`) moves a batch to the device and to
-NCHW. With a threaded loader (``num_workers > 0``) the draws of the
-crops follow thread timing, as in the JAX package; the parity tests use
-``num_workers=0``. A JSON
+NCHW. An item is :meth:`SonySIDDataset.draw` (the crop and augment
+draws, in item order) then :meth:`SonySIDDataset.load` (the decode, a pure
+function of the index and the draws), so a threaded loader that draws on
+its consumer thread and loads on a pool gives the serial loader's items,
+bit for bit. A JSON
 manifest lists pairs ``{pair_id, subset, short_key, long_key,
 short_exposure, long_exposure, exposure_ratio}``; image payloads come from
 either
@@ -36,12 +38,12 @@ import numpy as np
 
 from lowlight_image_enhancement_tpu_torch.data.native_loader import NativeSidPack
 from lowlight_image_enhancement_tpu_torch.data.transforms import (
-    augment,
-    center_crop,
+    apply_augment,
+    augment_draws,
     decode_png_uint16,
-    joint_random_crop,
     uint16_to_float01,
 )
+from lowlight_image_enhancement_tpu_torch.utils.imgio import png_size
 from lowlight_image_enhancement_tpu_torch.utils.registry import DATASET_REGISTRY
 
 
@@ -96,8 +98,8 @@ class SonySIDDataset:
         self.random_crop = random_crop
         self.use_augment = use_augment
         self._rng = np.random.default_rng(seed)
-        # numpy Generators are not thread-safe; threaded loaders
-        # (Loader(num_workers=...), grain) fetch items concurrently
+        # numpy Generators are not thread-safe; items may be fetched on
+        # several threads at once
         self._rng_lock = threading.Lock()
 
         io_backend = dict(io_backend or {"type": "disk", "root": "."})
@@ -141,32 +143,62 @@ class SonySIDDataset:
         with open(path, "rb") as f:
             return uint16_to_float01(decode_png_uint16(f.read()))
 
+    def _size(self, key: str) -> tuple:
+        """``(height, width)`` of a short-exposure image, from the pack's
+        index or the PNG's header: nothing is decoded."""
+        if self.backend_type == "pack":
+            return tuple(self._short.meta_shape(key)[:2])
+        with open(os.path.join(self._root, "short", f"{key}.png"), "rb") as f:
+            return png_size(f.read(24))
+
     def _crop_coords(self, h: int, w: int) -> tuple[int, int]:
         ps = self.patch_size
         if self.phase == "train" and self.random_crop:
-            with self._rng_lock:
-                return (int(self._rng.integers(0, h - ps + 1)),
-                        int(self._rng.integers(0, w - ps + 1)))
+            if h < ps or w < ps:
+                raise ValueError(f"images {(h, w)} smaller than patch {ps}")
+            return (int(self._rng.integers(0, h - ps + 1)),
+                    int(self._rng.integers(0, w - ps + 1)))
         return max((h - ps) // 2, 0), max((w - ps) // 2, 0)
 
-    def __getitem__(self, idx: int) -> Dict[str, Any]:
+    def draw(self, idx: int) -> tuple:
+        """Item ``idx``'s random draws, from ``self._rng`` in the order
+        ``__getitem__`` has always made them: the crop's ``(top, left)``
+        (None without ``patch_size``), then the augment's ``(hflip,
+        vflip, rot90)`` (None without augmentation). A threaded
+        :class:`.pipeline.Loader` calls it on its consumer thread in item
+        order and hands the draws to :meth:`load` on a pool thread."""
+        rec = self.records[idx % len(self.records)]
+        with self._rng_lock:
+            corner = (self._crop_coords(*self._size(rec["short_key"]))
+                      if self.patch_size else None)
+            flips = (augment_draws(self._rng)
+                     if self.phase == "train" and self.use_augment else None)
+        return corner, flips
+
+    def _pushdown(self, rec: dict) -> bool:
+        """Whether the crop decodes natively from the packs (both records
+        uint16 of one shape)."""
+        return bool(self.patch_size and self.backend_type == "pack"
+                    and rec["short_key"] in self._short
+                    and self._short.meta_dtype(rec["short_key"]) == "uint16"
+                    and self._long.meta_dtype(rec["long_key"]) == "uint16"
+                    and self._short.meta_shape(rec["short_key"])
+                    == self._long.meta_shape(rec["long_key"]))
+
+    def load(self, idx: int, draws: tuple) -> Dict[str, Any]:
+        """Item ``idx`` under ``draws`` (from :meth:`draw`): a pure
+        function of its arguments, safe on any thread."""
+        corner, flips = draws
         rec = self.records[idx % len(self.records)]
         ratio = float(rec.get(
             "exposure_ratio",
             rec.get("long_exposure", 1.0) / max(rec.get("short_exposure", 1.0),
                                                 1e-12),
         ))
-
-        if (self.patch_size and self.backend_type == "pack"
-                and rec["short_key"] in self._short
-                and self._short.meta_dtype(rec["short_key"]) == "uint16"
-                and self._long.meta_dtype(rec["long_key"]) == "uint16"
-                and self._short.meta_shape(rec["short_key"])
-                == self._long.meta_shape(rec["long_key"])):
+        ps = self.patch_size
+        if self._pushdown(rec):
             # crop pushdown: decode only the crop window natively
-            h, w = self._short.meta_shape(rec["short_key"])[:2]
-            top, left = self._crop_coords(h, w)
-            ps = self.patch_size
+            top, left = corner
             short_raw = self._short.decode_crop(rec["short_key"], top, left,
                                                 ps, ps)
             long_raw = self._long.decode_crop(rec["long_key"], top, left,
@@ -174,18 +206,16 @@ class SonySIDDataset:
         else:
             short_raw = self._load("short", rec["short_key"])
             long_raw = self._load("long", rec["long_key"])
-            if self.patch_size:
-                if self.phase == "train" and self.random_crop:
-                    short_raw, long_raw = joint_random_crop(
-                        [short_raw, long_raw], self.patch_size,
-                        rng=self._rng
-                    )
-                else:
-                    short_raw = center_crop(short_raw, self.patch_size)
-                    long_raw = center_crop(long_raw, self.patch_size)
-        if self.phase == "train" and self.use_augment:
-            short_raw, long_raw = augment([short_raw, long_raw],
-                                          rng=self._rng)
+            if ps:
+                if (self.phase == "train" and self.random_crop
+                        and short_raw.shape[:2] != long_raw.shape[:2]):
+                    raise ValueError("joint crop requires equal spatial dims")
+                top, left = corner
+                short_raw = short_raw[top:top + ps, left:left + ps]
+                long_raw = long_raw[top:top + ps, left:left + ps]
+        if flips is not None:
+            short_raw = apply_augment(short_raw, flips)
+            long_raw = apply_augment(long_raw, flips)
 
         lq = np.clip(short_raw * ratio, 0.0, 1.0).astype(np.float32)
         return {
@@ -198,6 +228,9 @@ class SonySIDDataset:
             "pair_id": rec["pair_id"],
             "key": rec["short_key"],
         }
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        return self.load(idx, self.draw(idx))
 
 
 def load_manifest(manifest_path: str) -> List[dict]:

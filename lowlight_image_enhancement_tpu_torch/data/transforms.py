@@ -136,6 +136,31 @@ def joint_random_crop(
             for im in imgs]
 
 
+def augment_draws(
+    rng: np.random.Generator, hflip: bool = True, rotation: bool = True,
+    vflip: Optional[bool] = None,
+) -> Tuple[bool, bool, bool]:
+    """The ``(hflip, vflip, rot90)`` choices :func:`augment` draws from
+    ``rng``, in its order (a data set draws them ahead of its loads)."""
+    do_hflip = hflip and rng.random() < 0.5
+    do_vflip = (vflip if vflip is not None else rotation) \
+        and rng.random() < 0.5
+    do_rot = rotation and rng.random() < 0.5
+    return do_hflip, do_vflip, do_rot
+
+
+def apply_augment(img: Img, status: Tuple[bool, bool, bool]) -> Img:
+    """One image flipped and transposed by ``(hflip, vflip, rot90)``."""
+    do_hflip, do_vflip, do_rot = status
+    if do_hflip:
+        img = img[:, ::-1, ...]
+    if do_vflip:
+        img = img[::-1, :, ...]
+    if do_rot:
+        img = np.transpose(img, (1, 0, 2)) if img.ndim == 3 else img.T
+    return np.ascontiguousarray(img)
+
+
 def augment(
     imgs: Union[Img, Sequence[Img]],
     hflip: bool = True,
@@ -151,25 +176,12 @@ def augment(
     appends the drawn ``(hflip, vflip, rot90)`` tuple — the stereo
     dataset's calling convention."""
     rng = rng or np.random.default_rng()
-    do_hflip = hflip and rng.random() < 0.5
-    do_vflip = (vflip if vflip is not None else rotation) \
-        and rng.random() < 0.5
-    do_rot = rotation and rng.random() < 0.5
-
-    def _aug(img: Img) -> Img:
-        if do_hflip:
-            img = img[:, ::-1, ...]
-        if do_vflip:
-            img = img[::-1, :, ...]
-        if do_rot:
-            img = np.transpose(img, (1, 0, 2)) if img.ndim == 3 else img.T
-        return np.ascontiguousarray(img)
-
+    status = augment_draws(rng, hflip, rotation, vflip)
     lst, was_list = _as_list(imgs)
-    out = [_aug(im) for im in lst]
+    out = [apply_augment(im, status) for im in lst]
     out = out if was_list else out[0]
     if return_status:
-        return out, (do_hflip, do_vflip, do_rot)
+        return out, status
     return out
 
 

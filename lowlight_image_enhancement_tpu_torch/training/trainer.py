@@ -7,7 +7,12 @@ Counterpart of ``lowlight_image_enhancement_tpu/training/trainer.py``
 loss, schedule and optimizer from a parsed config, auto-resumes, and runs
 the iteration loop with periodic logging, checkpoints and validation, on
 ``device`` ("cuda" unless the caller asks for the CPU). Batches reach the
-step through the loader's device prefetcher, NCHW.
+step through the loader's device prefetcher, NCHW. The train loader loads
+ahead on a thread pool (``data.loader_threads``: the options'
+``num_worker_per_gpu``, else the batch within a quarter of the CPUs)
+where its data set draws its crops apart from its decode, so the batches
+are the serial loader's; the pool serves the whole run and ends with
+``train()``.
 
 Under a ``torch.distributed`` world (``parallel.init_multihost``; one
 process per device) the Trainer trains data-parallel over the world's
@@ -35,6 +40,7 @@ from lowlight_image_enhancement_tpu_torch import resolve_device
 from lowlight_image_enhancement_tpu_torch.data import (
     create_dataset,
     create_loader,
+    loader_threads,
 )
 from lowlight_image_enhancement_tpu_torch.data import epochs as epoch_stream
 from lowlight_image_enhancement_tpu_torch.data import prefetch_to_device
@@ -201,9 +207,11 @@ class Trainer:
         ds_opts = opt.get("datasets") or {}
         self.train_loader = self.val_loader = None
         if "train" in ds_opts:
+            train_set = create_dataset(ds_opts["train"])
             self.train_loader = create_loader(
-                create_dataset(ds_opts["train"]), ds_opts["train"], seed=seed,
-                num_hosts=self.world, host_id=self.rank)
+                train_set, ds_opts["train"], seed=seed,
+                num_hosts=self.world, host_id=self.rank,
+                num_workers=loader_threads(train_set, ds_opts["train"]))
         if "val" in ds_opts:
             self.val_loader = create_loader(
                 create_dataset(ds_opts["val"]), ds_opts["val"], seed=seed)
@@ -268,45 +276,47 @@ class Trainer:
 
         # resume the shuffle sequence at the epoch the run left off in
         start_epoch = self.start_iter // max(len(self.train_loader), 1)
-        stream = prefetch_to_device(
-            epoch_stream(self.train_loader, start_epoch=start_epoch),
-            device=self.device)
-
-        current_iter = self.start_iter
-        t_data = time.time()
-        while current_iter < self.total_iters:
-            with span("trainer.fetch", unit=current_iter + 1):
-                batch = next(stream, None)
-            if batch is None:
-                break
-            current_iter += 1
-            data_time = time.time() - t_data
-            t_step = time.time()
-            with span("trainer.step", unit=current_iter):
-                self.state, logs = self.step_fn(self.state, batch)
-
-            if current_iter % print_freq == 0:
-                host_logs = {k: float(v) for k, v in logs.items()}
-                assert_finite_logs(host_logs)
-                entry = {"iter": current_iter,
-                         "lr": float(self.schedule(current_iter)),
-                         "time": time.time() - t_step,
-                         "data_time": data_time, **host_logs}
-                self.history.append(entry)
-                msg_logger({"iter": current_iter,
-                            "epoch": self.train_loader.epoch,
-                            "lrs": [entry["lr"]], "time": entry["time"],
-                            "data_time": data_time, **host_logs})
-            if save_freq and current_iter % save_freq == 0:
-                self._save()
-            if val_freq and self.val_loader is not None and (
-                    current_iter % val_freq == 0):
-                results = self.validate()
-                msg_logger({"iter": current_iter,
-                            "epoch": self.train_loader.epoch,
-                            "lrs": [float(self.schedule(current_iter))],
-                            **{f"m_{k}": v for k, v in results.items()}})
+        batches = epoch_stream(self.train_loader, start_epoch=start_epoch)
+        stream = prefetch_to_device(batches, device=self.device)
+        try:
+            current_iter = self.start_iter
             t_data = time.time()
+            while current_iter < self.total_iters:
+                with span("trainer.fetch", unit=current_iter + 1):
+                    batch = next(stream, None)
+                if batch is None:
+                    break
+                current_iter += 1
+                data_time = time.time() - t_data
+                t_step = time.time()
+                with span("trainer.step", unit=current_iter):
+                    self.state, logs = self.step_fn(self.state, batch)
+
+                if current_iter % print_freq == 0:
+                    host_logs = {k: float(v) for k, v in logs.items()}
+                    assert_finite_logs(host_logs)
+                    entry = {"iter": current_iter,
+                             "lr": float(self.schedule(current_iter)),
+                             "time": time.time() - t_step,
+                             "data_time": data_time, **host_logs}
+                    self.history.append(entry)
+                    msg_logger({"iter": current_iter,
+                                "epoch": self.train_loader.epoch,
+                                "lrs": [entry["lr"]], "time": entry["time"],
+                                "data_time": data_time, **host_logs})
+                if save_freq and current_iter % save_freq == 0:
+                    self._save()
+                if val_freq and self.val_loader is not None and (
+                        current_iter % val_freq == 0):
+                    results = self.validate()
+                    msg_logger({"iter": current_iter,
+                                "epoch": self.train_loader.epoch,
+                                "lrs": [float(self.schedule(current_iter))],
+                                **{f"m_{k}": v for k, v in results.items()}})
+                t_data = time.time()
+        finally:
+            stream.close()
+            batches.close()   # the loader's pool ends with train()
 
         self._save()
         if self.val_loader is not None and val_freq:

@@ -132,6 +132,15 @@ def _decode_via_pil(buf: bytes) -> np.ndarray:
         return np.asarray(im).copy()
 
 
+def png_size(head: bytes) -> tuple:
+    """``(height, width)`` from a PNG's first 24 bytes (its IHDR, which
+    the format puts first), without decoding the image."""
+    if head[:8] != _PNG_SIG or head[12:16] != b"IHDR":
+        raise ValueError("not a PNG stream")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
 def decode_png(buf: bytes) -> np.ndarray:
     """PNG bytes -> RGB(A)/gray array, keeping 16-bit depth."""
     if buf[:8] != _PNG_SIG:

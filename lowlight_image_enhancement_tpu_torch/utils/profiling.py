@@ -21,16 +21,19 @@ server's staging, forward and readback, the tiled blend, the loader's
 decode, the Trainer's fetch and step, the step's forward, backward and
 optimizer) and counts the pixels it works on. With no profiler running
 (``torch.autograd._profiler_enabled()`` false) :func:`span` returns one
-shared no-op context and :func:`count` returns at once: one C call each,
-no allocation, no clock read. While a profiler runs, a span enters
-``record_function(name)`` (so it sits in the Chrome trace on the
-profiler's clock, around the operators it launched) and, on exit,
+shared no-op context and :func:`count` returns at once: one C call and
+one thread-local read each, no allocation, no clock read. While a
+profiler runs, a span enters ``record_function(name)`` (so it sits in the
+Chrome trace on the profiler's clock, around the operators it launched)
+and, on exit,
 appends ``(name, parent, unit, thread, t0, t1)`` to an in-memory list,
 with ``time.perf_counter()`` times; ``count`` adds to a dict. Whether a
 span is recorded is decided when it is entered. ``parent`` is the
 enclosing recorded span of the same thread; ``unit`` is the request or
 iteration the span serves (given by the top-level span, inherited by
-the spans inside it). Spans on loader threads carry their thread id.
+the spans inside it). A loader's pool threads record the loads that the
+profiled thread submitted (:func:`carried`): their spans carry their
+thread id, and are in the list, not in the Chrome trace.
 Worker processes (``data/grain_pipeline.py``) record into their own
 copy of this module, which the parent never sees.
 """
@@ -52,7 +55,7 @@ import torch
 # spans kept at most between two resets; later ones are not kept
 MAX_SPANS = 1 << 18
 
-recording = torch.autograd._profiler_enabled
+_profiler_enabled = torch.autograd._profiler_enabled
 
 
 class SpanRecord(NamedTuple):
@@ -113,6 +116,31 @@ class _Span:
             if len(_spans) < MAX_SPANS:
                 _spans.append(rec)
         return False
+
+
+def recording() -> bool:
+    """Whether spans and counts are kept on this thread: as the thread
+    that handed it the work it runs recorded (:func:`carried`), else
+    whether a profiler runs on it."""
+    handed = getattr(_local, "carried", None)
+    return _profiler_enabled() if handed is None else handed
+
+
+def carried(fn: Callable) -> Callable:
+    """``fn``, to run on another thread and record there exactly when this
+    thread records now. A profiler records only the thread that started
+    it, so a loader's pool threads keep the spans and counts of the loads
+    that the consumer submitted while it was profiled, and of no other."""
+    on = recording()
+
+    def run(*args, **kwargs):
+        was = getattr(_local, "carried", None)
+        _local.carried = on
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _local.carried = was
+    return run
 
 
 def span(name: str, unit: Optional[int] = None):

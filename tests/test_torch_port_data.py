@@ -12,7 +12,10 @@
   included;
 - ``Loader``: batch for batch over two epochs (shuffle, ``enlarge_ratio``
   2, ``drop_last`` both ways, the threaded path on a dataset without
-  random draws);
+  random draws); the decode-ahead stream on ``SonySIDDataset`` at 1, 2
+  and 4 threads over four epochs, loads finishing in and out of order,
+  against the serial loader and the JAX loader; its pool's lookahead
+  across epochs and its end; ``loader_threads``;
 - ``prefetch_to_device(device="cpu")``: the NCHW numpy batch, strings
   dropped;
 - ``make_debug_sid`` / ``make_synthetic_sid``: byte-equal files.
@@ -20,7 +23,10 @@
 Inputs come from numpy seeds.
 """
 
+import gc
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -225,6 +231,31 @@ def test_sid_dataset_items_match_jax(debug_set, case):
             _same_item(ds[i], jds[i])
 
 
+def test_disk_backend_sizes_its_crops_from_the_png_header(debug_set,
+                                                          tmp_path):
+    """The disk backend draws its crops from each PNG's header size, so
+    its items (random crops, augmentation) equal the JAX package's disk
+    backend's, which decodes first."""
+    from lowlight_image_enhancement_tpu_torch.utils import imgio
+
+    root = os.path.dirname(debug_set["manifest"])
+    for which in ("short", "long"):
+        os.makedirs(tmp_path / which)
+        with records.SidPackReader(f"{root}/train_{which}.pack") as r:
+            for key in r.keys():
+                (tmp_path / which / f"{key}.png").write_bytes(
+                    imgio.encode_png(r.get(key)))
+    opts = dict(manifest_path=debug_set["manifest"], subset="train",
+                phase="train", patch_size=24, use_augment=True,
+                samples_per_pair=2, seed=6,
+                io_backend={"type": "disk", "root": str(tmp_path)})
+    ds, jds = sid_dataset.SonySIDDataset(**opts), jsid.SonySIDDataset(**opts)
+    with open(tmp_path / "short" / "train_00000.png", "rb") as f:
+        assert imgio.png_size(f.read(24)) == (64, 64)
+    for i in range(len(ds)):
+        _same_item(ds[i], jds[i])
+
+
 def test_create_dataset_and_load_manifest(debug_set):
     ds = create_dataset({"type": "SonySIDDataset",
                          **_ds_opts(debug_set, "val", phase="val")})
@@ -286,6 +317,120 @@ def test_loader_over_sid_dataset_matches_jax(debug_set):
     jloader = jpipe.Loader(jds, batch_size=2, seed=7)
     _same_batches(list(pipeline.epochs(loader, num_epochs=2)),
                   list(jpipe.epochs(jloader, num_epochs=2)))
+
+
+class _SlowEarly:
+    """A data set that splits its draws from its loads, passing both to
+    ``ds``; each load sleeps less than the one submitted before it within
+    a group of four, so that a pool's loads finish out of order. Records
+    the order in which loads finish."""
+
+    def __init__(self, ds):
+        self.ds, self.drawn, self.finished = ds, 0, []
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        return len(self.ds)
+
+    def draw(self, idx):
+        self.drawn += 1
+        return self.drawn, self.ds.draw(idx)
+
+    def load(self, idx, draws):
+        k, inner = draws
+        time.sleep(0.004 * (3 - k % 4))
+        item = self.ds.load(idx, inner)
+        with self._lock:
+            self.finished.append(k)
+        return item
+
+    def __getitem__(self, idx):
+        return self.load(idx, self.draw(idx))
+
+
+def _loader_threads():
+    return [t for t in threading.enumerate() if t.name.startswith("loader_")]
+
+
+@pytest.mark.parametrize("slow_early", [False, True],
+                         ids=["as_decoded", "out_of_order"])
+@pytest.mark.parametrize("threads", [1, 2, 4])
+def test_decode_ahead_batches_equal_serial_and_jax(debug_set, threads,
+                                                   slow_early):
+    """``SonySIDDataset`` (random crops and augmentation) over 4 epochs of
+    9 items in batches of 2 (one item drawn and dropped each epoch), so
+    that epoch boundaries fall inside the lookahead of 6 items: the
+    threaded stream's batches are the serial loader's and the JAX
+    loader's, bit for bit, also when loads finish out of order."""
+    opts = _ds_opts(debug_set, "train", phase="train", patch_size=16,
+                    samples_per_pair=3, use_augment=True, seed=9)
+    kw = dict(batch_size=2, seed=5)
+
+    def port(workers):
+        ds = sid_dataset.SonySIDDataset(**opts)
+        ds = _SlowEarly(ds) if slow_early else ds
+        loader = pipeline.Loader(ds, num_workers=workers, **kw)
+        return ds, list(pipeline.epochs(loader, num_epochs=4, start_epoch=2))
+
+    ahead_set, ahead = port(threads)
+    _, serial = port(0)
+    jloader = jpipe.Loader(jsid.SonySIDDataset(**opts), **kw)
+    want = list(jpipe.epochs(jloader, num_epochs=4, start_epoch=2))
+    assert len(ahead_set) % 2 == 1 and len(want) == 4 * 4
+    _same_batches(ahead, serial)
+    _same_batches(ahead, want)
+    if slow_early:
+        assert ahead_set.drawn == 4 * 9 and len(ahead_set.finished) == 4 * 8
+        if threads > 1:
+            assert ahead_set.finished != sorted(ahead_set.finished)
+    assert not _loader_threads()
+
+
+def test_decode_ahead_reads_across_epochs_and_ends_its_pool(debug_set):
+    """One pool serves every epoch: epochs of 3 items make one batch of 2
+    and drop one, and after the first batch the stream keeps 6 items in
+    flight, so it has drawn the items of four epochs but the last one's
+    dropped item (3 + 3 + 3 + 2); closing the stream, or dropping it,
+    leaves no pool thread alive."""
+    opts = _ds_opts(debug_set, "train", phase="train", patch_size=16)
+    ds = _SlowEarly(sid_dataset.SonySIDDataset(**opts))
+    loader = pipeline.Loader(ds, batch_size=2, num_workers=2)
+    stream = pipeline.epochs(loader)
+    assert not _loader_threads()          # the pool starts at the first fetch
+    next(stream)
+    assert len(ds) == 3 and ds.drawn == 11
+    assert loader.epoch == 0 and len(_loader_threads()) == 2
+    next(stream)
+    next(stream)
+    assert loader.epoch == 2 and ds.drawn == 17
+    stream.close()
+    assert not _loader_threads()
+    stream = pipeline.epochs(loader)
+    next(stream)
+    del stream
+    gc.collect()
+    assert not _loader_threads()
+
+
+def test_loader_threads_from_the_dataset_options(debug_set, monkeypatch):
+    """``num_worker_per_gpu`` where given (0: the serial loader); else the
+    per-GPU batch within a quarter of the CPUs; none for a data set that
+    does not split its draws from its loads."""
+    from lowlight_image_enhancement_tpu_torch.data import loader_threads
+
+    ds = sid_dataset.SonySIDDataset(**_ds_opts(debug_set, "train",
+                                               patch_size=16))
+    assert pipeline.splits_draws(ds) and not pipeline.splits_draws(
+        _Indexed(3))
+    assert loader_threads(ds, {"num_worker_per_gpu": 3,
+                               "batch_size_per_gpu": 8}) == 3
+    assert loader_threads(ds, {"num_worker_per_gpu": 0}) == 0
+    assert loader_threads(_Indexed(3), {"num_worker_per_gpu": 3}) == 0
+    for cpus, batch, want in ((8, 2, 2), (8, 8, 2), (32, 8, 8), (32, 4, 4),
+                              (1, 4, 1), (6, 1, 1)):
+        monkeypatch.setattr(os, "sched_getaffinity",
+                            lambda pid, n=cpus: set(range(n)))
+        assert loader_threads(ds, {"batch_size_per_gpu": batch}) == want
 
 
 def test_prefetch_to_device_cpu_gives_nchw():

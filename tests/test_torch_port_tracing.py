@@ -10,8 +10,11 @@ on the CPU:
   ``decode_crop`` on a ``zlib_band`` pack counts the band rows it
   inflates, natively and on the Python fallback, and the C batch decode
   the whole records; two ``Trainer`` steps record their fetch, step and
-  ``train_step.*`` spans with parents and units; the spans sit in the
-  Chrome trace around the operators they launched;
+  ``train_step.*`` spans with parents and units, and their decodes on
+  the loader's threads; a decode-ahead loader counts the items it hands
+  over and those already loaded, and opens a ``loader.wait`` span for
+  each it waits for; the spans sit in the Chrome trace around the
+  operators they launched;
 - outputs and trained parameters are bit-identical with recording on
   and off.
 """
@@ -20,6 +23,7 @@ import glob
 import json
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -213,12 +217,87 @@ def test_trainer_steps_record_fetch_step_and_step_spans(
                 <= by[name].t1 <= by["trainer.step"].t1
         assert by["train_step.forward"].t1 <= by["train_step.backward"].t0
         assert by["train_step.backward"].t1 <= by["train_step.optimizer"].t0
-        for s in mine:
-            if s.name == "native_loader.decode":
-                assert s.parent == "trainer.fetch"
-    assert {s.unit for s in spans} == {1, 2}
-    assert {s.thread for s in spans} == {threading.get_ident()}
+    # the train loader decodes ahead on its pool: the decodes that the
+    # profiled fetches submitted are recorded on the loader's threads
+    main = threading.get_ident()
+    decodes = [s for s in spans if s.name == "native_loader.decode"]
+    assert decodes and trainer.train_loader.num_workers >= 1
+    assert all(s.thread != main and s.parent is None and s.unit is None
+               for s in decodes)
+    assert {s.unit for s in spans if s.thread == main} == {1, 2}
+    assert {s.thread for s in spans if s not in decodes} == {main}
     assert rec["counters"]["native_loader.px_cropped"] > 0
+    assert rec["counters"]["loader.items"] == 2 * 2
+
+
+class _Timed:
+    """A data set that splits its draws from its loads; load ``i`` sleeps
+    ``delay(i)`` s and opens a ``test.load`` span."""
+
+    def __init__(self, n, delay):
+        self.n, self.delay = n, delay
+
+    def __len__(self):
+        return self.n
+
+    def draw(self, idx):
+        return idx
+
+    def load(self, idx, draws):
+        time.sleep(self.delay(idx))
+        with profiling.span("test.load"):
+            return {"x": np.full((2,), draws, np.float32)}
+
+    def __getitem__(self, idx):
+        return self.load(idx, self.draw(idx))
+
+
+def test_decode_ahead_counts_ready_items_and_waits():
+    """Under a running ``torch.profiler``: the consumer waits for the two
+    slow first loads (``loader.wait`` spans on its thread); after it
+    pauses, every later item is ready (``loader.items_ready``);
+    ``loader.items`` counts all eight; the loads that the profiled
+    consumer submitted record on the pool's threads, and none that it
+    submitted before the profiler started."""
+    from lowlight_image_enhancement_tpu_torch.data import pipeline
+
+    def run(delay):
+        loader = pipeline.Loader(_Timed(8, delay), batch_size=2,
+                                 shuffle=False, num_workers=2)
+        stream = pipeline.epochs(loader, num_epochs=1)
+        first = next(stream)
+        time.sleep(0.3)
+        return [first] + list(stream)
+
+    profiling.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        batches = run(lambda i: 0.05 if i < 2 else 0.0)
+    rec = profiling.record()
+    assert [b["x"][:, 0].tolist() for b in batches] == [
+        [0, 1], [2, 3], [4, 5], [6, 7]]
+    counters, main = rec["counters"], threading.get_ident()
+    waits = [s for s in rec["spans"] if s.name == "loader.wait"]
+    loads = [s for s in rec["spans"] if s.name == "test.load"]
+    assert counters["loader.items"] == 8
+    assert counters["loader.items_ready"] >= 6
+    assert counters["loader.items_ready"] + len(waits) == 8
+    assert waits and all(s.thread == main for s in waits)
+    assert len(loads) == 8 and all(s.thread != main for s in loads)
+
+    profiling.reset()
+    loader = pipeline.Loader(_Timed(8, lambda i: 0.1 if i < 2 else 0.0),
+                             batch_size=2, shuffle=False, num_workers=2)
+    stream = pipeline.epochs(loader, num_epochs=1)
+    next(stream)                          # submits items 0-7 unprofiled
+    time.sleep(0.2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        rest = list(stream)
+    assert len(rest) == 3 and profiling.record()["spans"] == [] \
+        and profiling.record()["counters"] == {"loader.items": 6,
+                                               "loader.items_ready": 6}
+    profiling.reset()
 
 
 def test_training_is_bit_identical_with_recording_on_and_off(

@@ -19,12 +19,14 @@
   raises (``train.zero1`` in one process trains unsharded);
 - ``train.main`` and ``test.main`` with ``--device cpu``.
 
-Both loaders run with ``num_workers=0`` (the crop draws are then in item
-order).
+The JAX loader runs with ``num_workers=0``; the port's Trainer loads
+ahead on its thread pool (its crop draws stay in item order), and no
+pool thread outlives ``train()``.
 """
 
 import os
 import tempfile
+import threading
 
 import jax
 import numpy as np
@@ -112,6 +114,14 @@ def test_trainer_logs_match_jax(runs):
         lrs, [float(runs["jtrainer"].schedule(i)) for i in range(1, ITERS + 1)],
         rtol=1e-5)
     assert all(h["data_time"] >= 0 and h["time"] > 0 for h in hist)
+
+
+def test_train_loader_decodes_ahead_and_ends_its_pool(runs):
+    loader = runs["trainer"].train_loader
+    assert loader.num_workers == min(
+        2, max(len(os.sched_getaffinity(0)) // 4, 1))
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("loader_")]
 
 
 def test_validate_matches_jax_on_bridged_weights(runs):
