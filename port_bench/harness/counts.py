@@ -1,5 +1,6 @@
 """The yardstick's arithmetic: the H100's peaks, a NAFBlock's operations
-and bytes at its shapes, and the network's forward FLOPs.
+and bytes at its shapes, and a network's forward FLOPs (any architecture:
+counted over its plain reference's ``forward``).
 
 A NAFBlock's count is of its math, whatever route or kernel computes it:
 the products of conv1 (C -> 2C), the depthwise 3x3 (2C), conv3 (C -> C),
@@ -14,7 +15,9 @@ the bound is a lower bound of the time.
 
 from __future__ import annotations
 
+import json
 from functools import lru_cache
+from types import ModuleType
 from typing import Sequence, Tuple
 
 import torch
@@ -53,25 +56,21 @@ def block_bound_s(n: int, c: int, h: int, w: int, dtype: str,
 
 
 @lru_cache(maxsize=None)
-def nafnet_forward_flops(shape: Tuple[int, int, int, int], width: int,
-                         enc: Tuple[int, ...], middle: int,
-                         dec: Tuple[int, ...]) -> float:
-    """FLOPs (2 a multiply-add) of the plain NAFNet forward on ``shape``,
-    counted by ``FlopCounterMode`` on meta tensors."""
-    from port_bench.reference.nafnet import nafnet, param_shapes
-
+def _forward_flops(reference: ModuleType, network_g: str,
+                   shape: Tuple[int, ...]) -> float:
+    net = json.loads(network_g)
     params = {k: torch.empty(s, device="meta")
-              for k, s in param_shapes(shape[1], width, enc, middle,
-                                       dec).items()}
+              for k, s in reference.param_shapes(net).items()}
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
-        nafnet(torch.empty(shape, device="meta"), params, enc, middle, dec)
+        reference.forward(torch.empty(shape, device="meta"), params, net)
     return float(counter.get_total_flops())
 
 
-def net_flops(shape: Sequence[int], net: dict) -> float:
-    p = net["nafnet_params"]
-    return nafnet_forward_flops(tuple(int(s) for s in shape),
-                                int(p["width"]), tuple(p["enc_blk_nums"]),
-                                int(p["middle_blk_num"]),
-                                tuple(p["dec_blk_nums"]))
+def net_flops(shape: Sequence[int], net: dict,
+              reference: ModuleType) -> float:
+    """FLOPs (2 a multiply-add) of the plain forward of ``net``
+    (``network_g``) on ``shape``, counted by ``FlopCounterMode`` over the
+    configuration's ``reference`` on meta tensors."""
+    return _forward_flops(reference, json.dumps(net, sort_keys=True),
+                          tuple(int(s) for s in shape))

@@ -4,9 +4,9 @@ from __future__ import annotations
 
 import math
 from statistics import mean
-from typing import List, Optional
+from typing import Callable, List, Optional
 
-from port_bench.harness.counts import PEAK_FLOPS, block_bound_s, net_flops
+from port_bench.harness.counts import PEAK_FLOPS, net_flops
 
 
 def percentile(values: List[float], q: float) -> float:
@@ -35,26 +35,31 @@ def mfu(run) -> Optional[float]:
     if not run.units or run.window_s <= 0:
         return None
     if run.kind == "train":
-        flops = 3 * net_flops(run.step_shape, run.net) * len(run.units)
+        flops = 3 * net_flops(run.step_shape, run.net, run.reference) \
+            * len(run.units)
     else:
         if not run.forwards:
             return None
-        flops = sum(net_flops(s, run.net) for s in run.forwards)
+        flops = sum(net_flops(s, run.net, run.reference)
+                    for s in run.forwards)
     return 100.0 * flops / run.window_s / PEAK_FLOPS[run.dtype]
 
 
-def roofline(run) -> Optional[float]:
-    """Percent: the NAFBlock calls' least time over the device time of
-    every ``nafblk::`` kernel in the traced window."""
-    if run.trace is None or not run.block_calls:
+def roofline(run, cls: str, kernel: str,
+             bound_s: Callable[..., float]) -> Optional[float]:
+    """Percent: the least time of the traced calls of port module class
+    ``cls`` (``bound_s(*record, dtype, backward=)`` of each call's
+    record, the backward too where it ran one) over the device time of
+    every kernel whose name holds ``kernel``."""
+    calls = run.calls.get(cls)
+    if run.trace is None or not calls:
         return None
-    device_s = run.trace.device_s(lambda e: "nafblk::" in e["name"])
+    device_s = run.trace.device_s(lambda e: kernel in e["name"])
     if device_s <= 0:
         return None
-    bound = sum(block_bound_s(n, c, h, w, run.dtype)
-                + (block_bound_s(n, c, h, w, run.dtype, backward=True)
-                   if bwd else 0.0)
-                for n, c, h, w, bwd in run.block_calls)
+    bound = sum(bound_s(*shape, run.dtype)
+                + (bound_s(*shape, run.dtype, backward=True) if bwd else 0.0)
+                for *shape, bwd in calls)
     return 100.0 * bound / device_s
 
 

@@ -12,7 +12,9 @@ from __future__ import annotations
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from functools import partial
+from types import ModuleType
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,6 +43,7 @@ class Run:
     kind: str                                  # "serve" | "train"
     dtype: str                                 # activation dtype
     net: Dict[str, Any]                        # network_g
+    reference: Optional[ModuleType] = None     # its plain reference
     setup_s: float = 0.0
     units: List[Unit] = field(default_factory=list)
     window_s: float = 0.0
@@ -48,26 +51,33 @@ class Run:
     step_shape: Optional[Tuple[int, ...]] = None
     traced: List[Unit] = field(default_factory=list)
     trace: Optional[Trace] = None
-    block_calls: List[Tuple[int, int, int, int, bool]] = field(
-        default_factory=list)
+    # traced calls by port module class: the reference's record of each
+    # call, and whether it will run backward
+    calls: Dict[str, List[tuple]] = field(default_factory=dict)
     memory_peak_bytes: int = 0
 
 
 class Hooks:
     """Forward hooks on the model (the ``model.forward`` span; the input
-    shape of each forward) and on its NAFBlocks (each call's shape and
-    whether it will run backward), on while ``counting`` / ``tracing``."""
+    shape of each forward) and on its modules of each class that the
+    run's reference names in ``counted`` (the reference's record of each
+    call, and whether it will run backward), on while ``counting`` /
+    ``tracing``."""
 
     def __init__(self, model: torch.nn.Module, run: Run, spans: Spans):
         self.run, self.spans = run, spans
+        counted: Dict[str, Callable[[tuple], tuple]] = getattr(
+            run.reference, "counted", {})
         self.counting = False
         self.tracing = False
         self.handles = [
             model.register_forward_pre_hook(self._pre),
             model.register_forward_hook(self._post)]
         for m in model.modules():
-            if type(m).__name__ == "NAFBlock":
-                self.handles.append(m.register_forward_pre_hook(self._block))
+            cls = type(m).__name__
+            if cls in counted:
+                self.handles.append(m.register_forward_pre_hook(
+                    partial(self._call, cls, counted[cls])))
 
     def _pre(self, module, args):
         if self.counting:
@@ -77,11 +87,10 @@ class Hooks:
     def _post(self, module, args, out):
         self.spans.exit("model.forward")
 
-    def _block(self, module, args):
+    def _call(self, cls, record, module, args):
         if self.tracing:
-            n, c, h, w = args[0].shape
-            self.run.block_calls.append(
-                (n, c, h, w, torch.is_grad_enabled() and module.training))
+            self.run.calls.setdefault(cls, []).append(
+                (*record(args), torch.is_grad_enabled() and module.training))
 
     def remove(self) -> None:
         for h in self.handles:

@@ -20,7 +20,7 @@ from port_bench.harness import trace as tr_mod
 from port_bench.harness.data import image_pool
 from port_bench.harness.record import Hooks, Run, Unit, log
 from port_bench.harness.weights import make_params, subseed
-from port_bench.reference.nafnet import fp8_round, nafnet, param_shapes
+from port_bench.reference.ops import fp8_round
 from port_bench.reference.serve import restore_call
 
 SPANS = ("server.predict", "model.forward", "tiling")
@@ -41,21 +41,22 @@ class Reservoir:
             self.items[j] = item
 
 
-def net_params(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    p = cfg["network_g"]["nafnet_params"]
-    shapes = param_shapes(p["img_channel"], p["width"], p["enc_blk_nums"],
-                          p["middle_blk_num"], p["dec_blk_nums"])
-    return make_params(shapes, seed, "net", device,
-                       residual_scale=cfg["assumed"]["residual_scale"])
+def net_params(cell, seed: int, device) -> Dict[str, torch.Tensor]:
+    """The seeded weights of ``cell``'s network, by its reference's
+    ``param_shapes`` (and ``init``, where it has one)."""
+    cfg, ref = cell.config, cell.reference
+    return make_params(
+        ref.param_shapes(cfg["network_g"]), seed, "net", device,
+        residual_scale=cfg.get("assumed", {}).get("residual_scale"),
+        init=getattr(ref, "init", None))
 
 
-def reference_forward(cfg: dict, params, quant=None):
-    p = cfg["network_g"]["nafnet_params"]
+def reference_forward(cell, params, quant=None):
+    ref, net = cell.reference, cell.config["network_g"]
 
     @torch.no_grad()
     def forward(x: torch.Tensor) -> torch.Tensor:
-        return nafnet(x, params, p["enc_blk_nums"], p["middle_blk_num"],
-                      p["dec_blk_nums"], quant)
+        return ref.forward(x, params, net, quant)
     return forward
 
 
@@ -88,13 +89,13 @@ def run_serve(cell, seed: int, seconds: float, trace: bool, device, t0: float,
 
     cfg, traffic = cell.config, cell.traffic
     server_opt = traffic["server"]
-    run = Run("serve", cfg["dtype"], cfg["network_g"])
+    run = Run("serve", cfg["dtype"], cfg["network_g"], cell.reference)
     pool = image_pool(traffic["pool"], traffic["height"], traffic["width"],
                       seed, device)
     log("inputs made")
     net = define_network(dict(cfg["network_g"], dtype=cfg["dtype"]),
                          device=device)
-    net.load_state_dict(net_params(cfg, seed, device))
+    net.load_state_dict(net_params(cell, seed, device))
     server = RestorationServer(net, device=device, **server_opt)
     spans = tr_mod.Spans(on=False)
     hooks = Hooks(net, run, spans) if trace else None
@@ -170,7 +171,7 @@ def run_serve(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         torch.cuda.empty_cache()
 
     def check() -> Dict[str, float]:
-        fwd = reference_forward(cfg, net_params(cfg, seed, device))
+        fwd = reference_forward(cell, net_params(cell, seed, device))
         return {"out_gap": out_gap(fwd, sample, pool, server_opt, device)}
     return run, len(run.units), failed, check
 
@@ -179,12 +180,12 @@ def control_readings(cell, seed: int, device) -> Dict[str, float]:
     """The control: the reference in fp8 put in the program's place, on
     the calls of a window's first ``sample_calls`` draws, judged as the
     program is."""
-    cfg, traffic = cell.config, cell.traffic
+    traffic = cell.traffic
     pool = image_pool(traffic["pool"], traffic["height"], traffic["width"],
                       seed, device)
-    params = net_params(cfg, seed, device)
+    params = net_params(cell, seed, device)
     rng = np.random.default_rng(subseed(seed, "calls"))
-    ctrl = reference_forward(cfg, params, fp8_round)
+    ctrl = reference_forward(cell, params, fp8_round)
     sample = []
     for _ in range(traffic["sample_calls"]):
         idx = [int(j) for j in rng.choice(len(pool),
@@ -195,5 +196,5 @@ def control_readings(cell, seed: int, device) -> Dict[str, float]:
         outs = [o.permute(1, 2, 0).cpu().numpy()
                 for o in restore_call(ctrl, imgs, traffic["server"])]
         sample.append((idx, outs))
-    fwd = reference_forward(cfg, params)
+    fwd = reference_forward(cell, params)
     return {"out_gap": out_gap(fwd, sample, pool, traffic["server"], device)}

@@ -36,7 +36,7 @@ from port_bench.harness.record import Hooks, Run, Unit, log
 from port_bench.harness.serve import net_params
 from port_bench.harness.weights import make_params, subseed
 from port_bench.reference.loss import loss_weights, newbp_loss, vgg_shapes
-from port_bench.reference.nafnet import fp8_round, nafnet
+from port_bench.reference.ops import fp8_round
 from port_bench.reference.optim import AdamWClip
 
 SPANS = ("train.step", "trainer.data", "model.forward")
@@ -84,10 +84,11 @@ def sync(device) -> None:
 class Step:
     """The Trainer's ``step_fn``, wrapped (see the module docstring)."""
 
-    def __init__(self, trainer, cfg, traffic, run: Run, seed, seconds, trace,
-                 device, t0, tmpdir):
+    def __init__(self, trainer, cell, run: Run, seed, seconds, trace, device,
+                 t0, tmpdir):
+        traffic = cell.traffic
         self.trainer, self.real = trainer, trainer.step_fn
-        self.cfg, self.run, self.seed, self.device = cfg, run, seed, device
+        self.cell, self.run, self.seed, self.device = cell, run, seed, device
         self.seconds, self.t0 = seconds, t0
         self.names = [n for n, _ in trainer.net.named_parameters()]
         self.setup_steps = CHECKED + 1 + traffic["warmup_steps"]
@@ -116,7 +117,7 @@ class Step:
             self.grads = {n: (m / (1.0 - b1)).cpu()
                           for n, m in zip(self.names, state.optimizer.mu)}
         if k == CHECKED + 1:
-            p0 = net_params(self.cfg, self.seed, self.device)
+            p0 = net_params(self.cell, self.seed, self.device)
             self.updates = {
                 n: (p.detach() - p0[n]).cpu()
                 for n, p in self.trainer.net.named_parameters()}
@@ -180,19 +181,21 @@ def run_train(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     from lowlight_image_enhancement_tpu_torch.training.trainer import Trainer
 
     cfg, traffic = cell.config, cell.traffic
-    run = Run("train", cfg["dtype"], cfg["network_g"])
-    run.step_shape = (traffic["batch"], cfg["network_g"]["in_channels"],
+    run = Run("train", cfg["dtype"], cfg["network_g"], cell.reference)
+    run.step_shape = (traffic["batch"],
+                      cell.reference.in_channels(cfg["network_g"]),
                       traffic["patch"], traffic["patch"])
     pairs = make_pairs(traffic, seed, device)
     log(f"{len(pairs)} pairs made")
     paths = write_sid_root(os.path.join(tmpdir, "sid"), pairs)
     log("packs written")
     trainer = Trainer(trainer_opt(cfg, traffic, paths, seed), device=device)
-    trainer.net.load_state_dict(net_params(cfg, seed, device))
-    trainer.loss.perceptual.vgg.load_state_dict(
-        make_params(vgg_shapes(), seed, "vgg", device, he=True))
-    step = Step(trainer, cfg, traffic, run, seed, seconds, trace, device,
-                t0, tmpdir)
+    trainer.net.load_state_dict(net_params(cell, seed, device))
+    perceptual = getattr(trainer.loss, "perceptual", None)
+    if perceptual is not None:
+        perceptual.vgg.load_state_dict(
+            make_params(vgg_shapes(), seed, "vgg", device, he=True))
+    step = Step(trainer, cell, run, seed, seconds, trace, device, t0, tmpdir)
     log("trainer built")
     trainer.step_fn = step
     trainer.train()
@@ -220,7 +223,7 @@ def run_train(cell, seed: int, seconds: float, trace: bool, device, t0: float,
             locs.append([f for f in found if f is not None])
         if missing:
             return {"crops_missing": float(missing)}
-        ref = reference_train(cfg, traffic, seed, pairs, locs, device)
+        ref = reference_train(cell, seed, pairs, locs, device)
         readings = compare(prog, ref)
         readings["crops_missing"] = 0.0
         return readings
@@ -241,7 +244,7 @@ def ref_batch(pairs, locs, patch: int, device) -> Dict[str, torch.Tensor]:
             "lq": to(np.clip(short * ratio[:, None, None, None], 0.0, 1.0))}
 
 
-def reference_train(cfg, traffic, seed, pairs, locs, device, quant=None,
+def reference_train(cell, seed, pairs, locs, device, quant=None,
                     fault: Optional[str] = None) -> dict:
     """The recipe's first steps in plain fp32 PyTorch, in chunks of
     ``ref_chunk`` images whose losses and gradients are averaged (every
@@ -250,15 +253,16 @@ def reference_train(cfg, traffic, seed, pairs, locs, device, quant=None,
     ``half_rows`` steps on the first half of each batch, ``half_loss``
     runs the forward on every row and the loss on the first half, and
     ``climb`` hands the optimizer the gradient's negative."""
-    p = cfg["network_g"]["nafnet_params"]
-    params = net_params(cfg, seed, device)
+    cfg, traffic, ref = cell.config, cell.traffic, cell.reference
+    params = net_params(cell, seed, device)
     for t in params.values():
         t.requires_grad_(True)
     names = list(params)
     leaves = [params[n] for n in names]
     p0 = {n: t.detach().clone() for n, t in params.items()}
-    vgg = make_params(vgg_shapes(), seed, "vgg", device, he=True)
     weights = loss_weights(cfg["train"])
+    vgg = make_params(vgg_shapes(), seed, "vgg", device, he=True) \
+        if weights.get("perc") else None
     opt = AdamWClip(leaves, cfg["train"])
     chunk = traffic["ref_chunk"]
     out = {"losses": [], "raw_norms": {}, "grads": {}, "output": [],
@@ -272,8 +276,7 @@ def reference_train(cfg, traffic, seed, pairs, locs, device, quant=None,
         for c in range(0, len(loc), chunk):
             part = loc[c:c + chunk]
             b = ref_batch(pairs, part, traffic["patch"], device)
-            y = nafnet(b["lq"], params, p["enc_blk_nums"],
-                       p["middle_blk_num"], p["dec_blk_nums"], quant)
+            y = ref.forward(b["lq"], params, cfg["network_g"], quant)
             if k == 0:
                 out["output"].append(y.detach().cpu())
                 out["lq"].append(b["lq"].cpu())
@@ -396,14 +399,12 @@ def control_readings(cell, seed: int, device) -> Dict[str, Dict[str, float]]:
     reference in fp8 (the control) and the reference with each fault of
     ``reference_train``, each judged against the fp32 reference as the
     program is (their crops are known, so none is missing)."""
-    cfg, traffic = cell.config, cell.traffic
     pairs, locs = control_pairs_locs(cell, seed, device)
-    ref = reference_train(cfg, traffic, seed, pairs, locs, device)
+    ref = reference_train(cell, seed, pairs, locs, device)
     out = {}
     for name, kw in STAND_INS:
         log(name)
-        stand_in = reference_train(cfg, traffic, seed, pairs, locs, device,
-                                   **kw)
+        stand_in = reference_train(cell, seed, pairs, locs, device, **kw)
         out[name] = dict(compare(stand_in, ref), crops_missing=0.0)
         del stand_in
     return out

@@ -23,7 +23,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
-from port_bench.reference.nafnet import Quant, conv
+from port_bench.reference.ops import Quant, conv
 
 VGG19_STAGES = ((64, 2), (128, 2), (256, 4), (512, 4), (512, 4))
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

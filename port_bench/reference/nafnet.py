@@ -17,20 +17,26 @@ NAFNet's names (``intro.weight``, ``encoders.0.1.conv2.bias``,
 
 ``quant`` (optional) rounds every tensor the network stores between its
 operations (each convolution's operands and result, the gated products,
-the residual stream, the output): the lower-precision control of
-``port_bench`` passes an fp8 rounding, the precision below the bf16 in
-which the program keeps its activations.
+the residual stream, the output): see ``port_bench.reference.ops``.
+
+The module is a configuration's ``reference`` (``port_bench/configs/
+<name>.json``) for the network types that build a plain NAFNet from
+``network_g["nafnet_params"]`` (``NewBPNAFNet``). The harness reads it
+through ``param_shapes``, ``forward``, ``in_channels`` and ``counted``
+(the interface: ``port_bench/harness/spec.py``); ``small`` narrows a
+``network_g`` for the CPU tests.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from port_bench.reference.ops import Quant, conv, keep, layer_norm
+
 Params = Dict[str, torch.Tensor]
-Quant = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
 def block_names(width: int, enc: Sequence[int], middle: int,
@@ -47,8 +53,8 @@ def block_names(width: int, enc: Sequence[int], middle: int,
     return out
 
 
-def param_shapes(img_channel: int, width: int, enc: Sequence[int],
-                 middle: int, dec: Sequence[int]) -> Dict[str, tuple]:
+def nafnet_param_shapes(img_channel: int, width: int, enc: Sequence[int],
+                        middle: int, dec: Sequence[int]) -> Dict[str, tuple]:
     """Every parameter's name and shape, as the reference NAFNet names
     them."""
     shapes: Dict[str, tuple] = {
@@ -76,27 +82,6 @@ def param_shapes(img_channel: int, width: int, enc: Sequence[int],
                 ("beta", (1, c, 1, 1)), ("gamma", (1, c, 1, 1))):
             shapes[f"{prefix}.{key}"] = shape
     return shapes
-
-
-def keep(x: torch.Tensor, quant: Quant) -> torch.Tensor:
-    """``x`` as it is stored between operations: rounded by ``quant``."""
-    return x if quant is None else quant(x)
-
-
-def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-         quant: Quant = None, **kw) -> torch.Tensor:
-    if quant is not None:
-        x, w = quant(x), quant(w)
-    return keep(F.conv2d(x, w, b, **kw), quant)
-
-
-def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    mu = x.mean(1, keepdim=True)
-    xc = x - mu
-    var = (xc * xc).mean(1, keepdim=True)
-    return xc * torch.rsqrt(var + eps) * w.view(1, -1, 1, 1) \
-        + b.view(1, -1, 1, 1)
 
 
 def gate(x: torch.Tensor) -> torch.Tensor:
@@ -149,11 +134,38 @@ def nafnet(inp: torch.Tensor, p: Params, enc: Sequence[int], middle: int,
     return x[:, :, :h, :w]
 
 
-def fp8_round(x: torch.Tensor) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3 under one per-tensor scale (amax to
-    448), returned in ``x``'s dtype; the gradient passes straight
-    through."""
-    amax = x.detach().abs().amax().float().clamp(min=1e-12)
-    scale = amax / 448.0
-    q = (x.detach().float() / scale).to(torch.float8_e4m3fn).float() * scale
-    return x + (q.to(x.dtype) - x).detach()
+# The harness's interface (``port_bench/harness/spec.py``).
+
+def param_shapes(network_g: Mapping[str, Any]) -> Dict[str, tuple]:
+    """The port network's ``state_dict`` keys and shapes, in draw order."""
+    p = network_g["nafnet_params"]
+    return nafnet_param_shapes(p["img_channel"], p["width"],
+                               p["enc_blk_nums"], p["middle_blk_num"],
+                               p["dec_blk_nums"])
+
+
+def forward(x: torch.Tensor, params: Params, network_g: Mapping[str, Any],
+            quant: Quant = None) -> torch.Tensor:
+    p = network_g["nafnet_params"]
+    return nafnet(x, params, p["enc_blk_nums"], p["middle_blk_num"],
+                  p["dec_blk_nums"], quant)
+
+
+def in_channels(network_g: Mapping[str, Any]) -> int:
+    return int(network_g["nafnet_params"]["img_channel"])
+
+
+def block_shape(args: tuple) -> Tuple[int, ...]:
+    """``(n, c, h, w)`` of a NAFBlock call's input."""
+    return tuple(args[0].shape)
+
+
+# the traced calls of each port module class, read by nafblock_roofline.*
+counted = {"NAFBlock": block_shape}
+
+
+def small(network_g: Mapping[str, Any]) -> Dict[str, Any]:
+    """``network_g`` narrowed and shallowed to a size a CPU test holds."""
+    return dict(network_g, nafnet_params=dict(
+        network_g["nafnet_params"], width=8, enc_blk_nums=[1, 1],
+        middle_blk_num=1, dec_blk_nums=[1, 1]))

@@ -4,7 +4,8 @@
 the clip scales every gradient by ``max_norm / |g|`` when ``|g| >=
 max_norm``; AdamW keeps ``m``, ``v``, adds ``eps`` outside the square
 root and decays every parameter; the learning rate is read at the number
-of updates already applied, from the true cosine annealing schedule.
+of updates already applied, from the true cosine annealing schedule,
+times ``min(updates / warmup_iter, 1)`` where the recipe warms up.
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ class AdamWClip:
         if sched["type"] not in ("TrueCosineAnnealingLR",
                                  "CosineAnnealingLR"):
             raise ValueError("the reference schedule is cosine annealing")
-        if int(train_opt.get("accum_steps", 1)) != 1 or int(
-                train_opt.get("warmup_iter", -1)) > 0:
-            raise ValueError("no accumulation or warm-up in the reference")
+        if int(train_opt.get("accum_steps", 1)) != 1:
+            raise ValueError("no gradient accumulation in the reference")
+        self.warmup = int(train_opt.get("warmup_iter", -1))
         self.params = params
         self.lr = float(optim["lr"])
         self.b1, self.b2 = (float(b) for b in optim.get("betas",
@@ -48,6 +49,12 @@ class AdamWClip:
         self.v = [torch.zeros_like(p) for p in params]
         self.count = 0
 
+    def rate(self, updates: int) -> float:
+        """The learning rate of the update after ``updates`` updates."""
+        lr = cosine_lr(updates, self.lr, self.t_max, self.eta_min)
+        return lr * min(updates / self.warmup, 1.0) if self.warmup > 0 \
+            else lr
+
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One update; returns the clipped gradients it applied."""
@@ -57,7 +64,7 @@ class AdamWClip:
             if float(norm) >= self.max_norm:
                 for g in grads:
                     g.mul_(self.max_norm / norm)
-        lr = cosine_lr(self.count, self.lr, self.t_max, self.eta_min)
+        lr = self.rate(self.count)
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count

@@ -31,13 +31,16 @@ def cuda():
 
 def small(cell):
     """A copy of ``cell`` at a size a CPU test run holds: the network
-    narrowed and shallowed, the images and crops shrunk, the traffic's
-    counts cut; everything else (kinds, server settings, limits) kept."""
+    narrowed and shallowed by its reference's ``small``, the images and
+    crops shrunk, the traffic's counts cut; everything else (kinds, server
+    settings, limits) kept."""
     import copy
+    import dataclasses
 
-    cell = copy.deepcopy(cell)
-    cell.config["network_g"]["nafnet_params"].update(
-        width=8, enc_blk_nums=[1, 1], middle_blk_num=1, dec_blk_nums=[1, 1])
+    reference = cell.reference
+    cell = copy.deepcopy(dataclasses.replace(cell, reference=None))
+    cell.reference = reference
+    cell.config["network_g"] = reference.small(cell.config["network_g"])
     t = cell.traffic
     if t["kind"] == "serve":
         if t["height"] > t["server"]["max_bucket"]:

@@ -39,20 +39,20 @@ def test_train_step_ms_is_window_over_steps():
 
 
 def test_block_params_match_the_reference_block():
-    from port_bench.reference.nafnet import param_shapes
+    from port_bench.reference.nafnet import nafnet_param_shapes
 
-    shapes = param_shapes(3, 32, [1], 0, [1])
+    shapes = nafnet_param_shapes(3, 32, [1], 0, [1])
     block = sum(math.prod(s) for k, s in shapes.items()
                 if k.startswith("encoders.0.0."))
     assert block == counts.block_params(32)
 
 
 def test_flop_counter_agrees_with_a_hand_count_of_one_block():
-    from port_bench.reference.nafnet import nafblock, param_shapes
+    from port_bench.reference.nafnet import nafblock, nafnet_param_shapes
 
     n, c, h, w = 2, 32, 8, 12
     shapes = {k[len("encoders.0.0."):]: s
-              for k, s in param_shapes(3, c, [1], 0, [1]).items()
+              for k, s in nafnet_param_shapes(3, c, [1], 0, [1]).items()
               if k.startswith("encoders.0.0.")}
     p = {f"b.{k}": torch.empty(s, device="meta") for k, s in shapes.items()}
     counter = torch.utils.flop_counter.FlopCounterMode(display=False)
@@ -79,10 +79,14 @@ def test_roofline_count_does_not_depend_on_the_route(c):
         f1 / 989e12, b1 / 3.35e12)
 
 
+NAFNET = {"nafnet_params": {"img_channel": 3, "width": 8, "enc_blk_nums": [1],
+                            "middle_blk_num": 1, "dec_blk_nums": [1]}}
+
+
 def test_network_flops_on_meta_are_the_blocks_and_the_convs():
-    net = {"nafnet_params": {"width": 8, "enc_blk_nums": [1], "middle_blk_num": 1,
-                             "dec_blk_nums": [1]}}
-    total = counts.net_flops((1, 3, 16, 16), net)
+    from port_bench.reference import nafnet
+
+    total = counts.net_flops((1, 3, 16, 16), NAFNET, nafnet)
     blocks = (2 * counts.block_work(1, 8, 16, 16, "float32")[0]
               + counts.block_work(1, 16, 8, 8, "float32")[0])
     convs = 2 * (16 * 16 * (8 * 3 * 9 + 3 * 8 * 9)      # intro, ending
@@ -92,11 +96,12 @@ def test_network_flops_on_meta_are_the_blocks_and_the_convs():
 
 
 def test_mfu_counts_three_forwards_a_step():
-    net = {"nafnet_params": {"width": 8, "enc_blk_nums": [1], "middle_blk_num": 1,
-                             "dec_blk_nums": [1]}}
-    run = Run("train", "bfloat16", net, units=[Unit(0, 1)] * 4)
+    from port_bench.reference import nafnet
+
+    run = Run("train", "bfloat16", NAFNET, nafnet, units=[Unit(0, 1)] * 4)
     run.window_s, run.step_shape = 2.0, (2, 3, 16, 16)
-    want = 100 * 3 * counts.net_flops((2, 3, 16, 16), net) * 4 / 2.0 / 989e12
+    want = 100 * 3 * counts.net_flops((2, 3, 16, 16), NAFNET, nafnet) * 4 \
+        / 2.0 / 989e12
     assert readers.mfu(run) == pytest.approx(want)
 
 
@@ -145,3 +150,24 @@ def test_trace_reading_of_a_known_chrome_trace(tmp_path):
     assert b["idle_gaps"][0] == ["server.predict", pytest.approx(200e-6)]
     assert [g[1] for g in b["idle_gaps"]] == pytest.approx(
         [200e-6, 150e-6, 100e-6, 100e-6])
+
+
+@pytest.mark.parametrize("warmup", [-1, 5000])
+def test_reference_learning_rate_follows_the_ports_schedule(warmup):
+    """The reference optimizer's rate of each of the first updates, with
+    and without the linear warm-up of a recipe such as SwinIR's."""
+    from lowlight_image_enhancement_tpu_torch.training.schedules import (
+        make_schedule,
+    )
+    from port_bench.reference.optim import AdamWClip
+
+    train = {"warmup_iter": warmup,
+             "optim_g": {"type": "AdamW", "lr": 2e-4},
+             "scheduler": {"type": "TrueCosineAnnealingLR", "T_max": 300000,
+                           "eta_min": 1e-6}}
+    ref = AdamWClip([], train)
+    port = make_schedule(train["scheduler"], 2e-4, warmup)
+    for k in (0, 1, 2, 3, 5000, 5001):
+        assert ref.rate(k) == pytest.approx(float(port(k)), rel=1e-12,
+                                            abs=1e-18)
+    assert (ref.rate(0) == 0.0) is (warmup > 0)

@@ -47,7 +47,8 @@ TRAIN = {"spans": spans(
     ("train_step.backward", 2, 0.060), ("train_step.optimizer", 2, 0.130),
     ("trainer.step", 2, 0.320)),
     "counters": {"native_loader.px_cropped": 3 * 384 * 384,
-                 "native_loader.px_inflated": 3 * 448 * 4256}}
+                 "native_loader.px_inflated": 3 * 448 * 4256,
+                 "loader.items": 8, "loader.items_ready": 6}}
 EXPECTED = {
     "serve_stage_ms": (SERVE, "serve", (10 + 4 + 6 + 10) / 2),
     "serve_readback_ms": (SERVE, "serve", (30 + 2 + 20) / 2),
@@ -56,6 +57,7 @@ EXPECTED = {
     "data_decode_ms.train": (TRAIN, "train", (50 + 30 + 40) / 2),
     "data_useful_decode.train": (TRAIN, "train",
                                  100 * 384 * 384 / (448 * 4256)),
+    "data_ready_share.train": (TRAIN, "train", 100 * 6 / 8),
     "step_forward_ms.train": (TRAIN, "train", (100 + 120) / 2),
     "step_backward_ms.train": (TRAIN, "train", (40 + 60) / 2),
     "step_optimizer_ms.train": (TRAIN, "train", (150 + 130) / 2),

@@ -8,7 +8,7 @@ import torch
 from port_bench.harness import data
 from port_bench.harness.serve import Reservoir
 from port_bench.harness.weights import make_params, subseed
-from port_bench.reference.nafnet import param_shapes
+from port_bench.reference.nafnet import nafnet_param_shapes
 from port_bench.reference.serve import bucket_dim, tile_starts
 
 SEED = 2 ** 31 + 12345
@@ -69,10 +69,10 @@ def test_packs_read_back_through_the_port(tmp_path):
 
 
 def test_weights_are_deterministic_and_scaled_by_kind():
-    shapes = param_shapes(3, 8, [1], 1, [1])
-    a = make_params(shapes, SEED, "net", "cpu")
-    b = make_params(shapes, SEED, "net", "cpu")
-    c = make_params(shapes, SEED + 1, "net", "cpu")
+    shapes = nafnet_param_shapes(3, 8, [1], 1, [1])
+    a = make_params(shapes, SEED, "net", "cpu", residual_scale=0.1)
+    b = make_params(shapes, SEED, "net", "cpu", residual_scale=0.1)
+    c = make_params(shapes, SEED + 1, "net", "cpu", residual_scale=0.1)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["intro.weight"], c["intro.weight"])
     bound = 1 / (3 * 9) ** 0.5
