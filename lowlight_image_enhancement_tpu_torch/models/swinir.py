@@ -28,6 +28,15 @@ shape, one cache for all blocks of a ``SwinIR``: the mask of a 256^2
 image is 16 MB, and copying it from the host at every shifted block took
 25 ms of a training step on an H100. Parameters stay fp32; ``dtype`` is
 the activation dtype.
+
+Under a profiler (``utils/profiling.py``) each ``WindowAttention`` call
+records the span ``swinir.attention`` (from the qkv linear's output to the
+core's output before ``proj``) and, where it will run backward, the span
+``swinir.attention_bwd`` (from the arrival of that output's gradient to
+the completion of the qkv output's, opened and closed by tensor hooks
+that the forward registers only while recording); on a CUDA device both
+carry the card's time. It counts ``swinir.windows`` (windows attended)
+and ``swinir.shifted_windows`` (those of shifted blocks).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lowlight_image_enhancement_tpu_torch.models.nafnet import _conv
+from lowlight_image_enhancement_tpu_torch.utils import profiling
 from lowlight_image_enhancement_tpu_torch.utils.registry import ARCH_REGISTRY
 
 # official SwinIR input normalisation for 3-channel input
@@ -106,6 +116,24 @@ def _nhwc_conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return _conv(m, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def _time_backward(qkv: torch.Tensor, out: torch.Tensor) -> None:
+    """Record ``swinir.attention_bwd`` over the backward from ``out``'s
+    gradient to ``qkv``'s (hooks registered while recording)."""
+    unit, device = profiling.current_unit(), out.device
+    opened = []
+
+    def start(grad):
+        opened.append(profiling.open_span("swinir.attention_bwd", unit,
+                                          device))
+
+    def end(grad):
+        if opened:
+            profiling.close_span(opened.pop())
+
+    out.register_hook(start)
+    qkv.register_hook(end)
+
+
 class _Constants:
     """The derived index and mask tensors, per device and padded shape."""
 
@@ -139,11 +167,26 @@ class WindowAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B_, n, C] with n = ws*ws; mask: [nW, n, n] or None."""
-        b, n, c = x.shape
-        dt = x.dtype
+        b = x.shape[0]
+        qkv = _linear(self.qkv, x)
+        with profiling.span("swinir.attention", device=x.device):
+            out = self._core(qkv, mask)
+        if profiling.recording():
+            profiling.count("swinir.windows", b)
+            if mask is not None:
+                profiling.count("swinir.shifted_windows", b)
+            if out.requires_grad and qkv.requires_grad:
+                _time_backward(qkv, out)
+        return _linear(self.proj, out)
+
+    def _core(self, qkv: torch.Tensor,
+              mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """qkv: [B_, n, 3C] -> the heads' weighted sums, [B_, n, C]."""
+        b, n, c3 = qkv.shape
+        c, dt = c3 // 3, qkv.dtype
         heads = self.num_heads
         head_dim = c // heads
-        qkv = _linear(self.qkv, x).reshape(b, n, 3, heads, head_dim)
+        qkv = qkv.reshape(b, n, 3, heads, head_dim)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         # fp32 logits of the activation-dtype operands
         attn = torch.matmul((q * head_dim ** -0.5).float(),
@@ -151,7 +194,7 @@ class WindowAttention(nn.Module):
         ws = self.window_size
         idx = self.consts.get(
             ("index", ws), lambda: relative_position_index(ws).reshape(-1),
-            x.device)
+            qkv.device)
         bias = self.relative_position_bias_table[idx].reshape(n, n, heads)
         attn = attn + bias.permute(2, 0, 1)[None]
         if mask is not None:
@@ -160,8 +203,7 @@ class WindowAttention(nn.Module):
             attn = attn.reshape(b, heads, n, n)
         attn = torch.softmax(attn, dim=-1).to(dt)
         out = torch.matmul(attn.float(), v.float())
-        out = out.transpose(1, 2).reshape(b, n, c).to(dt)
-        return _linear(self.proj, out)
+        return out.transpose(1, 2).reshape(b, n, c).to(dt)
 
 
 class _Mlp(nn.Module):

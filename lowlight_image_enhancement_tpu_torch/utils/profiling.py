@@ -36,6 +36,14 @@ profiled thread submitted (:func:`carried`): their spans carry their
 thread id, and are in the list, not in the Chrome trace.
 Worker processes (``data/grain_pipeline.py``) record into their own
 copy of this module, which the parent never sees.
+
+A span given a CUDA ``device`` also times the card: a pair of
+``torch.cuda.Event(enable_timing=True)`` recorded on the device's current
+stream at its edges, with no host sync. The record's ``device_s`` is
+resolved when :func:`record` is read (it waits for the span's last
+event); on the CPU, and for spans without a device, it is None. A span
+whose edges lie in two autograd hooks (a backward) is opened and closed
+by :func:`open_span` / :func:`close_span`.
 """
 
 from __future__ import annotations
@@ -65,9 +73,12 @@ class SpanRecord(NamedTuple):
     thread: int
     t0: float             # time.perf_counter(), s
     t1: float
+    device_s: Optional[float] = None   # the card's time, CUDA spans only
 
 
 _spans: List[SpanRecord] = []
+# (index in _spans, start event, end event) of CUDA spans not yet resolved
+_pending: List[tuple] = []
 _counters: Dict[str, int] = {}
 _lock = threading.Lock()
 _local = threading.local()
@@ -87,34 +98,50 @@ _NO_SPAN = _NoSpan()
 
 
 class _Span:
-    __slots__ = ("name", "unit", "parent", "rf", "t0")
+    __slots__ = ("name", "unit", "parent", "rf", "t0", "events")
 
-    def __init__(self, name: str, unit: Optional[int]):
+    def __init__(self, name: str, unit: Optional[int], device=None):
         self.name, self.unit = name, unit
+        self.events = None
+        if device is not None and torch.device(device).type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True),
+                           torch.cuda.current_stream(device))
+
+    def open(self, parent: Optional["_Span"]) -> None:
+        self.parent = parent.name if parent is not None else None
+        if self.unit is None and parent is not None:
+            self.unit = parent.unit
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        if self.events is not None:
+            self.events[0].record(self.events[2])
+        self.t0 = time.perf_counter()
+
+    def close(self, *exc) -> None:
+        t1 = time.perf_counter()
+        if self.events is not None:
+            self.events[1].record(self.events[2])
+        self.rf.__exit__(*exc)
+        rec = SpanRecord(self.name, self.parent, self.unit,
+                         threading.get_ident(), self.t0, t1)
+        with _lock:
+            if len(_spans) < MAX_SPANS:
+                if self.events is not None:
+                    _pending.append((len(_spans),) + self.events[:2])
+                _spans.append(rec)
 
     def __enter__(self):
         stack = getattr(_local, "stack", None)
         if stack is None:
             stack = _local.stack = []
-        up = stack[-1] if stack else None
-        self.parent = up.name if up is not None else None
-        if self.unit is None and up is not None:
-            self.unit = up.unit
+        self.open(stack[-1] if stack else None)
         stack.append(self)
-        self.rf = torch.profiler.record_function(self.name)
-        self.rf.__enter__()
-        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter()
-        self.rf.__exit__(*exc)
         _local.stack.pop()
-        rec = SpanRecord(self.name, self.parent, self.unit,
-                         threading.get_ident(), self.t0, t1)
-        with _lock:
-            if len(_spans) < MAX_SPANS:
-                _spans.append(rec)
+        self.close(*exc)
         return False
 
 
@@ -143,11 +170,34 @@ def carried(fn: Callable) -> Callable:
     return run
 
 
-def span(name: str, unit: Optional[int] = None):
-    """A named host-time span, recorded only while a profiler runs."""
+def span(name: str, unit: Optional[int] = None, device=None):
+    """A named host-time span, recorded only while a profiler runs; with a
+    CUDA ``device``, its device time too."""
     if not recording():
         return _NO_SPAN
-    return _Span(name, unit)
+    return _Span(name, unit, device)
+
+
+def open_span(name: str, unit: Optional[int] = None, device=None) -> _Span:
+    """Open a span now, outside any ``with`` block: for edges that lie in
+    two callbacks of one thread (autograd hooks). Its parent is the
+    thread's innermost open ``with`` span; it is not one itself. The
+    caller has checked :func:`recording`."""
+    sp = _Span(name, unit, device)
+    stack = getattr(_local, "stack", None)
+    sp.open(stack[-1] if stack else None)
+    return sp
+
+
+def close_span(sp: _Span) -> None:
+    """Close a span of :func:`open_span` and record it."""
+    sp.close(None, None, None)
+
+
+def current_unit() -> Optional[int]:
+    """The unit of this thread's innermost open span, else None."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1].unit if stack else None
 
 
 def count(name: str, n: int) -> None:
@@ -160,8 +210,14 @@ def count(name: str, n: int) -> None:
 
 def record() -> Dict[str, object]:
     """A snapshot: ``spans`` (a list of :class:`SpanRecord`, in the order
-    they closed; at most ``MAX_SPANS``) and ``counters``."""
+    they closed; at most ``MAX_SPANS``) and ``counters``. The device time
+    of CUDA spans is resolved here, waiting for their last events."""
     with _lock:
+        for i, start, end in _pending:
+            end.synchronize()
+            _spans[i] = _spans[i]._replace(
+                device_s=start.elapsed_time(end) / 1e3)
+        _pending.clear()
         return {"spans": list(_spans), "counters": dict(_counters)}
 
 
@@ -169,6 +225,7 @@ def reset() -> None:
     """Forget every recorded span and counter."""
     with _lock:
         _spans.clear()
+        _pending.clear()
         _counters.clear()
 
 
