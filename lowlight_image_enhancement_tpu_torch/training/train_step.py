@@ -15,6 +15,10 @@ Counterpart of ``lowlight_image_enhancement_tpu/training/train_step.py``
   network and ``log_sigma`` grads together; AdamW adds ``ADAM_EPS``
   outside the square root and decays every parameter; the schedule is
   read at the number of updates already applied;
+- the update is multi-tensor: every step of it is one ``torch._foreach_*``
+  op over each (device, dtype) group of leaves, with optax's constants in
+  optax's order, so a step dispatches about 20 ops however many leaves
+  the network has;
 - mixed precision is the network's activation dtype (bf16), no scaler.
 
 The port updates parameters and optimizer moments in place (PyTorch's
@@ -38,7 +42,7 @@ from lowlight_image_enhancement_tpu_torch.parallel.mesh import (  # noqa: F401  
     put_replicated,
 )
 from lowlight_image_enhancement_tpu_torch.training.augment import mixup_batch
-from lowlight_image_enhancement_tpu_torch.utils.profiling import span
+from lowlight_image_enhancement_tpu_torch.utils.profiling import count, span
 
 Batch = Mapping[str, torch.Tensor]
 # Adam's denominator epsilon, added outside the square root (optax's default)
@@ -48,8 +52,24 @@ STATE_KEYS = ("mu", "nu", "acc")
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over every element of every tensor."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    """``sqrt(sum of squares)`` over every element of every tensor, in fp32:
+    one ``torch._foreach_norm`` over the leaves, then the norm of their
+    norms."""
+    tensors = [_fp32(t) for t in tensors]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def _fp32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _groups(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The indices of ``tensors`` by (device, dtype), in order of first
+    appearance: the lists that one multi-tensor op takes whole."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.device, t.dtype), []).append(i)
+    return list(groups.values())
 
 
 class ChainOptimizer:
@@ -61,7 +81,12 @@ class ChainOptimizer:
     place (every ``accum_steps``-th call, with the running mean of the
     last ``accum_steps`` gradients). After :meth:`shard_` (ZeRO-1,
     ``parallel/zero.py``) the moments and the accumulator hold this rank's
-    slices only."""
+    slices only.
+
+    Each update runs one ``torch._foreach_*`` op per step of the arithmetic
+    over each group of leaves that share a device and a dtype (fixed at
+    :meth:`init`). :meth:`grad_norm` hands its norm to the :meth:`step` that
+    follows on the same gradient list, so a train step computes one."""
 
     def __init__(self, learning_rate, optim_type: str = "AdamW",
                  betas=(0.9, 0.999), weight_decay: float = 0.01,
@@ -79,9 +104,11 @@ class ChainOptimizer:
         self.accum_steps = int(accum_steps)
         self.params: List[torch.Tensor] = []
         self.zero = None
+        self._known_norm = None
 
     def init(self, params) -> "ChainOptimizer":
         self.params = list(params)
+        self.groups = _groups(self.params)
         zeros = lambda: [torch.zeros_like(p) for p in self.params]
         self.count = 0        # updates applied (the schedule's step)
         self.mini_step = 0
@@ -168,6 +195,14 @@ class ChainOptimizer:
                    for t in (getattr(self, k) or []))
 
     # -- update ---------------------------------------------------------
+    def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """:func:`global_norm` of the full gradient ``grads``. An
+        unaccumulated :meth:`step` on this same list clips by it and
+        computes no norm of its own."""
+        norm = global_norm(grads)
+        self._known_norm = (grads, norm)
+        return norm
+
     def _norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of the gradient whose (local) leaves are
         ``grads``: under ZeRO-1 the sharded leaves' squares are summed
@@ -177,8 +212,8 @@ class ChainOptimizer:
         mesh, dims = self.zero
 
         def sq(ts):
-            return sum(((t.float() * t.float()).sum() for t in ts),
-                       torch.zeros((), device=grads[0].device))
+            return (global_norm(ts).square() if ts
+                    else torch.zeros((), device=grads[0].device))
 
         part = sq([g for g, d in zip(grads, dims) if d is not None])
         dist.all_reduce(part, group=mesh.group)
@@ -187,52 +222,73 @@ class ChainOptimizer:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        grads = [g.float() for g in grads]
+        known, self._known_norm = self._known_norm, None
         if self.acc is None:
             # the clip reads the full gradient, then each rank its slices
-            g_norm = (global_norm(grads) if self.max_norm is not None
-                      else None)
-            self._apply(self._local(grads), g_norm)
+            g_norm = None
+            if self.max_norm is not None:
+                g_norm = (known[1] if known is not None and known[0] is grads
+                          else global_norm(grads))
+            self._apply(self._local([_fp32(g) for g in grads]), g_norm)
             return
-        grads = self._local(grads)
+        grads = self._local([_fp32(g) for g in grads])
         n = self.mini_step
-        for a, g in zip(self.acc, grads):
-            a.add_((g - a) / (n + 1))
+        for idx in self.groups:
+            acc = [self.acc[i] for i in idx]
+            delta = torch._foreach_sub([grads[i] for i in idx], acc)
+            torch._foreach_div_(delta, n + 1)
+            torch._foreach_add_(acc, delta)
         self.mini_step = (n + 1) % self.accum_steps
         if self.mini_step:
             return
-        grads = [a.clone() for a in self.acc]
-        for a in self.acc:
-            a.zero_()
-        self._apply(grads, self._norm(grads) if self.max_norm is not None
-                    else None)
+        # the mean is applied in place of a copy, then the accumulator zeroed
+        self._apply(self.acc, self._norm(self.acc)
+                    if self.max_norm is not None else None)
+        torch._foreach_zero_(self.acc)
 
     def _apply(self, grads: List[torch.Tensor],
                g_norm: Optional[torch.Tensor]) -> None:
+        lr = float(self.schedule(self.count))
+        self.count += 1
+        params = self._local(self.params)
+        count("train_step.optimizer_leaves", len(params))
+        count("train_step.optimizer_groups", len(self.groups))
         if g_norm is not None:
             scale = torch.where(g_norm < self.max_norm,
                                 torch.ones_like(g_norm),
                                 self.max_norm / g_norm)
-            for g in grads:
-                g.mul_(scale)
-        lr = float(self.schedule(self.count))
-        self.count += 1
-        params = self._local(self.params)
-        if self.optim_type == "SGD":
-            for p, g in zip(params, grads):
-                p.add_(g, alpha=-lr)
-        else:
-            # bias corrections in fp32, as optax computes 1 - decay**count
-            one = np.float32(1.0)
-            c1 = float(one - np.float32(self.b1) ** np.float32(self.count))
-            c2 = float(one - np.float32(self.b2) ** np.float32(self.count))
-            for p, g, m, v in zip(params, grads, self.mu, self.nu):
-                m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-                v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-                u = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
-                if self.weight_decay:
-                    u = u + self.weight_decay * p
-                p.add_(u, alpha=-lr)
+        # bias corrections in fp32, as optax computes 1 - decay**count
+        one = np.float32(1.0)
+        c1 = float(one - np.float32(self.b1) ** np.float32(self.count))
+        c2 = float(one - np.float32(self.b2) ** np.float32(self.count))
+        for idx in self.groups:
+            p, g = [params[i] for i in idx], [grads[i] for i in idx]
+            if g_norm is not None:
+                torch._foreach_mul_(g, scale)
+            if self.optim_type == "SGD":
+                torch._foreach_add_(p, g, alpha=-lr)
+                continue
+            m, v = [self.mu[i] for i in idx], [self.nu[i] for i in idx]
+            # the decays as CPU scalar tensors of at least fp32: an in-place
+            # multi-tensor multiply by them rounds as ``m.mul_(b1)`` does
+            # (the CPU's by a Python float rounds b1 to a bf16 leaf's dtype)
+            kind = torch.promote_types(p[0].dtype, torch.float32)
+            b1, b2 = (torch.tensor(b, dtype=kind) for b in (self.b1, self.b2))
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, g, alpha=1.0 - self.b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, g, g, value=1.0 - self.b2)
+            # u = (m / c1) / (sqrt(v / c2) + eps) [+ wd * p]
+            u = torch._foreach_div(m, c1)
+            den = torch._foreach_div(v, c2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, ADAM_EPS)
+            torch._foreach_div_(u, den)
+            del den
+            if self.weight_decay:
+                torch._foreach_add_(u, torch._foreach_mul(
+                    p, self.weight_decay))
+            torch._foreach_add_(p, u, alpha=-lr)
         if self.zero is not None:
             self._gather(params, self.params)
 
@@ -333,7 +389,9 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
     ``train_step.forward`` (mixup, the network, the loss terms),
     ``train_step.backward`` (``autograd.grad``, the zero fill and, with
     ``mesh``, the all-reduces) and ``train_step.optimizer`` (``grad_norm``,
-    the clip and the update)."""
+    the clip and the update), and once per applied update the counters
+    ``train_step.optimizer_leaves`` and ``train_step.optimizer_groups``
+    (the leaves updated; the multi-tensor groups they went through)."""
     if mesh is not None and not mesh.distributed and mesh.size > 1:
         raise ValueError(
             f"a training mesh of {mesh.size} devices in one process: launch "
@@ -373,7 +431,7 @@ def make_train_step(net: nn.Module, loss, optimizer: ChainOptimizer,
                 all_reduce_mean_(grads, mesh)
                 logs = _mean_logs(logs, mesh)
         with span("train_step.optimizer"):
-            logs["grad_norm"] = global_norm(grads).detach()
+            logs["grad_norm"] = state.optimizer.grad_norm(grads).detach()
             state.optimizer.step(grads)
             state.step += 1
         return state, logs

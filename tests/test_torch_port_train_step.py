@@ -1,7 +1,9 @@
 """The port's training core held against the JAX package: schedules,
 the optimizer chain (clip 0.01 -> AdamW, with optax.MultiSteps), and
 three train steps of a small ``NewBPNAFNet`` with the self-contained
-flagship loss from the same bridged weights, fp32.
+flagship loss from the same bridged weights, fp32. The multi-tensor
+update is held to every bit against the per-leaf loop it replaced, and
+its dispatched op count against the number of leaves.
 
 Tolerances: schedules rtol 1e-5, atol 1e-7 of the base lr (JAX computes
 in fp32, so a cosine near eta_min carries the base lr's rounding); one optimizer
@@ -11,6 +13,8 @@ atol 1e-4 * max(1, max|g|) per leaf, parameters after three steps atol
 1e-4 (0.1 * lr).
 """
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,7 @@ import optax
 import pytest
 import torch
 import yaml
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from lowlight_image_enhancement_tpu.losses.components import (
     PerceptualLoss as JaxPerceptualLoss,
@@ -37,6 +42,7 @@ from lowlight_image_enhancement_tpu_torch.training import train_step as ts
 from lowlight_image_enhancement_tpu_torch.training.trainer import (
     build_hybrid_loss,
 )
+from lowlight_image_enhancement_tpu_torch.utils import profiling
 from lowlight_image_enhancement_tpu_torch.weights import (
     params_from_jax,
     vgg_params_from_jax,
@@ -232,3 +238,181 @@ def test_train_step_rules():
     # mixup (training/augment.py) mixes the batch before the step
     state, logs = mixup_step(state, batch)
     assert state.step == 2 and np.isfinite(float(logs["l_total"]))
+
+
+# -- the multi-tensor update against the per-leaf loop it replaced ---------
+
+def _loop_step(opt, grads, g_norm_of):
+    """One ``step`` of the per-leaf loop that ``ChainOptimizer`` ran before
+    its update became multi-tensor, on ``opt``'s own state; the clip norm
+    is ``g_norm_of(grads)`` of the gradient it clips."""
+    grads = [g.float() for g in grads]
+    if opt.acc is None:
+        _loop_apply(opt, grads, g_norm_of(grads)
+                    if opt.max_norm is not None else None)
+        return
+    n = opt.mini_step
+    for a, g in zip(opt.acc, grads):
+        a.add_((g - a) / (n + 1))
+    opt.mini_step = (n + 1) % opt.accum_steps
+    if opt.mini_step:
+        return
+    grads = [a.clone() for a in opt.acc]
+    for a in opt.acc:
+        a.zero_()
+    _loop_apply(opt, grads, g_norm_of(grads)
+                if opt.max_norm is not None else None)
+
+
+def _loop_apply(opt, grads, g_norm):
+    if g_norm is not None:
+        scale = torch.where(g_norm < opt.max_norm, torch.ones_like(g_norm),
+                            opt.max_norm / g_norm)
+        for g in grads:
+            g.mul_(scale)
+    lr = float(opt.schedule(opt.count))
+    opt.count += 1
+    if opt.optim_type == "SGD":
+        for p, g in zip(opt.params, grads):
+            p.add_(g, alpha=-lr)
+        return
+    one = np.float32(1.0)
+    c1 = float(one - np.float32(opt.b1) ** np.float32(opt.count))
+    c2 = float(one - np.float32(opt.b2) ** np.float32(opt.count))
+    for p, g, m, v in zip(opt.params, grads, opt.mu, opt.nu):
+        m.mul_(opt.b1).add_(g, alpha=1.0 - opt.b1)
+        v.mul_(opt.b2).addcmul_(g, g, value=1.0 - opt.b2)
+        u = (m / c1) / (torch.sqrt(v / c2) + ts.ADAM_EPS)
+        if opt.weight_decay:
+            u = u + opt.weight_decay * p
+        p.add_(u, alpha=-lr)
+
+
+def _tensor(x, dtype):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+# leaves of mixed shapes, a 0-d leaf among them; "mixed": a bf16 group
+LEAF_SHAPES = [(3, 4), (5,), (), (2, 3, 5), (7, 1)]
+BITWISE_CASES = ([(o, c, a, "fp32") for o in ("AdamW", "Adam", "SGD")
+                  for c in (True, False) for a in (1, 2)]
+                 + [("AdamW", True, 1, "mixed"), ("AdamW", False, 2, "mixed")])
+
+
+@pytest.mark.parametrize("optim_type,clip_triggers,accum,dtypes",
+                         BITWISE_CASES,
+                         ids=[f"{o}-{'clip' if c else 'noclip'}-accum{a}-{d}"
+                              for o, c, a, d in BITWISE_CASES])
+def test_multi_tensor_update_equals_the_per_leaf_loop_bitwise(
+        optim_type, clip_triggers, accum, dtypes):
+    rng = np.random.default_rng(7)
+    dt = ([torch.float32, torch.bfloat16, torch.bfloat16, torch.float32,
+           torch.bfloat16] if dtypes == "mixed" else [torch.float32] * 5)
+    init = [_tensor(rng.normal(size=s), d) for s, d in zip(LEAF_SHAPES, dt)]
+    sched = schedules.make_schedule(
+        {"type": "TrueCosineAnnealingLR", "T_max": 10, "eta_min": 1e-6}, 0.05)
+    kw = dict(optim_type=optim_type, betas=(0.9, 0.999), weight_decay=0.01,
+              use_grad_clip=True, accum_steps=accum)
+    opt = ts.make_optimizer(sched, **kw).init([t.clone() for t in init])
+    ref = ts.make_optimizer(sched, **kw).init([t.clone() for t in init])
+    assert len(opt.groups) == (2 if dtypes == "mixed" else 1)
+    scale = 1.0 if clip_triggers else 1e-4
+    for it in range(3 * accum):
+        draw = [_tensor(scale * rng.normal(size=s), d)
+                for s, d in zip(LEAF_SHAPES, dt)]
+        assert (float(ts.global_norm(draw)) >= 0.01) == clip_triggers
+        grads = [g.clone() for g in draw]
+        if it % 2:        # the train step's route: the norm handed over
+            opt.grad_norm(grads)
+        opt.step(grads)
+        # both sides clip by the new norm of the same values
+        _loop_step(ref, [g.clone() for g in draw], ts.global_norm)
+        assert (opt.count, opt.mini_step) == (ref.count, ref.mini_step)
+        for k in ("params", "mu", "nu", "acc"):
+            for i, (a, b) in enumerate(zip(getattr(opt, k) or [],
+                                           getattr(ref, k) or [])):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                assert torch.equal(_bits(a), _bits(b)), (k, i, it)
+    assert opt.count == ref.count == 3
+
+
+@pytest.mark.parametrize("dtypes", ["fp32", "mixed"])
+def test_global_norm_matches_the_sum_of_squares(dtypes):
+    rng = np.random.default_rng(11)
+    shapes = LEAF_SHAPES + [(64, 33), (1000,)]
+    dt = [torch.bfloat16 if dtypes == "mixed" and i % 2 else torch.float32
+          for i in range(len(shapes))]
+    ts_ = [_tensor(rng.normal(size=s), d) for s, d in zip(shapes, dt)]
+    old = torch.sqrt(sum((t.float() * t.float()).sum() for t in ts_))
+    new = ts.global_norm(ts_)
+    assert new.dtype == torch.float32 and new.shape == ()
+    np.testing.assert_allclose(float(new), float(old), rtol=1e-6)
+
+
+class _Dispatched(TorchDispatchMode):
+    """Counts the aten ops dispatched inside it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("optim_type", ["AdamW", "Adam", "SGD"])
+def test_update_dispatches_as_many_ops_for_8_leaves_as_for_664(optim_type):
+    rng = np.random.default_rng(5)
+
+    def ops(n_leaves):
+        shapes = [(1 + i % 3, 2) if i % 5 else () for i in range(n_leaves)]
+        params = [_tensor(rng.normal(size=s), torch.float32) for s in shapes]
+        opt = ts.make_optimizer(1e-3, optim_type=optim_type).init(params)
+        grads = [_tensor(rng.normal(size=s), torch.float32) for s in shapes]
+        with _Dispatched() as mode:
+            opt.grad_norm(grads)
+            opt.step(grads)
+        assert opt.count == 1
+        return sum(mode.ops.values())
+
+    few, many = ops(8), ops(664)
+    assert few == many <= 40, (few, many)
+
+
+def test_train_step_counts_its_update_and_clips_by_the_logged_norm(
+        monkeypatch):
+    net = define_network(dict(NET), device="cpu")
+    loss = build_hybrid_loss({"hybrid_opt": {
+        "use_perc": False, "use_deltaE": False, "use_ssim": False,
+        "use_phys": False}}, device="cpu")
+    opt = ts.make_optimizer(1e-3)
+    state = ts.create_train_state(net, opt, loss)
+    step = ts.make_train_step(net, loss, opt)
+    gt, lq, _ = _batch()
+    batch = dict(lq=_nchw(lq), gt=_nchw(gt))
+    clipped_by = []
+    apply = ts.ChainOptimizer._apply
+
+    def spy(self, grads, g_norm):
+        clipped_by.append(g_norm)
+        return apply(self, grads, g_norm)
+
+    monkeypatch.setattr(ts.ChainOptimizer, "_apply", spy)
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]), _Dispatched() as mode:
+        for _ in range(2):
+            state, logs = step(state, batch)
+    counters = profiling.record()["counters"]
+    profiling.reset()
+    n_params = len(list(net.parameters())) + len(state.log_sigma)
+    assert counters["train_step.optimizer_leaves"] == 2 * n_params
+    assert counters["train_step.optimizer_groups"] == 2 * 1
+    assert len(clipped_by) == 2
+    assert torch.equal(clipped_by[-1], logs["grad_norm"])
+    assert mode.ops["aten._foreach_norm.Scalar"] == 2   # one norm a step
